@@ -1,0 +1,454 @@
+"""TorchPolicyEngine: the user-facing facade over the tensor compiler and
+the verdict kernels, on one CUDA device.
+
+Mirrors the reference's TpuPolicyEngine (cyclonus_tpu/engine/api.py):
+the same constructor pipeline (encode -> dead-target compaction -> rule
+partition compression -> pod classes -> ns-sort -> shape buckets), and
+the same two entry points:
+
+  * evaluate_grid         — the full N x N x Q truth tables;
+  * evaluate_grid_counts  — allow counts over the full grid: the class-
+                            compressed route (weighted epilogue of the
+                            packed counts kernel) when class state is on
+                            and fits the device budget, else the dense
+                            route (plain epilogue over ns-sorted pods).
+
+The reference's autotune, precompute cache, slab plan, AOT cache and
+plan recording are performance or compile machinery that change no
+result; the port runs the default tile and a one-shot precompute.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import carry
+from ..matcher.core import Policy
+from . import host
+from .encoding import (
+    PEER_IP,
+    PolicyEncoding,
+    compress_rule_axes,
+    compute_pod_classes,
+    encode_policy,
+    gather_class_pod_rows,
+    packed_words,
+)
+from .kernel import evaluate_grid_kernel, gather_class_grids, grid_stats_kernel
+from .packed_kernel import sum_partials, verdict_counts_packed
+from .tiled import _precompute, evaluate_grid_counts_classes
+
+
+@dataclass(frozen=True)
+class PortCase:
+    """One distinct (resolved port, resolved port name, protocol) tuple."""
+
+    port: int
+    port_name: str
+    protocol: str
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the current CUDA device when None; raises when that
+    is not available (the engine never falls back to the CPU on its
+    own: a caller who wants the CPU asks for it)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the engine on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{device} requested but no CUDA device is available")
+    return device
+
+
+class GridVerdict:
+    """Verdict grids.  The tensors stay on the engine's device; numpy
+    views materialise lazily on first access, and `gather` fetches
+    individual cells with one device-side index."""
+
+    def __init__(self, pod_keys, port_cases, ingress_dev, egress_dev, combined_dev):
+        self.pod_keys: List[str] = pod_keys
+        self.port_cases: List[PortCase] = port_cases
+        # ingress [Q, N_dst, N_src]; egress/combined [Q, N_src, N_dst]
+        self.ingress_dev = ingress_dev
+        self.egress_dev = egress_dev
+        self.combined_dev = combined_dev
+        self._np: Dict[str, np.ndarray] = {}
+
+    def _materialize(self, name: str) -> np.ndarray:
+        if name not in self._np:
+            self._np[name] = getattr(self, name + "_dev").cpu().numpy()
+        return self._np[name]
+
+    @property
+    def ingress(self) -> np.ndarray:
+        return self._materialize("ingress")
+
+    @property
+    def egress(self) -> np.ndarray:
+        return self._materialize("egress")
+
+    @property
+    def combined(self) -> np.ndarray:
+        return self._materialize("combined")
+
+    def job_verdict(self, q_idx: int, src_idx: int, dst_idx: int):
+        return (
+            bool(self.ingress[q_idx, dst_idx, src_idx]),
+            bool(self.egress[q_idx, src_idx, dst_idx]),
+            bool(self.combined[q_idx, src_idx, dst_idx]),
+        )
+
+    def gather(self, triples: Sequence[Tuple[int, int, int]]) -> np.ndarray:
+        """(ingress, egress, combined) for a batch of (q, src, dst)
+        triples with one device gather and one small transfer."""
+        idx = np.array(triples, dtype=np.int64).reshape(-1, 3)
+        if idx.shape[0] == 0:
+            return np.zeros((0, 3), dtype=bool)
+        t = torch.from_numpy(idx).to(self.egress_dev.device)
+        q, s, d = t[:, 0], t[:, 1], t[:, 2]
+        out = torch.stack(
+            [
+                self.ingress_dev[q, d, s],
+                self.egress_dev[q, s, d],
+                self.combined_dev[q, s, d],
+            ],
+            dim=1,
+        )
+        return out.cpu().numpy()
+
+    def allow_stats(self) -> Dict[str, float]:
+        """Mean allow rate per grid, computed on the device."""
+        if self.ingress_dev.shape[0] == 0:
+            return {"ingress": 0.0, "egress": 0.0, "combined": 0.0}
+        stats = grid_stats_kernel(
+            self.ingress_dev, self.egress_dev, self.combined_dev
+        ).cpu().numpy()
+        return {
+            "ingress": float(stats[0]),
+            "egress": float(stats[1]),
+            "combined": float(stats[2]),
+        }
+
+
+class TorchPolicyEngine:
+    """Compile once per (policy set, cluster state); evaluate many port
+    cases.  Pods are (namespace, name, labels, ip) tuples.
+
+    `device` None means the current CUDA device, and raises when there is
+    none; pass device="cpu" to run on the CPU.  compact/class_compress
+    override the CYCLONUS_COMPACT / CYCLONUS_CLASS_COMPRESS env defaults
+    (None = env), exactly as in the reference engine."""
+
+    def __init__(
+        self,
+        policy: Policy,
+        pods: Sequence[Tuple[str, str, Dict[str, str], str]],
+        namespaces: Dict[str, Dict[str, str]],
+        *,
+        device=None,
+        compact: Optional[bool] = None,
+        class_compress: Optional[str] = None,
+    ):
+        self.device = resolve_device(device)
+        t0 = time.perf_counter()
+        self.encoding: PolicyEncoding = encode_policy(policy, pods, namespaces)
+        cluster = self.encoding.cluster
+        tensors = host._build_tensors(self.encoding)
+        # one O(S*N) host selector pass serves dead-target compaction and
+        # the pod-class signatures
+        selpod = None
+        compact_on = (
+            host._compaction_enabled(tensors) if compact is None else bool(compact)
+        )
+        if compact_on:
+            selpod = host._selector_pod_matches_host(tensors)
+            tensors = host._compact_dead_targets(tensors, selpod=selpod)
+        mode = (
+            host._class_compress_mode()
+            if class_compress is None
+            else str(class_compress).lower()
+        )
+        classes = None
+        ctensors = None
+        if mode != "0":
+            for direction in ("ingress", "egress"):
+                tensors[direction], _stats = compress_rule_axes(tensors[direction])
+            classes = self._maybe_classify(tensors, selpod, mode)
+            if classes is not None:
+                ctensors = host._bucket_tensors(
+                    host._sort_targets_by_ns(
+                        gather_class_pod_rows(tensors, classes.class_rep)
+                    )
+                )
+        tensors = host._bucket_tensors(host._sort_targets_by_ns(tensors))
+        self._init_state(
+            tensors,
+            pod_keys=cluster.pod_keys,
+            port_names=cluster.vocab.port_name,
+            protocols=cluster.vocab.proto,
+            classes=classes,
+            ctensors=ctensors,
+        )
+        self._has_ip_peers = bool(
+            np.any(self.encoding.ingress.peer_kind == PEER_IP)
+            or np.any(self.encoding.egress.peer_kind == PEER_IP)
+        )
+        # pod_ip_valid=True already proves parseability, so only the
+        # residue — IPv6 pods and garbage — pays ipaddress.ip_address
+        self._unparseable_ips = [
+            ip
+            for ip, v4 in zip(cluster.pod_ips, cluster.pod_ip_valid)
+            if not v4 and not host._parseable_ip(ip)
+        ]
+        self.encode_s = time.perf_counter() - t0
+
+    @staticmethod
+    def _maybe_classify(tensors: Dict, selpod, mode: str):
+        """PodClasses, or None: bucket pods into label-equivalence classes
+        when compression is forced (mode "1") or worth it (auto: above the
+        pod floor with a real reduction).  Reuses the selector pass
+        dead-target compaction paid for; when compaction's work budget
+        skipped it, auto mode skips classes too."""
+        n = int(tensors["pod_ns_id"].shape[0])
+        if n == 0 or n >= host._CLASS_MAX_PODS_EXACT:
+            return None
+        if mode != "1" and n < host._class_auto_min_pods():
+            return None
+        if selpod is None:
+            if mode != "1":
+                return None
+            selpod = host._selector_pod_matches_host(tensors)
+        pc = compute_pod_classes(tensors, selpod)
+        if mode != "1" and pc.n_classes > int(0.9 * n):
+            return None  # no real reduction
+        return pc
+
+    @classmethod
+    def from_tensors(
+        cls,
+        tensors: Dict,
+        *,
+        pod_keys: Sequence[str],
+        port_names: Dict[str, int],
+        protocols: Dict[str, int],
+        classes=None,
+        ctensors: Optional[Dict] = None,
+        device=None,
+    ) -> "TorchPolicyEngine":
+        """An engine over an already built, bucketed numpy tensor dict —
+        e.g. the reference engine's `_tensors` and its class state's
+        `classes` / `ctensors` — skipping the host pipeline.  port_names
+        and protocols are the encoding vocabulary's name -> id maps (the
+        port cases resolve through them); `classes` is any object with
+        n_classes, class_of_pod and class_size."""
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        self.encoding = None
+        self._init_state(
+            tensors,
+            pod_keys=list(pod_keys),
+            port_names=dict(port_names),
+            protocols=dict(protocols),
+            classes=classes,
+            ctensors=ctensors,
+        )
+        self._has_ip_peers = any(
+            bool(np.any(tensors[d]["peer_kind"] == PEER_IP))
+            for d in ("ingress", "egress")
+        )
+        self._unparseable_ips = []
+        self.encode_s = 0.0
+        return self
+
+    def _init_state(self, tensors, *, pod_keys, port_names, protocols, classes, ctensors):
+        self._tensors = tensors
+        self._pod_keys = list(pod_keys)
+        self._port_names = port_names
+        self._protocols = protocols
+        self._device_tensors = None
+        self._pod_perm = None  # ns-order pod permutation of the dense counts route
+        self._class_state = None
+        if classes is not None:
+            n = len(self._pod_keys)
+            cb = int(ctensors["pod_ns_id"].shape[0])
+            self._class_state = {
+                "classes": classes,
+                "ctensors": ctensors,
+                "device_tensors": None,
+                "class_of": None,
+                # the device bytes the class route pins (class map +
+                # weights + the class tensor set), charged against the
+                # device budget exactly as the reference charges them
+                "aux_bytes": int(
+                    n * 4 + cb * 4 + sum(a.nbytes for a in host._np_leaves(ctensors))
+                ),
+            }
+
+    @property
+    def n_pods(self) -> int:
+        return len(self._pod_keys)
+
+    @property
+    def pod_keys(self) -> List[str]:
+        return self._pod_keys
+
+    def pod_classes(self):
+        """The PodClasses of the class state, or None when compression is
+        off for this engine."""
+        st = self._class_state
+        return st["classes"] if st is not None else None
+
+    def _dev(self) -> Dict:
+        if self._device_tensors is None:
+            self._device_tensors = carry.tensors_from_reference(self._tensors, self.device)
+        return self._device_tensors
+
+    def _class_dev(self) -> Dict:
+        st = self._class_state
+        if st["device_tensors"] is None:
+            st["device_tensors"] = carry.tensors_from_reference(st["ctensors"], self.device)
+        return st["device_tensors"]
+
+    def _port_case_arrays(self, cases: Sequence[PortCase]):
+        q_port = np.array([c.port for c in cases], dtype=np.int32)  # shape: (Q,) int32
+        q_name = np.array(
+            [self._port_names.get(c.port_name, -1) for c in cases], dtype=np.int32
+        )  # shape: (Q,) int32; sentinel: -1=unnamed
+        # protocols unseen at compile time can match no spec: id -1 (pads
+        # are -2, real ids >= 0)
+        q_proto = np.array(
+            [self._protocols.get(c.protocol, -1) for c in cases], dtype=np.int32
+        )
+        return q_port, q_name, q_proto
+
+    def _with_cases(self, tensors: Dict, cases: Sequence[PortCase]) -> Dict:
+        t = dict(tensors)
+        for k, a in zip(("q_port", "q_name", "q_proto"), self._port_case_arrays(cases)):
+            t[k] = carry.to_torch(a, self.device)
+        return t
+
+    def _check_ips(self) -> None:
+        if self._has_ip_peers and self._unparseable_ips:
+            # The oracle raises when an IP peer matcher meets an unparseable
+            # pod IP (kube/ipaddr.py); a grid evaluation hits every pair, so
+            # raise with the same class of error.
+            raise ValueError(
+                f"unable to parse IP(s) {self._unparseable_ips[:3]!r} "
+                f"while IPBlock peers are present"
+            )
+
+    # --- truth tables ----------------------------------------------------
+
+    def evaluate_grid(self, cases: Sequence[PortCase]) -> GridVerdict:
+        """The full N x N x Q verdict grid, on the engine's device."""
+        self._check_ips()
+        n = self.n_pods
+        if not cases:
+            empty = torch.zeros((0, n, n), dtype=torch.bool, device=self.device)
+            return GridVerdict(self.pod_keys, [], empty, empty.clone(), empty.clone())
+        if self._class_state is not None:
+            return self._evaluate_grid_classes(cases)
+        out = evaluate_grid_kernel(self._with_cases(self._dev(), cases), pack=True)
+        # bucketing pads the pod axis; strip the pad rows
+        return GridVerdict(
+            self.pod_keys,
+            list(cases),
+            out["ingress"][:, :n, :n],
+            out["egress"][:, :n, :n],
+            out["combined"][:, :n, :n],
+        )
+
+    def _evaluate_grid_classes(self, cases: Sequence[PortCase]) -> GridVerdict:
+        """Class-compressed grid: the C x C x Q class grid, broadcast back
+        to pod axes with the gather epilogue."""
+        st = self._class_state
+        if st["class_of"] is None:
+            st["class_of"] = carry.to_torch(st["classes"].class_of_pod, self.device)
+        out = gather_class_grids(
+            evaluate_grid_kernel(self._with_cases(self._class_dev(), cases), pack=True),
+            st["class_of"],
+        )
+        return GridVerdict(
+            self.pod_keys, list(cases), out["ingress"], out["egress"], out["combined"]
+        )
+
+    # --- full-grid counts ------------------------------------------------
+
+    def _class_counts_eligible(self, q: int) -> bool:
+        """The class counts route must fit the device budget it protects:
+        aux/index tensors + the packed class precompute + row sums,
+        estimated on the host before any dispatch."""
+        st = self._class_state
+        if st is None:
+            return False
+        ct = st["ctensors"]
+        cb = int(ct["pod_ns_id"].shape[0])
+        t = sum(int(ct[d]["target_ns"].shape[0]) for d in ("ingress", "egress"))
+        w = sum(packed_words(int(ct[d]["target_ns"].shape[0])) for d in ("ingress", "egress"))
+        est = st["aux_bytes"] + cb * (4 * w * (q + 1) + t) + cb * q * 12
+        return est <= host._slab_max_bytes()
+
+    def evaluate_grid_counts(self, cases: Sequence[PortCase]) -> Dict[str, int]:
+        """Allow counts over the full N x N x Q grid (ingress, egress,
+        combined and the cell count), routed as the reference routes
+        them: the class-compressed route when class state is on and fits
+        the device budget, else the dense route."""
+        self._check_ips()
+        n = self.n_pods
+        if not cases or n == 0:
+            return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
+        if self._class_counts_eligible(len(cases)):
+            return self._counts_classes(cases)
+        return self._counts_dense(cases)
+
+    def _counts_classes(self, cases, counts_fn=verdict_counts_packed) -> Dict[str, int]:
+        st = self._class_state
+        pc = st["classes"]
+        return evaluate_grid_counts_classes(
+            self._with_cases(self._class_dev(), cases),
+            pc.n_classes,
+            pc.class_size,
+            self.n_pods,
+            counts_fn=counts_fn,
+        )
+
+    def _dense_counts_tensors(self, cases: Sequence[PortCase]) -> Dict:
+        """The device tensors of the dense counts route: pods in
+        namespace order (bucketing pads, ns id -1, kept LAST — the
+        kernel's validity mask assumes the real pods occupy the first n
+        rows), host-evaluated ip columns permuted alike.  Counts are
+        invariant under the permutation."""
+        if self._pod_perm is None:
+            ns = self._tensors["pod_ns_id"]
+            key = np.where(ns < 0, np.iinfo(np.int32).max, ns)
+            self._pod_perm = torch.from_numpy(np.argsort(key, kind="stable")).to(self.device)
+        perm = self._pod_perm
+        t = dict(self._dev())
+        for k in host._POD_KEYS:
+            t[k] = t[k][perm]
+        for direction in ("ingress", "egress"):
+            if "host_ip_match" in t[direction]:
+                d = dict(t[direction])
+                d["host_ip_match"] = d["host_ip_match"][:, perm]
+                t[direction] = d
+        return self._with_cases(t, cases)
+
+    def _counts_dense(self, cases, counts_fn=verdict_counts_packed) -> Dict[str, int]:
+        pre = _precompute(self._dense_counts_tensors(cases), True)
+        e, ig = pre["egress"], pre["ingress"]
+        partials = counts_fn(
+            e["tmatch_pk"], e["has_target"], e["tallow_pk"],
+            ig["tmatch_pk"], ig["has_target"], ig["tallow_pk"],
+            n_pods=self.n_pods,
+        )
+        return sum_partials(partials, len(cases), self.n_pods)

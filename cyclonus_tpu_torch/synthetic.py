@@ -1,0 +1,97 @@
+"""The benchmark's synthetic cluster and policy set, on this package's own
+policy model: a copy of bench.build_synthetic.  From the same
+random.Random it yields the same pods, namespaces and policies.
+
+Shape: n_pods pods over max(2, n_pods // 250) namespaces, each pod with
+three labels (pod, app, tier) and a distinct 10.x.y.z address; each
+policy selects one app in one namespace and allows TCP 80 (plus the
+named UDP port serve-81-udp for 30% of them) from one peer: an IPBlock
+with one except (20%) or a tier pod selector, half of them also scoped
+to a team namespace selector.  40% of the policies also cover egress.
+"""
+
+from __future__ import annotations
+
+import random
+
+from .kube.netpol import (
+    IntOrString,
+    IPBlock,
+    LabelSelector,
+    NetworkPolicy,
+    NetworkPolicyEgressRule,
+    NetworkPolicyIngressRule,
+    NetworkPolicyPeer,
+    NetworkPolicyPort,
+    NetworkPolicySpec,
+)
+
+
+def build_synthetic(n_pods: int, n_policies: int, rng: random.Random, n_ns: int = None):
+    """(pods, namespaces, policies) of the synthetic benchmark cluster."""
+    n_ns = n_ns or max(2, n_pods // 250)
+    namespaces = {
+        f"ns{i}": {"ns": f"ns{i}", "team": f"team{i % 7}"} for i in range(n_ns)
+    }
+    pods = []
+    for i in range(n_pods):
+        ns = f"ns{i % n_ns}"
+        labels = {
+            "pod": f"p{i % 100}",
+            "app": f"app{i % 20}",
+            "tier": f"tier{i % 5}",
+        }
+        ip = f"10.{(i >> 16) & 255}.{(i >> 8) & 255}.{i & 255}"
+        pods.append((ns, f"pod-{i}", labels, ip))
+
+    policies = []
+    for i in range(n_policies):
+        ns = f"ns{rng.randrange(n_ns)}"
+        target = LabelSelector.make(match_labels={"app": f"app{rng.randrange(20)}"})
+        peers = []
+        r = rng.random()
+        if r < 0.2:
+            peers.append(
+                NetworkPolicyPeer(
+                    ip_block=IPBlock.make(
+                        f"10.{rng.randrange(4)}.0.0/16",
+                        [f"10.{rng.randrange(4)}.{rng.randrange(8)}.0/24"],
+                    )
+                )
+            )
+        else:
+            peers.append(
+                NetworkPolicyPeer(
+                    pod_selector=LabelSelector.make(
+                        match_labels={"tier": f"tier{rng.randrange(5)}"}
+                    ),
+                    namespace_selector=LabelSelector.make(
+                        match_labels={"team": f"team{rng.randrange(7)}"}
+                    )
+                    if rng.random() < 0.5
+                    else None,
+                )
+            )
+        ports = [NetworkPolicyPort(protocol="TCP", port=IntOrString(80))]
+        if rng.random() < 0.3:
+            ports.append(
+                NetworkPolicyPort(
+                    protocol="UDP", port=IntOrString("serve-81-udp")
+                )
+            )
+        rule_i = NetworkPolicyIngressRule(ports=ports, from_=peers)
+        rule_e = NetworkPolicyEgressRule(ports=ports, to=peers)
+        types = ["Ingress"] if rng.random() < 0.6 else ["Ingress", "Egress"]
+        policies.append(
+            NetworkPolicy(
+                name=f"bench-{i}",
+                namespace=ns,
+                spec=NetworkPolicySpec(
+                    pod_selector=target,
+                    policy_types=types,
+                    ingress=[rule_i],
+                    egress=[rule_e] if "Egress" in types else [],
+                ),
+            )
+        )
+    return pods, namespaces, policies
