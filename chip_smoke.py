@@ -11,19 +11,29 @@ Phases, each raising on failure:
                 on seeded operands: ragged axes, Q in {1, 2, 3}, word
                 depths from 1 to several hundred (many shared-memory
                 staging chunks), invalid rows and columns, has=False rows,
-                zero weights.  Exact equality;
+                zero weights; the tiered variants (K3) also with 1 to
+                1,500 tier rows per direction, pad rows and random
+                ANP/BANP/Pass actions and ranks.  Exact equality;
   4. truth tables — TorchPolicyEngine.evaluate_grid on the card against
-                the scalar oracle, for every policy of all_examples();
+                the scalar oracle, for every policy of all_examples(), and
+                for seeds 0-15 of the tiered scenario generator on both
+                class modes against the tiered oracle (grids and counts;
+                K3 must have launched);
   5. main path — the benchmark's synthetic cluster (100,000 pods x 10,000
                 policies, seed 20260729, port cases TCP 80 and named UDP
                 81) through the default engine (class-compressed route,
                 weighted kernel) and with class_compress="0" (dense route,
-                plain-epilogue kernel); both counts must agree, both
-                kernels must have launched, and the plain version must
-                agree with the kernel path at a sub-size and with each
-                kernel at the main-path shapes.  Times: encode, precompute,
-                kernel (median of 5 CUDA-event runs), plain version, the
-                kernel's bound, end-to-end cells/s.
+                plain-epilogue kernel), then the same with the benchmark's
+                admin-tier lattice layered over it (the tiered kernels);
+                on each path both counts must agree, both kernels must
+                have launched, and the plain version must agree with the
+                kernel path at a sub-size and with each kernel at the
+                main-path shapes.  The tiered counts are held against the
+                untiered ones: egress equal (every egress tier row is a
+                pad), ingress lower (the tier0 <- app1 Deny hits TCP 80).
+                Times: encode, precompute, kernel (median of 5 CUDA-event
+                runs), plain version, the kernel's bound, end-to-end
+                cells/s.
 
 Every comparison is exact.  Prints a JSON line of the main path's
 end-to-end numbers, a JSON line of per-kernel numbers, then as its last
@@ -56,6 +66,15 @@ SEED = 20260729
 #: per-cell epilogue instructions of the packed counts kernel: two !=0
 #: tests, two ORs with !has, the combined AND and three accumulations
 EPILOGUE_OPS = 8
+#: per cell and direction that some tier row matches, tiered: the lattice
+#: (two key-vs-none compares, two action masks, the has select and the
+#: final select); where no row matches, the verdict stands as it is
+LATTICE_OPS = 6
+#: per (cell, matching tier row) pair: find the bit, clear it, two mins
+TIER_HIT_OPS = 4
+#: the dense sub-size at which the engine's kernel path is held against
+#: its plain version
+N_SUB = 8192
 
 
 def log(msg: str) -> None:
@@ -112,6 +131,42 @@ def random_operands(rng, q, we, wi, ns, nd, device):
     return args, flags(ns, 0.8), flags(nd, 0.8), w
 
 
+def random_tier(rng, q, ns, nd, ge, gi, device):
+    """A seeded `tier` operand of the packed counts kernel: random
+    subjects and peers, ANP rows with Allow/Deny/Pass and BANP rows with
+    Allow/Deny at random ranks (with ties), and pad rows whose keys are
+    both TIER_KEY_NONE."""
+    import numpy as np
+    import torch
+
+    from cyclonus_tpu_torch.engine.encoding import TIER_KEY_NONE
+
+    def keys(g):
+        rank = rng.integers(0, max(g // 2, 1), size=g)
+        banp = rng.random(g) < 0.3
+        act = np.where(banp, rng.integers(1, 3, size=g), rng.integers(1, 4, size=g))
+        key = (rank * 4 + act).astype(np.int32)
+        pad = rng.random(g) < 0.2
+        return (
+            np.where(~banp & ~pad, key, TIER_KEY_NONE).astype(np.int32),
+            np.where(banp & ~pad, key, TIER_KEY_NONE).astype(np.int32),
+        )
+
+    def bits(shape, p):
+        return rng.random(shape) < p
+
+    # sparser as the rows grow, so a cell matches a handful of rows
+    p_e, p_i = min(0.3, 4 / ge) ** 0.5, min(0.3, 4 / gi) ** 0.5
+    (ea, eb), (ia, ib) = keys(ge), keys(gi)
+    tier = {
+        "egress": {"subj": bits((ge, ns), p_e), "peerq": bits((ge, nd, q), p_e),
+                   "anp_key": ea, "banp_key": eb},
+        "ingress": {"subj": bits((gi, nd), p_i), "peerq": bits((gi, ns, q), p_i),
+                    "anp_key": ia, "banp_key": ib},
+    }
+    return {d: {k: torch.from_numpy(v).to(device) for k, v in t.items()} for d, t in tier.items()}
+
+
 def device_time_profile(fn, reps: int = 3):
     """(busy share, top kernels) of `reps` warm calls of fn under
     torch.profiler: the device's summed kernel time over the host wall
@@ -142,14 +197,19 @@ def device_time_profile(fn, reps: int = 3):
     return busy_us / wall_us, [(k[:60], round(us / reps / 1e3, 3)) for us, k in rows[:5]]
 
 
+def check_kernel(got, want, what: str) -> None:
+    import torch
+
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"kernel != plain at {what}: {bad} entries differ")
+
+
 def phase_kernels(device) -> None:
     import numpy as np
     import torch
 
-    from cyclonus_tpu_torch.engine.packed_kernel import (
-        verdict_counts_packed,
-        verdict_counts_packed_plain,
-    )
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
 
     rng = np.random.default_rng(20260729)
     shapes = [  # (q, we, wi, ns, nd)
@@ -170,24 +230,61 @@ def phase_kernels(device) -> None:
             {"valid_src": vs, "valid_dst": vd, "w_dst": w, "bs": 64, "bd": 128},
         ]
         for kw in variants:
-            got = verdict_counts_packed(*args, **kw)
+            got = pk.verdict_counts_packed(*args, **kw)
             torch.cuda.synchronize()
-            want = verdict_counts_packed_plain(*args, **kw)
-            if not torch.equal(got, want):
-                bad = int((got != want).sum())
-                raise AssertionError(
-                    f"kernel != plain at q={q} we={we} wi={wi} ns={ns} nd={nd} "
-                    f"{sorted(kw)}: {bad} entries differ"
-                )
+            want = pk.verdict_counts_packed_plain(*args, **kw)
+            check_kernel(got, want, f"q={q} we={we} wi={wi} ns={ns} nd={nd} {sorted(kw)}")
             n_checked += 1
-    log(f"kernels: {n_checked} kernel-vs-plain checks equal")
+    log(f"kernels: {n_checked} untiered kernel-vs-plain checks equal")
+
+    # the tiered variants: tier rows from one to past the reference's
+    # 1,024-row ceiling (three 512-row staging chunks per side)
+    tiered = [  # (q, we, wi, ns, nd, ge, gi)
+        (1, 1, 1, 9, 9, 1, 1),
+        (2, 12, 8, 1000, 777, 4, 4),
+        (3, 33, 33, 523, 1500, 40, 7),
+        (2, 1, 33, 2049, 130, 1500, 600),
+        (2, 300, 170, 200, 300, 513, 1500),
+    ]
+    n_tiered = 0
+    for q, we, wi, ns, nd, ge, gi in tiered:
+        args, vs, vd, w = random_operands(rng, q, we, wi, ns, nd, device)
+        tier = random_tier(rng, q, ns, nd, ge, gi, device)
+        variants = [
+            {"n_pods": min(ns, nd) - 1},
+            {"valid_src": vs, "valid_dst": vd},
+            {"n_pods": ns, "w_dst": w},
+            {"valid_src": vs, "valid_dst": vd, "w_dst": w, "bs": 64, "bd": 128},
+        ]
+        for kw in variants:
+            got = pk.verdict_counts_packed(*args, tier=tier, **kw)
+            torch.cuda.synchronize()
+            want = pk.verdict_counts_packed_plain(*args, tier=tier, **kw)
+            check_kernel(got, want, f"tiered q={q} ge={ge} gi={gi} ns={ns} nd={nd} {sorted(kw)}")
+            n_tiered += 1
+    log(f"kernels: {n_tiered} tiered kernel-vs-plain checks equal (tolerance: exact)")
 
 
 def phase_truth_tables(device) -> None:
     from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
     from cyclonus_tpu_torch.kube import examples
     from cyclonus_tpu_torch.matcher import build_network_policies
     from cyclonus_tpu_torch.oracle import oracle_grid
+    from cyclonus_tpu_torch.tiers.fuzz import build_fuzz_case
+
+    def check(engine, policy, pods, namespaces, cases, what, tiers=None):
+        grid = engine.evaluate_grid(cases)
+        want = oracle_grid(policy, pods, namespaces, cases, tiers=tiers)
+        for k, v in want.items():
+            got = getattr(grid, k)
+            if got.shape != v.shape or not (got == v).all():
+                raise AssertionError(f"{what}: {k} grid differs from the oracle")
+        counts = engine.evaluate_grid_counts(cases)
+        sums = {k: int(v.sum()) for k, v in want.items()}
+        if {k: counts[k] for k in sums} != sums:
+            raise AssertionError(f"{what}: counts {counts} != oracle sums {sums}")
+        return want["combined"].size
 
     pods, namespaces = examples.example_cluster()
     cases = [
@@ -199,22 +296,45 @@ def phase_truth_tables(device) -> None:
     cells = 0
     for i, policies in enumerate(policy_sets):
         policy = build_network_policies(True, policies)
-        grid = TorchPolicyEngine(policy, pods, namespaces, device=device).evaluate_grid(cases)
-        want = oracle_grid(policy, pods, namespaces, cases)
-        for k, v in want.items():
-            got = getattr(grid, k)
-            if got.shape != v.shape or not (got == v).all():
-                raise AssertionError(f"policy set {i}: {k} grid differs from the oracle")
-            cells += v.size
+        engine = TorchPolicyEngine(policy, pods, namespaces, device=device)
+        cells += check(engine, policy, pods, namespaces, cases, f"policy set {i}")
     log(f"truth tables: {len(policy_sets)} policy sets, {cells} cells equal to the oracle")
 
+    cells = n_tiered = 0
+    for seed in range(16):
+        fc = build_fuzz_case(seed)
+        policy = build_network_policies(fc.simplify, fc.netpols)
+        for mode in ("0", "1"):
+            pk.reset_launches()
+            engine = TorchPolicyEngine(
+                policy, fc.pods, fc.namespaces, tiers=fc.tiers, class_compress=mode,
+                device=device,
+            )
+            cells += check(
+                engine, policy, fc.pods, fc.namespaces, fc.cases,
+                f"fuzz seed {seed} class_compress={mode}", tiers=fc.tiers,
+            )
+            k3 = pk.LAUNCHES["packed_counts_tiered"] + pk.LAUNCHES["packed_rowsums_tiered"]
+            if (fc.tiers is not None) != (k3 > 0):
+                raise AssertionError(
+                    f"fuzz seed {seed} class_compress={mode}: tiered counts kernel "
+                    f"launches {pk.LAUNCHES} do not match tiers={fc.tiers is not None}"
+                )
+            n_tiered += fc.tiers is not None
+    log(f"truth tables: 16 fuzz seeds x 2 class modes ({n_tiered} tiered engines), "
+        f"{cells} cells and all counts equal to the tiered oracle")
 
-def bound(args, w_dst, out):
+
+def bound(args, w_dst, out, ops=None, tier_work=(0, 0)):
     """(ms, bound_by, ops, bytes): the least time the card could take for one
     packed counts call on these inputs — the larger of bytes (each input
     read once, the output written once) over HBM bandwidth and 32-bit
     integer instructions (one LOP3 per packed word, cell and direction,
-    plus the epilogue) over the integer pipe's peak — and the two counts."""
+    plus the epilogue; tiered, one AND per tier word, cell and direction,
+    TIER_HIT_OPS per matching (cell, tier row) pair and the lattice per
+    matched cell and direction) over the integer pipe's peak — and the two
+    counts.  `ops` is the tiered operand dict (packed tier words and keys)
+    and `tier_work` this run's (pairs, matched cells) from `tier_work`."""
     tmatch_e_pk, _has_e, tallow_e_pk, tmatch_i_pk, _has_i, _tallow_i_pk = args
     we, ns = tmatch_e_pk.shape
     wi, nd = tmatch_i_pk.shape
@@ -223,41 +343,77 @@ def bound(args, w_dst, out):
     nbytes += out.numel() * out.element_size()
     if w_dst is not None:
         nbytes += w_dst.numel() * w_dst.element_size()
-    ops = q * ns * nd * (we + wi + EPILOGUE_OPS)
-    by = "operations" if ops / PEAK_INT_OPS >= nbytes / PEAK_BYTES else "bytes"
-    return max(ops / PEAK_INT_OPS, nbytes / PEAK_BYTES) * 1e3, by, ops, nbytes
+    n_ops = q * ns * nd * (we + wi + EPILOGUE_OPS)
+    if ops is not None:
+        t = ops["tier"]
+        nbytes += sum(a.numel() * a.element_size() for a in t.values())
+        wge, wgi = t["subj_e"].shape[1], t["subj_i"].shape[0]
+        hits, cells = tier_work
+        n_ops += q * ns * nd * (wge + wgi) + TIER_HIT_OPS * hits + LATTICE_OPS * cells
+    by = "operations" if n_ops / PEAK_INT_OPS >= nbytes / PEAK_BYTES else "bytes"
+    return max(n_ops / PEAK_INT_OPS, nbytes / PEAK_BYTES) * 1e3, by, n_ops, nbytes
 
 
-def kernel_record(name, source, replaces, pre, n_pods, w_dst, launches):
+def tier_work(tier, valid_src, valid_dst):
+    """This run's tier work that the function needs, both directions:
+    (matching (cell, tier row) pairs, cells with at least one matching
+    row), over valid pods and the rows that can change a verdict (a pad
+    row, both keys TIER_KEY_NONE, changes nothing).  The matched cells are
+    counted by grouping pods by the set of rows they match."""
+    import torch
+
+    from cyclonus_tpu_torch.engine.encoding import TIER_KEY_NONE
+
+    hits = cells = 0
+    sides = ((tier["egress"], valid_src, valid_dst), (tier["ingress"], valid_dst, valid_src))
+    for t, v_subj, v_peer in sides:
+        live = (t["anp_key"] != TIER_KEY_NONE) | (t["banp_key"] != TIER_KEY_NONE)
+        if not bool(live.any()):
+            continue
+        subj = t["subj"][live] & v_subj[None, :]  # [G, N]
+        peer = t["peerq"][live] & v_peer[None, :, None]  # [G, M, Q]
+        hits += int((subj.sum(1).double()[:, None] * peer.sum(1).double()).sum())
+        us, cs = torch.unique(subj.T.to(torch.uint8), dim=0, return_counts=True)
+        for qi in range(peer.shape[2]):
+            up, cp = torch.unique(peer[:, :, qi].T.to(torch.uint8), dim=0,
+                                  return_counts=True)
+            match = (us.double() @ up.double().T) > 0
+            cells += int((cs.double()[:, None] * cp.double()[None, :])[match].sum())
+    return hits, cells
+
+
+def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
     """Hold the kernel against its plain version on the main path's
-    inputs and time both."""
+    inputs (tiered when the precompute carries tiers) and time both."""
     import torch
 
     from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.engine.tiled import packed_tier
 
     e, ig = pre["egress"], pre["ingress"]
     args = [
         e["tmatch_pk"], e["has_target"], e["tallow_pk"],
         ig["tmatch_pk"], ig["has_target"], ig["tallow_pk"],
     ]
-    kw = {"n_pods": n_pods, "w_dst": w_dst}
+    tier = packed_tier(pre)
+    kw = {"n_pods": n_pods, "tier": tier, "w_dst": w_dst}
     got = pk.verdict_counts_packed(*args, **kw)
     torch.cuda.synchronize()
     want = pk.verdict_counts_packed_plain(*args, **kw)
-    if not torch.equal(got, want):
-        raise AssertionError(f"{name}: kernel != plain at the main-path shapes")
+    check_kernel(got, want, f"{name}, the main-path shapes")
     max_abs_err = float((got.double() - want.double()).abs().max())
     valid_src, valid_dst, bs, bd = pk._resolve(
         args[0], args[3], n_pods, None, None, None, None
     )
-    ops = pk._packed_operands(*args, valid_src, valid_dst, w_dst, bs, bd)
+    ops = pk._packed_operands(*args, valid_src, valid_dst, tier, w_dst, bs, bd)
     ms = time_ms(lambda: pk._counts_cuda(ops, bs), reps=5, warm=1)
     plain_ms = time_ms(lambda: pk._counts_plain(ops, bs), reps=1, warm=0)
-    b_ms, b_by, b_ops, b_bytes = bound(args, w_dst, got)
+    work = (0, 0) if tier is None else tier_work(tier, valid_src, valid_dst)
+    b_ms, b_by, b_ops, b_bytes = bound(args, w_dst, got, None if tier is None else ops, work)
     rec = {
         "name": name,
         "route": "cuda",
-        "source": source,
+        "source": "cyclonus_tpu_torch/csrc/packed_counts.cu",
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": max_abs_err,
@@ -271,6 +427,10 @@ def kernel_record(name, source, replaces, pre, n_pods, w_dst, launches):
         "q": int(args[2].shape[2]), "we": int(args[0].shape[0]), "wi": int(args[3].shape[0]),
         "ns": int(args[0].shape[1]), "nd": int(args[3].shape[1]),
     }
+    if tier is not None:
+        shape.update(ge=int(tier["egress"]["subj"].shape[0]),
+                     gi=int(tier["ingress"]["subj"].shape[0]), tier_pairs=work[0],
+                     tier_cells=work[1])
     log(
         f"{name}: {ms:.3f} ms (bound {b_ms:.3f} ms: {b_ops:.4e} ops, {b_bytes:.4e} bytes; "
         f"plain {plain_ms:.1f} ms) at {shape}, equal to plain (tolerance: exact)"
@@ -278,14 +438,111 @@ def kernel_record(name, source, replaces, pre, n_pods, w_dst, launches):
     return rec
 
 
+def drive_main_path(policy, pods, namespaces, cases, device, tiers=None):
+    """The main path, once: both counts routes through the entry points a
+    user calls, with the launch counts zeroed just before and read just
+    after.  Returns (class engine, dense engine, counts, launches, first
+    call seconds of each route)."""
+    from cyclonus_tpu_torch.engine import TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+
+    label = "tiered main path" if tiers else "main path"
+    suffix = "_tiered" if tiers else ""
+    pk.reset_launches()
+    eng_a = TorchPolicyEngine(policy, pods, namespaces, device=device, tiers=tiers)
+    t0 = time.perf_counter()
+    counts_a = eng_a.evaluate_grid_counts(cases)
+    first_a = time.perf_counter() - t0
+    eng_b = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="0",
+                              tiers=tiers)
+    t0 = time.perf_counter()
+    counts_b = eng_b.evaluate_grid_counts(cases)
+    first_b = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    log(f"{label} launches: {launches}")
+
+    if eng_a.pod_classes() is None or not eng_a._class_counts_eligible(len(cases)):
+        raise AssertionError(f"{label}: the default engine did not take the class route")
+    if eng_b.pod_classes() is not None:
+        raise AssertionError(f"{label}: class_compress=0 engine holds class state")
+    if counts_a != counts_b:
+        raise AssertionError(f"{label}: class route {counts_a} != dense route {counts_b}")
+    n = len(pods)
+    if counts_a["cells"] != len(cases) * n * n or not 0 < counts_a["combined"] <= counts_a["cells"]:
+        raise AssertionError(f"{label}: implausible counts {counts_a}")
+    for name in ("packed_counts", "packed_rowsums"):
+        if launches[name + suffix] < 1:
+            raise AssertionError(f"{label}: kernel {name + suffix} never launched: {launches}")
+    log(f"{label} counts (both routes): {json.dumps(counts_a)}")
+    return eng_a, eng_b, counts_a, launches, first_a, first_b
+
+
+def route_numbers(eng_a, eng_b, cases, first_a, first_b, label):
+    """Warm end-to-end times, device busy shares and precompute times of
+    both routes; returns (routes dict, class precompute inputs, dense
+    precompute)."""
+    import torch
+
+    from cyclonus_tpu_torch.engine.tiled import _precompute
+
+    e2e_a = time_ms(lambda: eng_a.evaluate_grid_counts(cases), reps=3, warm=0) / 1e3
+    e2e_b = time_ms(lambda: eng_b.evaluate_grid_counts(cases), reps=3, warm=0) / 1e3
+    busy = {}
+    for route, eng in (("class", eng_a), ("dense", eng_b)):
+        share, top = device_time_profile(lambda e=eng: e.evaluate_grid_counts(cases))
+        busy[route] = share
+        if share is None:
+            log(f"{label}: device busy share, {route} route: not measured (no device time traced)")
+        else:
+            log(f"{label}: device busy share, {route} route: {share:.4f}; "
+                f"top kernels ms/call: {top}")
+
+    tens_b = eng_b._dense_counts_tensors(cases)
+    pre_b = _precompute(tens_b, True)
+    pre_ms_b = time_ms(lambda: _precompute(tens_b, True), reps=3, warm=0)
+    tens_a = eng_a._with_cases(eng_a._class_dev(), cases)
+    pre_a = _precompute(tens_a, True)
+    pre_ms_a = time_ms(lambda: _precompute(tens_a, True), reps=3, warm=0)
+    torch.cuda.synchronize()
+    cells = len(cases) * eng_a.n_pods ** 2
+    routes = {
+        "class": {"encode_s": eng_a.encode_s, "first_call_s": first_a, "warm_s": e2e_a,
+                  "precompute_ms": pre_ms_a, "pod_axis": int(tens_a["pod_ns_id"].shape[0])},
+        "dense": {"encode_s": eng_b.encode_s, "first_call_s": first_b, "warm_s": e2e_b,
+                  "precompute_ms": pre_ms_b, "pod_axis": int(tens_b["pod_ns_id"].shape[0])},
+    }
+    for route, r in routes.items():
+        r["cells_per_s"] = cells / r["warm_s"]
+        r["device_busy_share"] = busy[route]
+    return routes, (tens_a, pre_a), pre_b
+
+
+def sub_size_check(policy_count, cases, device, tiers=None) -> None:
+    """The plain version through the engine at a sub-size, dense route."""
+    from cyclonus_tpu_torch.engine import TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.matcher import build_network_policies
+    from cyclonus_tpu_torch.synthetic import build_synthetic
+
+    sp, sn, spol = build_synthetic(N_SUB, policy_count, random.Random(SEED))
+    eng = TorchPolicyEngine(build_network_policies(True, spol), sp, sn, device=device,
+                            class_compress="0", tiers=tiers)
+    got = eng.evaluate_grid_counts(cases)
+    want = eng._counts_dense(cases, counts_fn=pk.verdict_counts_packed_plain)
+    label = "tiered " if tiers else ""
+    if got != want:
+        raise AssertionError(f"{label}sub-size {N_SUB}: kernel path {got} != plain {want}")
+    log(f"{label}sub-size {N_SUB} pods dense route: kernel path == plain version "
+        f"({json.dumps(got)})")
+
+
 def phase_main_path(device):
     import torch
 
-    from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine
-    from cyclonus_tpu_torch.engine import packed_kernel as pk
-    from cyclonus_tpu_torch.engine.tiled import _precompute, class_rowsums_plan
+    from cyclonus_tpu_torch.engine import PortCase
+    from cyclonus_tpu_torch.engine.tiled import class_rowsums_plan
     from cyclonus_tpu_torch.matcher import build_network_policies
-    from cyclonus_tpu_torch.synthetic import build_synthetic
+    from cyclonus_tpu_torch.synthetic import bench_tiers, build_synthetic
 
     n_pods, n_policies = N_PODS, N_POLICIES
     t0 = time.perf_counter()
@@ -294,92 +551,53 @@ def phase_main_path(device):
     log(f"main path: synthetic {n_pods} pods x {n_policies} policies built in "
         f"{time.perf_counter() - t0:.2f} s")
     cases = [PortCase(80, "serve-80-tcp", "TCP"), PortCase(81, "serve-81-udp", "UDP")]
-
-    # the main path: both entry routes, counters zeroed just before and
-    # read just after
-    pk.reset_launches()
-    eng_a = TorchPolicyEngine(policy, pods, namespaces, device=device)
-    t0 = time.perf_counter()
-    counts_a = eng_a.evaluate_grid_counts(cases)
-    first_a = time.perf_counter() - t0
-    eng_b = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="0")
-    t0 = time.perf_counter()
-    counts_b = eng_b.evaluate_grid_counts(cases)
-    first_b = time.perf_counter() - t0
-    launches = dict(pk.LAUNCHES)
-    log(f"main path launches: {launches}")
-
-    pc = eng_a.pod_classes()
-    if pc is None or not eng_a._class_counts_eligible(len(cases)):
-        raise AssertionError("the default engine did not take the class-compressed route")
-    if eng_b.pod_classes() is not None:
-        raise AssertionError("class_compress=0 engine holds class state")
-    if counts_a != counts_b:
-        raise AssertionError(f"class route {counts_a} != dense route {counts_b}")
-    cells = counts_a["cells"]
-    if cells != len(cases) * n_pods * n_pods or not 0 < counts_a["combined"] <= cells:
-        raise AssertionError(f"implausible counts {counts_a}")
-    if launches["packed_counts"] < 1 or launches["packed_rowsums"] < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    log(f"main path counts (both routes): {json.dumps(counts_a)}")
-    class_axis = int(eng_a._class_state["ctensors"]["pod_ns_id"].shape[0])
-    log(f"classes: {pc.n_classes} for {n_pods} pods, class axis {class_axis}")
-
-    # warm end-to-end
-    e2e_a = time_ms(lambda: eng_a.evaluate_grid_counts(cases), reps=3, warm=0) / 1e3
-    e2e_b = time_ms(lambda: eng_b.evaluate_grid_counts(cases), reps=3, warm=0) / 1e3
-    busy = {}
-    for route, eng in (("class", eng_a), ("dense", eng_b)):
-        share, top = device_time_profile(lambda e=eng: e.evaluate_grid_counts(cases))
-        busy[route] = share
-        if share is None:
-            log(f"device busy share, {route} route: not measured (no device time traced)")
-        else:
-            log(f"device busy share, {route} route: {share:.4f}; top kernels ms/call: {top}")
-
-    # precompute, then each kernel against its plain version on the
-    # main path's own inputs
-    tens_b = eng_b._dense_counts_tensors(cases)
-    pre_b = _precompute(tens_b, True)
-    pre_ms_b = time_ms(lambda: _precompute(tens_b, True), reps=3, warm=0)
-    tens_a = eng_a._with_cases(eng_a._class_dev(), cases)
-    pre_a = _precompute(tens_a, True)
-    pre_ms_a = time_ms(lambda: _precompute(tens_a, True), reps=3, warm=0)
-
-    w = torch.from_numpy(class_rowsums_plan(tens_a, pc.n_classes, pc.class_size)).to(device)
-    src = "cyclonus_tpu_torch/csrc/packed_counts.cu"
     ref = "cyclonus_tpu/engine/pallas_kernel.py:689"
-    records = [
-        kernel_record("packed_counts", src, ref, pre_b, n_pods, None, launches["packed_counts"]),
-        kernel_record("packed_rowsums", src, ref, pre_a, int(tens_a["pod_ns_id"].shape[0]), w,
-                      launches["packed_rowsums"]),
-    ]
+    ref_tiered = "cyclonus_tpu/engine/pallas_kernel.py:1085"
+    records = []
+    summary = {"pods": n_pods, "policies": n_policies, "seed": SEED}
+    sub_policies = n_policies * N_SUB // n_pods
+    for tiers in (None, bench_tiers()):
+        key = "tiered" if tiers else "untiered"
+        suffix = "_tiered" if tiers else ""
+        eng_a, eng_b, counts, launches, first_a, first_b = drive_main_path(
+            policy, pods, namespaces, cases, device, tiers=tiers
+        )
+        pc = eng_a.pod_classes()
+        log(f"{key}: classes: {pc.n_classes} for {n_pods} pods, class axis "
+            f"{int(eng_a._class_state['ctensors']['pod_ns_id'].shape[0])}"
+            + (f"; tiers {json.dumps(eng_a.tier_stats())}" if tiers else ""))
+        routes, (tens_a, pre_a), pre_b = route_numbers(
+            eng_a, eng_b, cases, first_a, first_b, key
+        )
+        # each kernel against its plain version on the main path's own inputs
+        w = torch.from_numpy(class_rowsums_plan(tens_a, pc.n_classes, pc.class_size)).to(device)
+        records += [
+            kernel_record("packed_counts" + suffix, ref_tiered if tiers else ref, pre_b,
+                          n_pods, None, launches["packed_counts" + suffix]),
+            kernel_record("packed_rowsums" + suffix, ref_tiered if tiers else ref, pre_a,
+                          int(tens_a["pod_ns_id"].shape[0]), w,
+                          launches["packed_rowsums" + suffix]),
+        ]
+        del eng_a, eng_b, pre_a, pre_b, tens_a
+        torch.cuda.empty_cache()
+        sub_size_check(sub_policies, cases, device, tiers=tiers)
+        summary[key] = {"counts": counts, "classes": pc.n_classes, "routes": routes}
 
-    # the plain version through the engine at a sub-size, dense route
-    n_sub = 8192
-    sp, sn, spol = build_synthetic(n_sub, n_policies * n_sub // n_pods, random.Random(SEED))
-    eng_c = TorchPolicyEngine(build_network_policies(True, spol), sp, sn, device=device,
-                              class_compress="0")
-    got_c = eng_c.evaluate_grid_counts(cases)
-    want_c = eng_c._counts_dense(cases, counts_fn=pk.verdict_counts_packed_plain)
-    if got_c != want_c:
-        raise AssertionError(f"sub-size {n_sub}: kernel path {got_c} != plain {want_c}")
-    log(f"sub-size {n_sub} pods dense route: kernel path == plain version ({json.dumps(got_c)})")
+    # the lattice against the tier-free verdicts of the same cluster:
+    # every egress tier row is an inert pad, and on ingress the lattice
+    # only adds Deny (tier0 <- app1 on TCP 80-81), Pass -> BANP Deny
+    # (app2) and an SCTP Allow that no port case hits
+    plain, tiered = summary["untiered"]["counts"], summary["tiered"]["counts"]
+    if tiered["egress"] != plain["egress"]:
+        raise AssertionError(f"tiered egress {tiered} != untiered {plain}")
+    if not tiered["ingress"] < plain["ingress"] or tiered["combined"] > plain["combined"]:
+        raise AssertionError(f"tiered ingress/combined {tiered} not below untiered {plain}")
+    log(f"tiers vs untiered: egress equal, ingress {plain['ingress']} -> {tiered['ingress']}, "
+        f"combined {plain['combined']} -> {tiered['combined']}")
 
     # the main path's end-to-end numbers in one line, next to the kernels
     # line at the end of the output
-    routes = {
-        "class": {"encode_s": eng_a.encode_s, "first_call_s": first_a, "warm_s": e2e_a,
-                  "precompute_ms": pre_ms_a, "pod_axis": class_axis},
-        "dense": {"encode_s": eng_b.encode_s, "first_call_s": first_b, "warm_s": e2e_b,
-                  "precompute_ms": pre_ms_b, "pod_axis": int(tens_b["pod_ns_id"].shape[0])},
-    }
-    for route, r in routes.items():
-        r["cells_per_s"] = cells / r["warm_s"]
-        r["device_busy_share"] = busy[route]
-    log(json.dumps({"main_path": {"pods": n_pods, "policies": n_policies, "seed": SEED,
-                                  "counts": counts_a, "classes": pc.n_classes,
-                                  "routes": routes}}))
+    log(json.dumps({"main_path": summary}))
     return records
 
 
@@ -402,6 +620,7 @@ def main() -> int:
     phase_kernels(device)
     phase_truth_tables(device)
     records = phase_main_path(device)
+    log(card_info())
     log(json.dumps({"kernels": records}))
     log(json.dumps({
         "ok": True,

@@ -13,6 +13,12 @@ the same two entry points:
                             and fits the device budget, else the dense
                             route (plain epilogue over ns-sorted pods).
 
+With admin tiers (tiers=, a tiers.model.TierSet of AdminNetworkPolicies
+and a BaselineAdminNetworkPolicy) both entry points resolve the
+ANP -> NetworkPolicy -> BANP precedence lattice: the truth tables in
+plain PyTorch, the counts in the tiered epilogue of the packed counts
+kernel, on either route and for any number of tier rows.
+
 The reference's autotune, precompute cache, slab plan, AOT cache and
 plan recording are performance or compile machinery that change no
 result; the port runs the default tile and a one-shot precompute.
@@ -41,7 +47,7 @@ from .encoding import (
 )
 from .kernel import evaluate_grid_kernel, gather_class_grids, grid_stats_kernel
 from .packed_kernel import sum_partials, verdict_counts_packed
-from .tiled import _precompute, evaluate_grid_counts_classes
+from .tiled import _precompute, evaluate_grid_counts_classes, packed_tier
 
 
 @dataclass(frozen=True)
@@ -147,7 +153,10 @@ class TorchPolicyEngine:
     `device` None means the current CUDA device, and raises when there is
     none; pass device="cpu" to run on the CPU.  compact/class_compress
     override the CYCLONUS_COMPACT / CYCLONUS_CLASS_COMPRESS env defaults
-    (None = env), exactly as in the reference engine."""
+    (None = env), exactly as in the reference engine.  `tiers` (a
+    tiers.model.TierSet) layers AdminNetworkPolicy / BaselineAdmin-
+    NetworkPolicy precedence tiers over the policies; absent or empty, the
+    tensor set is byte-identical to the tier-free engine's."""
 
     def __init__(
         self,
@@ -158,10 +167,16 @@ class TorchPolicyEngine:
         device=None,
         compact: Optional[bool] = None,
         class_compress: Optional[str] = None,
+        tiers=None,
     ):
         self.device = resolve_device(device)
         t0 = time.perf_counter()
-        self.encoding: PolicyEncoding = encode_policy(policy, pods, namespaces)
+        self.tiers = tiers if tiers else None
+        if self.tiers is not None:
+            self.tiers.validate()
+        self.encoding: PolicyEncoding = encode_policy(
+            policy, pods, namespaces, tiers=self.tiers
+        )
         cluster = self.encoding.cluster
         tensors = host._build_tensors(self.encoding)
         # one O(S*N) host selector pass serves dead-target compaction and
@@ -254,6 +269,7 @@ class TorchPolicyEngine:
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.encoding = None
+        self.tiers = None  # a tiered dict carries its slabs under "tiers"
         self._init_state(
             tensors,
             pod_keys=list(pod_keys),
@@ -278,6 +294,7 @@ class TorchPolicyEngine:
         self._device_tensors = None
         self._pod_perm = None  # ns-order pod permutation of the dense counts route
         self._class_state = None
+        self._tier_resolve_s = None
         if classes is not None:
             n = len(self._pod_keys)
             cb = int(ctensors["pod_ns_id"].shape[0])
@@ -301,6 +318,25 @@ class TorchPolicyEngine:
     @property
     def pod_keys(self) -> List[str]:
         return self._pod_keys
+
+    def tier_stats(self) -> Dict:
+        """The precedence-tier summary: whether the lattice is active, the
+        ANP object count, the flat rule-row count (real rows, both
+        directions), whether a baseline policy is present, and the host
+        wall-clock of the last tiered evaluate_grid (resolve_s; None until
+        one ran).  An engine built from a tensor dict has no TierSet, so
+        it reports no ANP objects and no baseline."""
+        tiers = self._tensors.get("tiers")
+        rows = 0
+        if tiers is not None:
+            rows = sum(int((tiers[d]["action"] > 0).sum()) for d in ("ingress", "egress"))
+        return {
+            "active": tiers is not None,
+            "anp_count": len(self.tiers.anps) if self.tiers is not None else 0,
+            "rule_rows": rows,
+            "banp": self.tiers is not None and self.tiers.banp is not None,
+            "resolve_s": self._tier_resolve_s,
+        }
 
     def pod_classes(self):
         """The PodClasses of the class state, or None when compression is
@@ -356,17 +392,22 @@ class TorchPolicyEngine:
         if not cases:
             empty = torch.zeros((0, n, n), dtype=torch.bool, device=self.device)
             return GridVerdict(self.pod_keys, [], empty, empty.clone(), empty.clone())
+        t0 = time.perf_counter()
         if self._class_state is not None:
-            return self._evaluate_grid_classes(cases)
-        out = evaluate_grid_kernel(self._with_cases(self._dev(), cases), pack=True)
-        # bucketing pads the pod axis; strip the pad rows
-        return GridVerdict(
-            self.pod_keys,
-            list(cases),
-            out["ingress"][:, :n, :n],
-            out["egress"][:, :n, :n],
-            out["combined"][:, :n, :n],
-        )
+            grid = self._evaluate_grid_classes(cases)
+        else:
+            out = evaluate_grid_kernel(self._with_cases(self._dev(), cases), pack=True)
+            # bucketing pads the pod axis; strip the pad rows
+            grid = GridVerdict(
+                self.pod_keys,
+                list(cases),
+                out["ingress"][:, :n, :n],
+                out["egress"][:, :n, :n],
+                out["combined"][:, :n, :n],
+            )
+        if "tiers" in self._tensors:
+            self._tier_resolve_s = time.perf_counter() - t0
+        return grid
 
     def _evaluate_grid_classes(self, cases: Sequence[PortCase]) -> GridVerdict:
         """Class-compressed grid: the C x C x Q class grid, broadcast back
@@ -450,5 +491,6 @@ class TorchPolicyEngine:
             e["tmatch_pk"], e["has_target"], e["tallow_pk"],
             ig["tmatch_pk"], ig["has_target"], ig["tallow_pk"],
             n_pods=self.n_pods,
+            tier=packed_tier(pre),
         )
         return sum_partials(partials, len(cases), self.n_pods)

@@ -89,6 +89,21 @@ PORT_NIL = 0  # protocol only
 PORT_INT = 1
 PORT_NAMED = 2
 
+# precedence-tier verdict codes (int8 slab).  0 is the PAD action: a
+# padded tier rule matches nothing.
+TIER_ACT_NONE = 0
+TIER_ACT_ALLOW = 1
+TIER_ACT_DENY = 2
+TIER_ACT_PASS = 3
+
+# tier ids within the shared slab
+TIER_ANP = 0
+TIER_BANP = 1
+
+#: "no matching rule" priority-key sentinel: every real key is
+#: rank * 4 + action < 2^30 (ranks are slab positions, actions 1-3)
+TIER_KEY_NONE = 1 << 30
+
 # --- bit-packed match slabs (docs/DESIGN.md "Bit-packed kernel") ----------
 #
 # The verdict contraction is pure boolean: any_allow = OR_t (tmatch[t] AND
@@ -692,6 +707,112 @@ def _encode_direction(
 
 
 @dataclass
+class TierDirectionEncoding:
+    """Precedence-tier rule slabs for one direction.
+
+    One row per (rule, peer scope) pair, flattened over BOTH admin tiers
+    (`tier` 0=ANP, 1=BANP) in resolution order: `rank` is the rule's
+    position in TierSet.ordered_rules for its tier, shared by all of the
+    rule's peer rows — the first-match reduction is a min over matching
+    rows of the int32 key rank * 4 + action, so equal-rank rows
+    implement the within-rule peer OR exactly.  `action` is the int8
+    verdict slab (TIER_ACT_*; 0 = pad, matches nothing — the inert fill
+    shape bucketing uses).  Selector ids index the SAME deduped selector
+    table as the NetworkPolicy slabs: subject/peer namespace selectors
+    are evaluated against namespace labels (selns), pod selectors
+    against pod labels (selpod), which is also what keeps the
+    equivalence-class pod signature complete under tiers.
+
+    Shapes: G flat tier rows."""
+
+    n_rules: int  # real (pre-flatten) rule count, both tiers
+    subj_ns_sel: np.ndarray  # shape: (G,) int32
+    subj_pod_kind: np.ndarray  # shape: (G,) int32  # POD_*
+    subj_pod_sel: np.ndarray  # shape: (G,) int32; sentinel: -1=pad
+    peer_ns_sel: np.ndarray  # shape: (G,) int32
+    peer_pod_kind: np.ndarray  # shape: (G,) int32
+    peer_pod_sel: np.ndarray  # shape: (G,) int32; sentinel: -1=pad
+    action: np.ndarray  # shape: (G,) int8; sentinel: 0=pad
+    tier: np.ndarray  # shape: (G,) int8
+    rank: np.ndarray  # shape: (G,) int32
+    port_spec: Dict[str, np.ndarray] = field(default_factory=dict)
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.action.shape[0])
+
+
+def _encode_tier_direction(
+    tiers, is_ingress: bool, sel_table: "_SelectorTable", vocab: _Vocab
+) -> TierDirectionEncoding:
+    """Flatten one direction of a TierSet into slab rows (see
+    TierDirectionEncoding).  Selector ids are assigned through the
+    SHARED table/vocab so tier selectors ride the same selpod/selns
+    kernels as NetworkPolicy selectors."""
+    from ..matcher.tiered import compile_tier_port_matcher
+
+    subj_ns, subj_pk, subj_ps = [], [], []
+    peer_ns, peer_pk, peer_ps = [], [], []
+    action, tier_col, rank = [], [], []
+    specs = _PortSpecBuilder()
+    act_code = {
+        "Allow": TIER_ACT_ALLOW,
+        "Deny": TIER_ACT_DENY,
+        "Pass": TIER_ACT_PASS,
+    }
+    n_rules = 0
+    for tier_id, tier_name in ((TIER_ANP, "anp"), (TIER_BANP, "banp")):
+        for o in tiers.ordered_rules(is_ingress, tier_name):
+            n_rules += 1
+            subject = o.policy.subject
+            s_ns = sel_table.sel_id(subject.namespace_selector)
+            if subject.pod_selector is None:
+                s_pk, s_ps = POD_ALL, -1
+            else:
+                s_pk = POD_SELECTOR
+                s_ps = sel_table.sel_id(subject.pod_selector)
+            pm = compile_tier_port_matcher(o.rule)
+            for peer in o.rule.peers:
+                subj_ns.append(s_ns)
+                subj_pk.append(s_pk)
+                subj_ps.append(s_ps)
+                peer_ns.append(sel_table.sel_id(peer.namespace_selector))
+                if peer.pod_selector is None:
+                    peer_pk.append(POD_ALL)
+                    peer_ps.append(-1)
+                else:
+                    peer_pk.append(POD_SELECTOR)
+                    peer_ps.append(sel_table.sel_id(peer.pod_selector))
+                action.append(act_code[o.rule.action])
+                tier_col.append(tier_id)
+                rank.append(o.rank)
+                specs.add(pm, vocab)
+    return TierDirectionEncoding(
+        n_rules=n_rules,
+        subj_ns_sel=np.array(subj_ns, dtype=np.int32).reshape(-1),
+        subj_pod_kind=np.array(subj_pk, dtype=np.int32).reshape(-1),
+        subj_pod_sel=np.array(subj_ps, dtype=np.int32).reshape(-1),
+        peer_ns_sel=np.array(peer_ns, dtype=np.int32).reshape(-1),
+        peer_pod_kind=np.array(peer_pk, dtype=np.int32).reshape(-1),
+        peer_pod_sel=np.array(peer_ps, dtype=np.int32).reshape(-1),
+        action=np.array(action, dtype=np.int8).reshape(-1),
+        tier=np.array(tier_col, dtype=np.int8).reshape(-1),
+        rank=np.array(rank, dtype=np.int32).reshape(-1),
+        port_spec=specs.encode(),
+    )
+
+
+def encode_tier_directions(
+    tiers, sel_table: "_SelectorTable", vocab: _Vocab
+) -> Tuple[TierDirectionEncoding, TierDirectionEncoding]:
+    """(ingress, egress) tier slabs against the shared selector table."""
+    return (
+        _encode_tier_direction(tiers, True, sel_table, vocab),
+        _encode_tier_direction(tiers, False, sel_table, vocab),
+    )
+
+
+@dataclass
 class PolicyEncoding:
     """Full tensor encoding of a compiled Policy against a cluster.
 
@@ -708,6 +829,9 @@ class PolicyEncoding:
     sel_exp_key: np.ndarray  # shape: (S, E) int32; sentinel: -1=pad
     sel_exp_vals: np.ndarray  # shape: (S, E, V) int32; sentinel: -1=pad
     n_selectors: int
+    # precedence-tier slabs (None without admin tiers: zero ANP/BANP
+    # objects leave the tensor set byte-identical)
+    tiers: Optional[Tuple[TierDirectionEncoding, TierDirectionEncoding]] = None
 
 
 # --- equivalence-class grid compression ----------------------------------
@@ -750,22 +874,29 @@ class PodClasses:
 
 
 def encode_directions(
-    policy: Policy, vocab: _Vocab
+    policy: Policy, vocab: _Vocab, tiers=None
 ) -> Tuple[
     _DirectionEncoding,
     _DirectionEncoding,
     Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
     int,
+    Optional[Tuple[TierDirectionEncoding, TierDirectionEncoding]],
 ]:
     """Encode both directions + the shared selector table of a compiled
-    Policy against `vocab` (grown in place): the rule-slab half of
-    encode_policy."""
+    Policy against `vocab` (grown in place), plus — when `tiers` (a
+    TierSet) is present and non-empty — the precedence-tier slabs, whose
+    selector ids live in the SAME table (the table must close over both,
+    or tier rows would index selectors the kernel never evaluates): the
+    rule-slab half of encode_policy."""
     sel_table = _SelectorTable()
     ingress_targets, egress_targets = policy.sorted_targets()
     ingress = _encode_direction(ingress_targets, sel_table, vocab)
     egress = _encode_direction(egress_targets, sel_table, vocab)
+    tier_enc = None
+    if tiers:
+        tier_enc = encode_tier_directions(tiers, sel_table, vocab)
     sel_arrays = sel_table.encode(vocab)
-    return ingress, egress, sel_arrays, len(sel_table.selectors)
+    return ingress, egress, sel_arrays, len(sel_table.selectors), tier_enc
 
 
 def _host_ip_cols(tensors: Dict) -> List[np.ndarray]:
@@ -1016,11 +1147,16 @@ def encode_policy(
     policy: Policy,
     pods: Sequence[Tuple[str, str, Dict[str, str], str]],
     namespaces: Dict[str, Dict[str, str]],
+    tiers=None,
 ) -> PolicyEncoding:
     """Compile (policy, cluster) to tensors.  The selector/label vocabulary
-    is built jointly so every selector-referenced pair has an id."""
+    is built jointly so every selector-referenced pair has an id.  `tiers`
+    (an optional TierSet) adds the precedence-tier slabs; with it absent or
+    empty the encoding is byte-identical to the networkingv1-only form."""
     vocab = _Vocab()
-    ingress, egress, sel_arrays, n_selectors = encode_directions(policy, vocab)
+    ingress, egress, sel_arrays, n_selectors, tier_enc = encode_directions(
+        policy, vocab, tiers=tiers
+    )
     cluster = encode_cluster(pods, namespaces, vocab=vocab)
     sel_req_kv, sel_exp_op, sel_exp_key, sel_exp_vals = sel_arrays
     return PolicyEncoding(
@@ -1032,4 +1168,5 @@ def encode_policy(
         sel_exp_key=sel_exp_key,
         sel_exp_vals=sel_exp_vals,
         n_selectors=n_selectors,
+        tiers=tier_enc,
     )

@@ -2,11 +2,12 @@
 encoder and the device.
 
 Copies of the reference engine's host passes (cyclonus_tpu/engine/api.py
-and the pod padding of engine/sharded.py), without tiers, the CIDR
+and the pod padding of engine/sharded.py), without the CIDR
 tuple-space stage and the serve path's slab headroom:
 
   * _build_tensors       — encoding -> tensor dict, incl. the host-evaluated
-                           IPv6 / mixed-family ip-peer rows
+                           IPv6 / mixed-family ip-peer rows and the
+                           precedence-tier slabs
   * _compact_dead_targets — drop targets no pod of the cluster matches
   * _sort_targets_by_ns  — targets in namespace order
   * _bucket_tensors      — pad every axis to its shape bucket with the
@@ -33,6 +34,7 @@ from .encoding import (
     EXP_NONE,
     EXP_NOT_IN,
     PolicyEncoding,
+    TierDirectionEncoding,
     _DirectionEncoding,
 )
 
@@ -64,9 +66,27 @@ def _direction_tensors(enc: _DirectionEncoding) -> Dict:
     }
 
 
+def _tier_tensors(tenc: TierDirectionEncoding) -> Dict:
+    """Tensor-dict view of one direction's TierDirectionEncoding: the int8
+    verdict + int32 rank slabs, the shared-table selector ids, and the
+    per-row port spec."""
+    return {
+        "subj_ns_sel": tenc.subj_ns_sel,
+        "subj_pod_kind": tenc.subj_pod_kind,
+        "subj_pod_sel": tenc.subj_pod_sel,
+        "peer_ns_sel": tenc.peer_ns_sel,
+        "peer_pod_kind": tenc.peer_pod_kind,
+        "peer_pod_sel": tenc.peer_pod_sel,
+        "action": tenc.action,  # shape: (G,) int8; sentinel: 0=pad
+        "tier": tenc.tier,
+        "rank": tenc.rank,
+        "port_spec": dict(tenc.port_spec),
+    }
+
+
 def _build_tensors(enc: PolicyEncoding) -> Dict:
-    """The engine tensor dict of an encoding (TpuPolicyEngine._build_tensors
-    without tiers)."""
+    """The engine tensor dict of an encoding (TpuPolicyEngine._build_tensors):
+    a "tiers" subtree appears only when the encoding carries tier slabs."""
     c = enc.cluster
     tensors = {
         "sel_req_kv": enc.sel_req_kv,
@@ -83,6 +103,11 @@ def _build_tensors(enc: PolicyEncoding) -> Dict:
         "ingress": _direction_tensors(enc.ingress),
         "egress": _direction_tensors(enc.egress),
     }
+    if enc.tiers is not None:
+        tensors["tiers"] = {
+            "ingress": _tier_tensors(enc.tiers[0]),
+            "egress": _tier_tensors(enc.tiers[1]),
+        }
     for direction, denc in (("ingress", enc.ingress), ("egress", enc.egress)):
         if denc.host_ip_rows:
             # IPv6 / mixed-family IPBlocks: evaluate via the oracle's IP
@@ -348,6 +373,20 @@ _PORT_SPEC_PADS = {
     "rng_proto": -2,
     "spec_all": False,
 }
+# tier-slab pads: action 0 = TIER_ACT_NONE — a padded rule row matches
+# nothing (every kernel masks on action > 0), so selector/rank fills
+# are inert by construction
+_TIER_PADS = {
+    "subj_ns_sel": 0,
+    "subj_pod_kind": 0,
+    "subj_pod_sel": -1,
+    "peer_ns_sel": 0,
+    "peer_pod_kind": 0,
+    "peer_pod_sel": -1,
+    "action": 0,
+    "tier": 0,
+    "rank": 0,
+}
 
 
 def _pad_pod_arrays(tensors: Dict, n_pods: int, n_dev: int) -> Tuple[Dict, int]:
@@ -441,6 +480,24 @@ def _bucket_tensors(tensors: Dict) -> Dict:
             spec[k] = a
         d["port_spec"] = spec
         t[direction] = d
+    # precedence-tier slabs: the rule axis buckets like the peer axis,
+    # padded with inert (action 0) rows
+    if "tiers" in t:
+        tiers = {}
+        for direction in ("ingress", "egress"):
+            d = dict(t["tiers"][direction])
+            g = _bucket_dim(d["action"].shape[0])
+            for k, fill in _TIER_PADS.items():
+                d[k] = _pad_axis(d[k], 0, g, fill)
+            spec = {}
+            for k, fill in _PORT_SPEC_PADS.items():
+                a = _pad_axis(d["port_spec"][k], 0, g, fill)
+                if a.ndim == 2:
+                    a = _pad_axis(a, 1, _bucket_dim(a.shape[1]), fill)
+                spec[k] = a
+            d["port_spec"] = spec
+            tiers[direction] = d
+        t["tiers"] = tiers
     n = t["pod_ns_id"].shape[0]
     t, _ = _pad_pod_arrays(t, n, _bucket_pods(n))
     return t

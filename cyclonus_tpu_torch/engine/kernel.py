@@ -17,6 +17,9 @@ policy.go:138-174):
 
   combined[s, d, q] = egress_allowed[s, d, q] AND ingress_allowed[d, s, q]
 
+With precedence tiers each direction's verdict then passes through the
+ANP -> NetworkPolicy -> BANP lattice (resolve_tier_lattice).
+
 All tensors are boolean/integer.  Torch has no boolean matmul, so the
 products run in a float type and threshold at > 0: inputs are 0/1, so a
 positive sum can never round to zero and the threshold is exact.
@@ -44,6 +47,12 @@ from .encoding import (
     PORT_INT,
     PORT_NAMED,
     PORT_NIL,
+    TIER_ACT_ALLOW,
+    TIER_ACT_NONE,
+    TIER_ACT_PASS,
+    TIER_ANP,
+    TIER_BANP,
+    TIER_KEY_NONE,
     packed_words,
 )
 
@@ -313,14 +322,142 @@ def apply_host_ip(enc: Dict, peer_match: torch.Tensor) -> torch.Tensor:
     return peer_match
 
 
+# --- precedence-tier resolution epilogue ----------------------------------
+#
+# The ANP/BANP lattice replaces the bool-OR assumption with
+# FIRST-MATCH-BY-PRIORITY: tier rows carry an int8 action and an int32
+# rank (encoding.TierDirectionEncoding), and the first matching rule of a
+# tier is the min over matching rows of the combined key rank * 4 + action
+# (actions are 1..3, so key % 4 recovers the winning action and
+# min-of-keys == first-match because ranks are the resolution order).
+# Rows of one rule share its rank, which makes the within-rule peer OR
+# exact under the min.  TIER_KEY_NONE (2^30) is the no-match identity.
+# All of it composes with the class-compressed grid unchanged: tier rules
+# observe pods only through (ns id, shared-table selector matches), both
+# part of the class signature.
+
+
+def tier_scope_match(
+    ns_sel: torch.Tensor,  # [G] selector ids (namespace labels)
+    pod_kind: torch.Tensor,  # [G] POD_ALL | POD_SELECTOR
+    pod_sel: torch.Tensor,  # [G] selector ids (pod labels; -1 when ALL)
+    selpod: torch.Tensor,  # [S, N]
+    selns: torch.Tensor,  # [S, M]
+    pod_ns_id: torch.Tensor,  # [N]
+) -> torch.Tensor:
+    """[G, N] bool: tier scope g (a subject or peer) matches pod n —
+    namespace labels via selns, pod labels via selpod (the shared
+    selector table; mirrors tiers.model.scope_matches).  A pad pod's ns
+    id -1 wraps to the last namespace row as in direction_precompute."""
+    ns_by_pod = selns[ns_sel.long()][:, pod_ns_id.long()]  # [G, N]
+    pod_m = selpod[pod_sel.clamp(min=0).long()]  # [G, N]
+    pod_ok = torch.where(pod_kind[:, None] == POD_SELECTOR, pod_m, True)
+    return ns_by_pod & pod_ok
+
+
+def tier_keys(tenc: Dict[str, torch.Tensor]):
+    """(anp_key [G], banp_key [G]) int32 priority keys: rank * 4 + action
+    for real rows of each tier, TIER_KEY_NONE elsewhere (pad rows carry
+    action 0 and are inert in both)."""
+    act = tenc["action"].to(torch.int32)
+    key = tenc["rank"] * 4 + act
+    tier = tenc["tier"].to(torch.int32)
+    valid = act > TIER_ACT_NONE
+    none = torch.tensor(TIER_KEY_NONE, dtype=torch.int32, device=key.device)
+    anp = torch.where(valid & (tier == TIER_ANP), key, none)
+    banp = torch.where(valid & (tier == TIER_BANP), key, none)
+    return anp, banp
+
+
+def tier_first_match_keys(
+    subj: torch.Tensor,  # [G, A] bool — subject side (target pods)
+    peerq: torch.Tensor,  # [G, B, Q] bool — peer side x port cases
+    anp_key: torch.Tensor,  # [G] int32
+    banp_key: torch.Tensor,  # [G] int32
+    chunk: int = 8,
+):
+    """([A, B, Q], [A, B, Q]) int32 min matching keys per tier.
+
+    Walks the rule axis in `chunk`-row slices so the [c, A, B, Q] match
+    intermediate — not [G, A, B, Q] — is the only rule-axis blowup."""
+    g, a = subj.shape
+    b, q = peerq.shape[1], peerq.shape[2]
+    none = torch.tensor(TIER_KEY_NONE, dtype=torch.int32, device=subj.device)
+    anp_min = torch.full((a, b, q), TIER_KEY_NONE, dtype=torch.int32, device=subj.device)
+    banp_min = anp_min.clone()
+    for lo in range(0, g, chunk):
+        m = subj[lo : lo + chunk, :, None, None] & peerq[lo : lo + chunk, None, :, :]
+        ka = anp_key[lo : lo + chunk, None, None, None]
+        kb = banp_key[lo : lo + chunk, None, None, None]
+        anp_min = torch.minimum(anp_min, torch.where(m, ka, none).amin(dim=0))
+        banp_min = torch.minimum(banp_min, torch.where(m, kb, none).amin(dim=0))
+    return anp_min, banp_min
+
+
+def resolve_tier_lattice(
+    np_allowed: torch.Tensor,  # NetworkPolicy-tier verdict (any shape)
+    has_target_b: torch.Tensor,  # bool, broadcastable to np_allowed
+    anp_min: torch.Tensor,  # int32 min ANP key, same shape as np_allowed
+    banp_min: torch.Tensor,
+) -> torch.Tensor:
+    """The lattice fold: ANP first-match (Allow/Deny final, Pass falls
+    through), then the NetworkPolicy tier WHERE a target selects the pod
+    (final), then BANP first-match, then default-allow.  np_allowed is
+    the existing direction verdict (~has_target | any_allow): where
+    has_target holds it equals the NP-tier verdict, and elsewhere it is
+    bypassed."""
+    anp_act = torch.where(anp_min < TIER_KEY_NONE, anp_min % 4, TIER_ACT_NONE)
+    banp_act = torch.where(banp_min < TIER_KEY_NONE, banp_min % 4, TIER_ACT_NONE)
+    below = torch.where(
+        has_target_b,
+        np_allowed,
+        torch.where(banp_act == TIER_ACT_NONE, True, banp_act == TIER_ACT_ALLOW),
+    )
+    return torch.where(
+        (anp_act == TIER_ACT_NONE) | (anp_act == TIER_ACT_PASS),
+        below,
+        anp_act == TIER_ACT_ALLOW,
+    )
+
+
+def tier_direction_arrays(
+    tenc: Dict[str, torch.Tensor],
+    selpod: torch.Tensor,
+    selns: torch.Tensor,
+    pod_ns_id: torch.Tensor,
+    q_port: torch.Tensor,
+    q_name: torch.Tensor,
+    q_proto: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    """Per-direction tier precompute over ONE pod set (both sides of the
+    grid): subj [G, N], peerq [G, N, Q], and the two [G] key vectors."""
+    subj = tier_scope_match(
+        tenc["subj_ns_sel"], tenc["subj_pod_kind"], tenc["subj_pod_sel"],
+        selpod, selns, pod_ns_id,
+    )
+    peer = tier_scope_match(
+        tenc["peer_ns_sel"], tenc["peer_pod_kind"], tenc["peer_pod_sel"],
+        selpod, selns, pod_ns_id,
+    )
+    pport = port_spec_allows(tenc["port_spec"], q_port, q_name, q_proto)
+    anp_key, banp_key = tier_keys(tenc)
+    return {
+        "subj": subj,
+        "peerq": peer[:, :, None] & pport[:, None, :],
+        "anp_key": anp_key,
+        "banp_key": banp_key,
+    }
+
+
 def evaluate_grid_kernel(tensors: Dict, pack: bool = False) -> Dict[str, torch.Tensor]:
     """Full-grid verdict on one device.
 
     tensors: dict with keys sel_*: selector tables; pod_*: cluster pod
     arrays; ns_kv/ns_key; ingress/egress: per-direction encodings (dicts
-    incl. peer_target); q_port/q_name/q_proto: [Q] port cases.  `pack`
-    routes the target-axis contraction through the 32-per-word packed
-    bitmaps.  Returns ingress[q, d, s], egress[q, s, d], combined[q, s, d].
+    incl. peer_target); q_port/q_name/q_proto: [Q] port cases; optional
+    tiers: per-direction tier slabs.  `pack` routes the target-axis
+    contraction through the 32-per-word packed bitmaps.  Returns
+    ingress[q, d, s], egress[q, s, d], combined[q, s, d].
     """
     selpod, selns = selector_tables(tensors)
     out = {}
@@ -344,6 +481,22 @@ def evaluate_grid_kernel(tensors: Dict, pack: bool = False) -> Dict[str, torch.T
             pre["tmatch"], pre["has_target"], m_tp_onehot(enc),
             apply_host_ip(enc, pre["peer_match"]), pport, pack=pack,
         )
+        if "tiers" in tensors:
+            ta = tier_direction_arrays(
+                tensors["tiers"][direction],
+                selpod,
+                selns,
+                tensors["pod_ns_id"],
+                tensors["q_port"],
+                tensors["q_name"],
+                tensors["q_proto"],
+            )
+            anp_min, banp_min = tier_first_match_keys(
+                ta["subj"], ta["peerq"], ta["anp_key"], ta["banp_key"]
+            )
+            out[direction] = resolve_tier_lattice(
+                out[direction], pre["has_target"][:, None, None], anp_min, banp_min
+            )
     # ingress is indexed [dst, src, q]; egress [src, dst, q]
     combined = out["egress"] & out["ingress"].transpose(0, 1)
     return {

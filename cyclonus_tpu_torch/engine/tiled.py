@@ -1,6 +1,6 @@
 """Full-grid counts for grids too large to materialise (the reference's
 engine/tiled.py, cut to the per-direction precompute and the fused
-class-compressed counts route).
+class-compressed counts route), with the precedence-tier precompute.
 
 The precompute resolves every pod against every target once per
 direction; the verdict contraction over the target axis and the count
@@ -23,6 +23,7 @@ from .kernel import (
     pack_bool_words_torch,
     port_spec_allows,
     selector_tables,
+    tier_direction_arrays,
 )
 from .packed_kernel import verdict_counts_packed
 
@@ -37,7 +38,9 @@ def _precompute(tensors: Dict, pack: bool = False) -> Dict[str, Dict[str, torch.
 
     With pack=True the target-axis operands ship 32-per-word instead:
     tallow_pk [W, N, Q] int32 and tmatch_pk [W, N] int32 replace
-    tallow_bf (W = encoding.packed_words(T))."""
+    tallow_bf (W = encoding.packed_words(T)).  A tiered tensor dict adds
+    `tier` (kernel.tier_direction_arrays: subj [G, N], peerq [G, N, Q],
+    anp_key / banp_key [G]) to each direction."""
     selpod, selns = selector_tables(tensors)
     out = {}
     q = tensors["q_port"].shape[0]
@@ -77,7 +80,25 @@ def _precompute(tensors: Dict, pack: bool = False) -> Dict[str, Dict[str, torch.
             )  # shape: (W, N) int32
         else:
             out[direction]["tallow_bf"] = tallow.to(torch.bfloat16).reshape(t, n, q)
+        if "tiers" in tensors:
+            out[direction]["tier"] = tier_direction_arrays(
+                tensors["tiers"][direction],
+                selpod,
+                selns,
+                tensors["pod_ns_id"],
+                tensors["q_port"],
+                tensors["q_name"],
+                tensors["q_proto"],
+            )
     return out
+
+
+def packed_tier(pre: Dict):
+    """The `tier` argument of the packed counts kernel from a precompute:
+    {direction: {subj, peerq, anp_key, banp_key}}, or None untiered."""
+    if "tier" not in pre["egress"]:
+        return None
+    return {d: pre[d]["tier"] for d in ("ingress", "egress")}
 
 
 def class_rowsums_plan(tensors: Dict, n_classes: int, class_size: np.ndarray) -> np.ndarray:
@@ -114,7 +135,8 @@ def class_counts_finish(
 
 def class_rowsums(tensors: Dict, w: torch.Tensor, counts_fn=verdict_counts_packed) -> torch.Tensor:
     """[Cb, Q, 3] f32 dst-weighted verdict row sums over the class grid:
-    packed precompute + the packed counts kernel's weighted epilogue."""
+    packed precompute + the packed counts kernel's weighted epilogue
+    (tiered when the tensors carry tiers)."""
     pre = _precompute(tensors, True)
     cb = int(tensors["pod_ns_id"].shape[0])
     rs = counts_fn(
@@ -125,6 +147,7 @@ def class_rowsums(tensors: Dict, w: torch.Tensor, counts_fn=verdict_counts_packe
         pre["ingress"]["has_target"],
         pre["ingress"]["tallow_pk"],
         n_pods=cb,  # every class row is live; pad weights are zero
+        tier=packed_tier(pre),
         w_dst=w,
     )  # [Q, Cb', 3] f32
     return torch.movedim(rs[:, :cb, :], 0, 1)

@@ -1,6 +1,7 @@
-"""The scalar oracle over a whole grid: Policy.is_traffic_allowed for
-every (port case, src pod, dst pod), in the engine's GridVerdict layout.
-The engine's truth tables are held against it cell by cell."""
+"""The scalar oracle over a whole grid: Policy.is_traffic_allowed (or the
+tiered lattice's TieredPolicy.is_traffic_allowed) for every (port case,
+src pod, dst pod), in the engine's GridVerdict layout.  The engine's
+truth tables are held against it cell by cell."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 
 from .matcher.core import InternalPeer, Policy, Traffic, TrafficPeer
+from .matcher.tiered import TieredPolicy
 
 # (namespace, name, labels, ip) — the engine's pod tuple format
 PodTuple = Tuple[str, str, Dict[str, str], str]
@@ -48,10 +50,21 @@ def oracle_grid(
     pods: Sequence[PodTuple],
     namespaces: Dict[str, Dict[str, str]],
     cases: Sequence,
+    tiers=None,
 ) -> Dict[str, np.ndarray]:
     """{ingress [Q, N_dst, N_src], egress [Q, N_src, N_dst], combined
     [Q, N_src, N_dst]} bool from the scalar oracle — the GridVerdict
-    layout."""
+    layout.  With `tiers` (a TierSet) the oracle is the precedence-tier
+    lattice (matcher/tiered.TieredPolicy) over `policy`."""
+    if tiers:
+        tiered = TieredPolicy(policy, tiers)
+        verdicts = tiered.is_traffic_allowed
+    else:
+
+        def verdicts(traffic):
+            r = policy.is_traffic_allowed(traffic)
+            return r.ingress.is_allowed, r.egress.is_allowed, r.is_allowed
+
     n, q = len(pods), len(cases)
     ingress = np.zeros((q, n, n), dtype=bool)
     egress = np.zeros((q, n, n), dtype=bool)
@@ -59,8 +72,8 @@ def oracle_grid(
     for qi, case in enumerate(cases):
         for s in range(n):
             for d in range(n):
-                r = policy.is_traffic_allowed(traffic_for_cell(pods, namespaces, case, s, d))
-                ingress[qi, d, s] = r.ingress.is_allowed
-                egress[qi, s, d] = r.egress.is_allowed
-                combined[qi, s, d] = r.is_allowed
+                i, e, c = verdicts(traffic_for_cell(pods, namespaces, case, s, d))
+                ingress[qi, d, s] = i
+                egress[qi, s, d] = e
+                combined[qi, s, d] = c
     return {"ingress": ingress, "egress": egress, "combined": combined}

@@ -8,6 +8,9 @@ policy selects one app in one namespace and allows TCP 80 (plus the
 named UDP port serve-81-udp for 30% of them) from one peer: an IPBlock
 with one except (20%) or a tier pod selector, half of them also scoped
 to a team namespace selector.  40% of the policies also cover egress.
+
+bench_tiers is the benchmark's admin-tier lattice over the same label
+scheme (a copy of the TierSet in bench.tiers_case).
 """
 
 from __future__ import annotations
@@ -24,6 +27,14 @@ from .kube.netpol import (
     NetworkPolicyPeer,
     NetworkPolicyPort,
     NetworkPolicySpec,
+)
+from .tiers.model import (
+    AdminNetworkPolicy,
+    BaselineAdminNetworkPolicy,
+    TierPort,
+    TierRule,
+    TierScope,
+    TierSet,
 )
 
 
@@ -95,3 +106,42 @@ def build_synthetic(n_pods: int, n_policies: int, rng: random.Random, n_ns: int 
             )
         )
     return pods, namespaces, policies
+
+
+def bench_tiers() -> TierSet:
+    """The benchmark's deterministic ANP/BANP set over build_synthetic's
+    labels: overlapping priorities (two at 5), a Deny from app1 to tier0
+    on the TCP 80-81 endPort range, a Pass-chain for tier1 into the
+    NetworkPolicy tier, an SCTP 82 Allow from team0 namespaces, and a
+    BANP default-deny of ingress to app2.  Every rule is an ingress rule."""
+    return TierSet(
+        anps=[
+            AdminNetworkPolicy(
+                name="bench-deny-tier0", priority=5,
+                subject=TierScope(pod_selector=LabelSelector.make({"tier": "tier0"})),
+                ingress=[TierRule(
+                    action="Deny",
+                    peers=[TierScope(pod_selector=LabelSelector.make({"app": "app1"}))],
+                    ports=[TierPort(protocol="TCP", port=IntOrString(80), end_port=81)],
+                )],
+            ),
+            AdminNetworkPolicy(
+                name="bench-pass-tier1", priority=5,
+                subject=TierScope(pod_selector=LabelSelector.make({"tier": "tier1"})),
+                ingress=[TierRule(action="Pass", peers=[TierScope()])],
+            ),
+            AdminNetworkPolicy(
+                name="bench-allow-sctp", priority=9,
+                subject=TierScope(),
+                ingress=[TierRule(
+                    action="Allow",
+                    peers=[TierScope(namespace_selector=LabelSelector.make({"team": "team0"}))],
+                    ports=[TierPort(protocol="SCTP", port=IntOrString(82))],
+                )],
+            ),
+        ],
+        banp=BaselineAdminNetworkPolicy(
+            subject=TierScope(pod_selector=LabelSelector.make({"app": "app2"})),
+            ingress=[TierRule(action="Deny", peers=[TierScope()])],
+        ),
+    )

@@ -118,6 +118,105 @@ class TestKernelTwins:
         assert np.array_equal(w, g)
 
 
+def _tiered_tensors(seed):
+    """The tensor dict (port cases included) of tiered fuzz scenario
+    `seed` as the reference engine builds it."""
+    from cyclonus_tpu.matcher import build_network_policies
+    from cyclonus_tpu.tiers.fuzz import build_fuzz_case
+
+    fc = build_fuzz_case(seed)
+    assert fc.tiers is not None
+    engine = TpuPolicyEngine(
+        build_network_policies(fc.simplify, fc.netpols), fc.pods, fc.namespaces,
+        tiers=fc.tiers, class_compress="0",
+    )
+    return engine._tensors_with_cases(fc.cases)
+
+
+#: tiered fuzz scenarios (seeds 3-7 of tiers/fuzz.py carry tiers)
+TIER_SEEDS = [3, 5, 6]
+
+
+class TestTierTwins:
+    @pytest.mark.parametrize("seed", TIER_SEEDS)
+    def test_tier_direction_arrays(self, seed):
+        """tier_scope_match, port_spec_allows and tier_keys through
+        tier_direction_arrays, then tier_first_match_keys, each direction."""
+        t = _tiered_tensors(seed)
+        pt = carry.tensors_from_reference(t, "cpu")
+        sel = ("sel_req_kv", "sel_exp_op", "sel_exp_key", "sel_exp_vals")
+        selpod = ref_kernel.selector_match(*(t[k] for k in sel), t["pod_kv"], t["pod_key"])
+        selns = ref_kernel.selector_match(*(t[k] for k in sel), t["ns_kv"], t["ns_key"])
+        p_selpod, p_selns = port_kernel.selector_tables(pt)
+        cases = ("q_port", "q_name", "q_proto")
+        for d in ("ingress", "egress"):
+            want = ref_kernel.tier_direction_arrays(
+                t["tiers"][d], selpod, selns, t["pod_ns_id"], *(t[k] for k in cases)
+            )
+            got = port_kernel.tier_direction_arrays(
+                pt["tiers"][d], p_selpod, p_selns, pt["pod_ns_id"], *(pt[k] for k in cases)
+            )
+            _assert_tree_equal(want, got)
+            anp, banp = port_kernel.tier_keys(pt["tiers"][d])
+            assert anp.dtype == torch.int32 and banp.dtype == torch.int32
+            for chunk in (1, 8):
+                _assert_tree_equal(
+                    ref_kernel.tier_first_match_keys(
+                        want["subj"], want["peerq"], want["anp_key"], want["banp_key"],
+                        chunk=chunk,
+                    ),
+                    port_kernel.tier_first_match_keys(
+                        got["subj"], got["peerq"], got["anp_key"], got["banp_key"],
+                        chunk=chunk,
+                    ),
+                )
+
+    def test_tier_scope_match_pad_pods(self):
+        """Pad pods (ns id -1) and POD_ALL / POD_SELECTOR rows."""
+        rng = np.random.default_rng(11)
+        g, n, s, m = 9, 14, 5, 4
+        args = (
+            rng.integers(0, s, size=g).astype(np.int32),
+            rng.integers(0, 2, size=g).astype(np.int32),
+            rng.integers(-1, s, size=g).astype(np.int32),
+            rng.random((s, n)) < 0.5,
+            rng.random((s, m)) < 0.5,
+            np.where(rng.random(n) < 0.2, -1, rng.integers(0, m, size=n)).astype(np.int32),
+        )
+        want = ref_kernel.tier_scope_match(*args)
+        got = port_kernel.tier_scope_match(*(torch.from_numpy(a) for a in args))
+        assert np.array_equal(_np(got), _np(want))
+
+    def test_resolve_tier_lattice(self):
+        """Every (np verdict, has_target, ANP action, BANP action)
+        combination, the no-match key included."""
+        none = ref_encoding.TIER_KEY_NONE
+        keys = np.array([none, 4 * 3 + 1, 4 * 3 + 2, 4 * 3 + 3, 1, 2], dtype=np.int32)
+        grid = np.array(np.meshgrid([0, 1], [0, 1], keys, keys, indexing="ij")).reshape(4, -1)
+        np_allowed, has = grid[0].astype(bool), grid[1].astype(bool)
+        anp, banp = grid[2].astype(np.int32), grid[3].astype(np.int32)
+        want = ref_kernel.resolve_tier_lattice(np_allowed, has, anp, banp)
+        got = port_kernel.resolve_tier_lattice(
+            *(torch.from_numpy(a) for a in (np_allowed, has, anp, banp))
+        )
+        assert np.array_equal(_np(got), _np(want))
+
+    @pytest.mark.parametrize("seed,pack", [(3, True), (5, False), (7, True)])
+    def test_evaluate_grid_kernel_tiered(self, seed, pack):
+        t = _tiered_tensors(seed)
+        want = ref_kernel.evaluate_grid_kernel(t, pack=pack)
+        got = port_kernel.evaluate_grid_kernel(carry.tensors_from_reference(t, "cpu"), pack=pack)
+        _assert_tree_equal(want, got)
+
+    def test_precompute_tier(self):
+        t = _tiered_tensors(6)
+        want = ref_tiled._precompute(t, True)
+        got = port_tiled._precompute(carry.tensors_from_reference(t, "cpu"), True)
+        for d in ("ingress", "egress"):
+            _assert_tree_equal(want[d]["tier"], got[d]["tier"])
+        assert port_tiled.packed_tier(got) == {d: got[d]["tier"] for d in ("ingress", "egress")}
+
+
 class TestCarry:
     def test_tensors_from_reference_dtypes(self):
         t = {
