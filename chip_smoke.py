@@ -13,12 +13,19 @@ Phases, each raising on failure:
                 staging chunks), invalid rows and columns, has=False rows,
                 zero weights; the tiered variants (K3) also with 1 to
                 1,500 tier rows per direction, pad rows and random
-                ANP/BANP/Pass actions and ranks.  Exact equality;
+                ANP/BANP/Pass actions and ranks; the dense kernels (K4,
+                K5) at target depths 0 to 3,000 (one to three chunks),
+                with non-prefix masks, an all-has=False direction and
+                block-diagonal operands for K5's skip, and the slab
+                kernel (K6) at windows of 1 to 128 rows and tiles from 8
+                wide to the default.  Exact equality;
   4. truth tables — TorchPolicyEngine.evaluate_grid on the card against
-                the scalar oracle, for every policy of all_examples(), and
-                for seeds 0-15 of the tiered scenario generator on both
-                class modes against the tiered oracle (grids and counts;
-                K3 must have launched);
+                the scalar oracle, on both dtype plans (packed and
+                pack=False), for every policy of all_examples(), and for
+                seeds 0-15 of the tiered scenario generator on both class
+                modes against the tiered oracle (grids and counts; K3 must
+                have launched on the packed plan, K4 on every dense-plan
+                example engine);
   5. main path — the benchmark's synthetic cluster (100,000 pods x 10,000
                 policies, seed 20260729, port cases TCP 80 and named UDP
                 81) through the default engine (class-compressed route,
@@ -31,9 +38,14 @@ Phases, each raising on failure:
                 main-path shapes.  The tiered counts are held against the
                 untiered ones: egress equal (every egress tier row is a
                 pad), ingress lower (the tier0 <- app1 Deny hits TCP 80).
-                Times: encode, precompute, kernel (median of 5 CUDA-event
-                runs), plain version, the kernel's bound, end-to-end
-                cells/s.
+                Then the dense dtype plan (pack=False) on the same cluster:
+                the dense route through K4, with compaction off through
+                K5, with the slab forced through K6, the class route and
+                the tiered routes through the tile loop; every leg's
+                counts equal the packed plan's, each dense kernel
+                launched and no packed one.  Times: encode, precompute,
+                kernel (median of 5 CUDA-event runs), plain version, the
+                kernel's bound, end-to-end cells/s.
 
 Every comparison is exact.  Prints a JSON line of the main path's
 end-to-end numbers, a JSON line of per-kernel numbers, then as its last
@@ -59,6 +71,10 @@ import time
 PEAK_INT_OPS = 67e12 / 4
 #: HBM bytes/s of the same card (data sheet)
 PEAK_BYTES = 3.35e12
+#: dense int8 tensor-core operations/s of the same card (data sheet; a
+#: multiply-add counts two) — the least time for the dense kernels' int8
+#: multiply-adds, whatever unit the port's kernels run them on
+PEAK_INT8_OPS = 1.979e15
 #: the benchmark's headline cluster (bench.py): pods, policies, seed
 N_PODS = 100_000
 N_POLICIES = 10_000
@@ -265,26 +281,139 @@ def phase_kernels(device) -> None:
     log(f"kernels: {n_tiered} tiered kernel-vs-plain checks equal (tolerance: exact)")
 
 
+def random_dense(rng, q, te, ti, ns, nd, device, n_ns=0):
+    """Seeded dense-plan operands (tmatch bool, has bool, tallow bf16 per
+    direction) with random rectangular validity.  n_ns > 0: pods and
+    targets in the order of n_ns namespaces, tmatch block diagonal — most
+    (pod block, target chunk) pairs all zero and narrow target windows
+    per pod tile, as on the ns-sorted dense route."""
+    import numpy as np
+    import torch
+
+    def tmatch(t, n):
+        if not n_ns:
+            return rng.random((t, n)) < 0.02
+        return (np.sort(rng.integers(0, n_ns, t))[:, None]
+                == np.sort(rng.integers(0, n_ns, n))[None, :]) & (rng.random((t, n)) < 0.5)
+
+    def tallow(t, n):
+        return rng.random((t, n, q)) < 0.05
+
+    def flags(n, p):
+        return rng.random(n) < p
+
+    arrays = [tmatch(te, ns), flags(ns, 0.7), tallow(te, nd),
+              tmatch(ti, nd), flags(nd, 0.7), tallow(ti, ns)]
+    args = [torch.from_numpy(a).to(device) for a in arrays]
+    args[2] = args[2].to(torch.bfloat16)
+    args[5] = args[5].to(torch.bfloat16)
+    vs = torch.from_numpy(flags(ns, 0.8)).to(device)
+    vd = torch.from_numpy(flags(nd, 0.8)).to(device)
+    return args, vs, vd
+
+
+def phase_dense_kernels(device) -> None:
+    """K4/K5/K6 against their plain versions on seeded operands."""
+    import numpy as np
+    import torch
+
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine.packed_kernel import sum_partials
+
+    rng = np.random.default_rng(20260730)
+    shapes = [  # (q, te, ti, ns, nd, namespaces): target depths 0 to ~3,000
+        (1, 0, 0, 9, 9, 0),
+        (2, 5, 7, 130, 77, 0),
+        (3, 255, 383, 1000, 777, 0),
+        (1, 1023, 1024, 200, 200, 0),
+        (2, 1100, 40, 300, 513, 0),
+        (2, 3000, 2999, 700, 650, 0),
+        (2, 3000, 2400, 4096, 4096, 300),
+        (1, 40, 1500, 2100, 1900, 5),
+    ]
+    checked = {"dense_counts_1chunk": 0, "dense_counts_chunked": 0}
+    for q, te, ti, ns, nd, n_ns in shapes:
+        args, vs, vd = random_dense(rng, q, te, ti, ns, nd, device, n_ns)
+        variants = [
+            {"valid_src": vs, "valid_dst": vd},
+            {"valid_src": vs, "valid_dst": vd, "bs": 64},
+        ]
+        if ns == nd:
+            n = ns - 3
+            variants.append({"valid_src": torch.arange(ns, device=device) < n,
+                             "valid_dst": torch.arange(nd, device=device) < n})
+        # has=False everywhere on one direction: the pseudo row alone
+        alt = list(args)
+        alt[1] = torch.zeros_like(args[1])
+        for a, kw in [(args, v) for v in variants] + [(alt, variants[0])]:
+            before = dict(dk.LAUNCHES)
+            got = dk.verdict_counts_rect(*a, **kw)
+            torch.cuda.synchronize()
+            want = dk.verdict_counts_rect(*a, plain=True, **kw)
+            kind = next(k for k in checked if dk.LAUNCHES[k] == before[k] + 1)
+            check_kernel(got, want, f"{kind} q={q} te={te} ti={ti} ns={ns} nd={nd} "
+                         f"namespaces={n_ns} {sorted(kw)}")
+            checked[kind] += 1
+    log(f"kernels: {json.dumps(checked)} dense kernel-vs-plain checks equal (tolerance: exact)")
+
+    n_slab = 0
+    slab_shapes = [  # (q, te, ti, n, bs, bd, w, namespaces): 8-wide tiles to the default
+        (1, 30, 40, 100, 8, 8, 1, 30),
+        (2, 60, 50, 250, 8, 16, 8, 50),
+        (3, 200, 300, 1000, 64, 32, 32, 100),
+        (2, 250, 300, 5000, 2048, 1024, 128, 100),
+        (2, 20, 30, 5000, 2048, 1024, 32, 20),
+        (2, 600, 900, 5000, 2048, 1024, 128, 40),
+    ]
+    for q, te, ti, n, bs, bd, w, n_ns in slab_shapes:
+        args, _vs, _vd = random_dense(rng, q, te, ti, n, n, device, n_ns)
+        n_pods = n - 5
+        live = np.arange(n) < n_pods
+        t0 = [dk.slab_windows(args[k].cpu().numpy() & live[None, :], tile, w)
+              for k, tile in ((0, bs), (3, bd))]
+        ops = dk.slab_operands(*args, t0[0][0], t0[1][0], n_pods, bs=bs, bd=bd, w=w)
+        before = dk.LAUNCHES["dense_counts_slab"]
+        got = dk.verdict_counts_slab_from_ops(ops)
+        torch.cuda.synchronize()
+        if dk.LAUNCHES["dense_counts_slab"] != before + 1:
+            raise AssertionError("the slab kernel did not launch")
+        check_kernel(got, dk.verdict_counts_slab_from_ops(ops, plain=True),
+                     f"dense_counts_slab q={q} te={te} ti={ti} n={n} bs={bs} bd={bd} w={w}")
+        n_slab += 1
+        if t0[0][1] and t0[1][1]:
+            # windows that hold every target: the slab counts equal K4/K5's
+            dense = sum_partials(dk.verdict_counts(*args, n_pods=n_pods), q, n_pods)
+            if sum_partials(got, q, n_pods) != dense:
+                raise AssertionError(f"slab counts != dense counts at q={q} n={n} w={w}")
+            n_slab += 1
+    log(f"kernels: {n_slab} slab kernel checks equal (vs plain, and vs the dense kernels "
+        f"where the windows hold; tolerance: exact)")
+
+
 def phase_truth_tables(device) -> None:
     from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
     from cyclonus_tpu_torch.engine import packed_kernel as pk
     from cyclonus_tpu_torch.kube import examples
     from cyclonus_tpu_torch.matcher import build_network_policies
     from cyclonus_tpu_torch.oracle import oracle_grid
     from cyclonus_tpu_torch.tiers.fuzz import build_fuzz_case
 
-    def check(engine, policy, pods, namespaces, cases, what, tiers=None):
-        grid = engine.evaluate_grid(cases)
+    def check(engines, policy, pods, namespaces, cases, what, tiers=None):
+        """Each engine (both dtype plans) against one oracle grid."""
         want = oracle_grid(policy, pods, namespaces, cases, tiers=tiers)
-        for k, v in want.items():
-            got = getattr(grid, k)
-            if got.shape != v.shape or not (got == v).all():
-                raise AssertionError(f"{what}: {k} grid differs from the oracle")
-        counts = engine.evaluate_grid_counts(cases)
         sums = {k: int(v.sum()) for k, v in want.items()}
-        if {k: counts[k] for k in sums} != sums:
-            raise AssertionError(f"{what}: counts {counts} != oracle sums {sums}")
-        return want["combined"].size
+        for engine in engines:
+            label = f"{what} pack={engine._pack}"
+            grid = engine.evaluate_grid(cases)
+            for k, v in want.items():
+                got = getattr(grid, k)
+                if got.shape != v.shape or not (got == v).all():
+                    raise AssertionError(f"{label}: {k} grid differs from the oracle")
+            counts = engine.evaluate_grid_counts(cases)
+            if {k: counts[k] for k in sums} != sums:
+                raise AssertionError(f"{label}: counts {counts} != oracle sums {sums}")
+        return want["combined"].size * len(engines)
 
     pods, namespaces = examples.example_cluster()
     cases = [
@@ -294,11 +423,16 @@ def phase_truth_tables(device) -> None:
     ]
     policy_sets = [[p] for p in examples.all_examples()] + [examples.all_examples()]
     cells = 0
+    dk.reset_launches()
     for i, policies in enumerate(policy_sets):
         policy = build_network_policies(True, policies)
-        engine = TorchPolicyEngine(policy, pods, namespaces, device=device)
-        cells += check(engine, policy, pods, namespaces, cases, f"policy set {i}")
-    log(f"truth tables: {len(policy_sets)} policy sets, {cells} cells equal to the oracle")
+        engines = [TorchPolicyEngine(policy, pods, namespaces, device=device, pack=p)
+                   for p in (True, False)]
+        cells += check(engines, policy, pods, namespaces, cases, f"policy set {i}")
+    if dk.LAUNCHES["dense_counts_1chunk"] != len(policy_sets):
+        raise AssertionError(f"dense plan: {dk.LAUNCHES} for {len(policy_sets)} engines")
+    log(f"truth tables: {len(policy_sets)} policy sets x both dtype plans, {cells} cells "
+        f"equal to the oracle")
 
     cells = n_tiered = 0
     for seed in range(16):
@@ -306,12 +440,13 @@ def phase_truth_tables(device) -> None:
         policy = build_network_policies(fc.simplify, fc.netpols)
         for mode in ("0", "1"):
             pk.reset_launches()
-            engine = TorchPolicyEngine(
-                policy, fc.pods, fc.namespaces, tiers=fc.tiers, class_compress=mode,
-                device=device,
-            )
+            engines = [
+                TorchPolicyEngine(policy, fc.pods, fc.namespaces, tiers=fc.tiers,
+                                  class_compress=mode, device=device, pack=p)
+                for p in (True, False)
+            ]
             cells += check(
-                engine, policy, fc.pods, fc.namespaces, fc.cases,
+                engines, policy, fc.pods, fc.namespaces, fc.cases,
                 f"fuzz seed {seed} class_compress={mode}", tiers=fc.tiers,
             )
             k3 = pk.LAUNCHES["packed_counts_tiered"] + pk.LAUNCHES["packed_rowsums_tiered"]
@@ -321,8 +456,8 @@ def phase_truth_tables(device) -> None:
                     f"launches {pk.LAUNCHES} do not match tiers={fc.tiers is not None}"
                 )
             n_tiered += fc.tiers is not None
-    log(f"truth tables: 16 fuzz seeds x 2 class modes ({n_tiered} tiered engines), "
-        f"{cells} cells and all counts equal to the tiered oracle")
+    log(f"truth tables: 16 fuzz seeds x 2 class modes x both dtype plans ({n_tiered} "
+        f"tiered settings), {cells} cells and all counts equal to the tiered oracle")
 
 
 def bound(args, w_dst, out, ops=None, tier_work=(0, 0)):
@@ -520,7 +655,6 @@ def route_numbers(eng_a, eng_b, cases, first_a, first_b, label):
 def sub_size_check(policy_count, cases, device, tiers=None) -> None:
     """The plain version through the engine at a sub-size, dense route."""
     from cyclonus_tpu_torch.engine import TorchPolicyEngine
-    from cyclonus_tpu_torch.engine import packed_kernel as pk
     from cyclonus_tpu_torch.matcher import build_network_policies
     from cyclonus_tpu_torch.synthetic import build_synthetic
 
@@ -528,12 +662,200 @@ def sub_size_check(policy_count, cases, device, tiers=None) -> None:
     eng = TorchPolicyEngine(build_network_policies(True, spol), sp, sn, device=device,
                             class_compress="0", tiers=tiers)
     got = eng.evaluate_grid_counts(cases)
-    want = eng._counts_dense(cases, counts_fn=pk.verdict_counts_packed_plain)
+    want = eng._counts_dense(cases, plain=True)
     label = "tiered " if tiers else ""
     if got != want:
         raise AssertionError(f"{label}sub-size {N_SUB}: kernel path {got} != plain {want}")
     log(f"{label}sub-size {N_SUB} pods dense route: kernel path == plain version "
         f"({json.dumps(got)})")
+
+
+def dense_bound(inputs, out, macs):
+    """(ms, bound_by, ops, bytes) of one dense-plan kernel call: the larger
+    of its int8 multiply-adds (two operations each) over the int8
+    tensor-core peak and the bytes of its inputs (each read once) and
+    output over HBM bandwidth."""
+    nbytes = sum(a.numel() * a.element_size() for a in inputs) + out.numel() * out.element_size()
+    n_ops = 2 * macs
+    by = "operations" if n_ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes"
+    return max(n_ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3, by, n_ops, nbytes
+
+
+def live_target_rows(eng, direction, tmatch, kt):
+    """[n_chunks] int64: per kt-row chunk of the direction's augmented
+    target axis (tmatch's rows, then the pseudo row), the rows that hold
+    data — the encoded targets and the pseudo row, not the inert targets
+    that bucket the axis nor the zero rows that pad it to a chunk."""
+    import torch
+
+    t = tmatch.shape[0]
+    target_ns = eng._tensors[direction]["target_ns"]
+    if target_ns.shape[0] != t:
+        raise AssertionError(f"{direction}: {target_ns.shape[0]} encoded targets, tmatch has {t}")
+    live = torch.zeros(-(-(t + 1) // kt) * kt, dtype=torch.int64)
+    live[:t] = torch.from_numpy(target_ns >= 0)
+    live[t] = 1
+    return live.view(-1, kt).sum(dim=1)
+
+
+def dense_record(name, eng, cases, launches):
+    """K4 (single chunk), K5 (chunked) or K6 (slab, name dense_counts_slab)
+    against its plain version on the inputs of `eng`'s dense route, timed."""
+    import torch
+
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine.tiled import _precompute
+
+    pre = _precompute(eng._dense_counts_tensors(cases), False)
+    e, ig = pre["egress"], pre["ingress"]
+    args = [e["tmatch"], e["has_target"], e["tallow_bf"],
+            ig["tmatch"], ig["has_target"], ig["tallow_bf"]]
+    n, q = eng.n_pods, len(cases)
+    ns, nd = args[0].shape[1], args[3].shape[1]
+    # the bounds count multiply-adds over live rows only: the first n pods
+    # of each pod axis (the rest are bucketing pads, zero in every operand)
+    # and the target rows that hold data, never the zero rows that pad a
+    # depth to a chunk or a window to its 32-row int8 tile
+    if name == "dense_counts_slab":
+        plan = eng._slab_plan()
+        ops = dk.slab_operands(*args, plan["egress"], plan["ingress"], n, w=plan["w"])
+        w_aug = ops["a_e"].shape[2]
+        # per direction the w window rows plus the pseudo/validity row
+        macs = q * n * n * 2 * (plan["w"] + 1)
+        run = lambda: dk.verdict_counts_slab_from_ops(ops)  # noqa: E731
+        run_plain = lambda: dk.verdict_counts_slab_from_ops(ops, plain=True)  # noqa: E731
+        shape = {"q": q, "n": ns, "w": plan["w"], "w_aug": w_aug,
+                 "tiles": [ops["a_e"].shape[0], ops["a_i"].shape[0]]}
+        replaces = "cyclonus_tpu/engine/pallas_kernel.py:1414"
+    else:
+        valid = torch.arange(ns, device=args[0].device) < n
+        ops = dk.dense_operands(*args, valid, valid)
+        chunked = name == "dense_counts_chunked"
+        if dk.single_chunk(ops) == chunked:
+            raise AssertionError(f"{name}: the main-path operands take the other kernel")
+        # per chunk of the augmented depth, the rows that hold data: the
+        # encoded targets (not the bucketing's inert pad targets) and the
+        # pseudo row
+        live_rows = [live_target_rows(eng, d, a, ops[kt]) for d, a, kt in
+                     (("egress", args[0], "kt_e"), ("ingress", args[3], "kt_i"))]
+        te, ti = (int(r.sum()) for r in live_rows)
+        nz = dk._nz_maps(ops) if chunked else None
+        if chunked:
+            # the blocks the nz maps keep: each kept (64-pod src block,
+            # egress chunk) against every live dst pod, each kept (64-pod
+            # dst block, ingress chunk) against every live src pod; a
+            # block counts its live pods, a chunk its live rows
+            def kept_macs(m, rows):
+                pods = (n - dk.CUDA_TILE * torch.arange(m.shape[0])).clamp(0, dk.CUDA_TILE)
+                return int((m.cpu().long() * pods[:, None] * rows[None, :]).sum())
+
+            macs = q * n * sum(kept_macs(m, r) for m, r in zip(nz, live_rows))
+            kept = [round(float(m.float().mean()), 4) for m in nz]
+        else:
+            macs = q * n * n * (te + ti)
+            kept = None
+        run = lambda: dk._counts_cuda(ops, nz)  # noqa: E731
+        run_plain = lambda: dk._counts_plain(ops)  # noqa: E731
+        shape = {"q": q, "ns": ns, "nd": nd, "te": te, "ti": ti,
+                 "kt": [ops["kt_e"], ops["kt_i"]], "nz_kept": kept}
+        replaces = ("cyclonus_tpu/engine/pallas_kernel.py:601" if chunked
+                    else "cyclonus_tpu/engine/pallas_kernel.py:523")
+    before = dict(dk.LAUNCHES)
+    got = run()
+    torch.cuda.synchronize()
+    if dk.LAUNCHES[name] != before[name] + 1:
+        raise AssertionError(f"{name}: the main-path operands did not launch it")
+    want = run_plain()
+    check_kernel(got, want, f"{name}, the main-path shapes")
+    max_abs_err = float((got.double() - want.double()).abs().max())
+    ms = time_ms(run, reps=5, warm=1)
+    plain_ms = time_ms(run_plain, reps=1, warm=0)
+    b_ms, b_by, b_ops, b_bytes = dense_bound(args, got, macs)
+    log(f"{name}: {ms:.3f} ms (bound {b_ms:.3f} ms: {b_ops:.4e} int8 ops, {b_bytes:.4e} bytes; "
+        f"plain {plain_ms:.1f} ms) at {shape}, equal to plain (tolerance: exact)")
+    return {
+        "name": name, "route": "cuda", "source": "cyclonus_tpu_torch/csrc/dense_counts.cu",
+        "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
+#: the dense dtype plan's legs (pack=False): (name, tiered, engine options,
+#: the kernel the leg's first call must launch, or None for the tile loop)
+DENSE_LEGS = [
+    ("dense", False, {"class_compress": "0"}, "dense_counts_1chunk"),
+    ("chunked", False, {"class_compress": "0", "compact": False}, "dense_counts_chunked"),
+    ("slab", False, {"class_compress": "0", "slab": "1"}, "dense_counts_slab"),
+    ("class", False, {}, None),
+    ("dense", True, {"class_compress": "0"}, None),
+    ("class", True, {}, None),
+]
+
+
+def phase_dense_plan(device, policy, pods, namespaces, cases, want_plain, want_tiered):
+    """The dense dtype plan's main path (pack=False) on the headline
+    cluster, once, with every launch count zeroed just before and read
+    just after: the dense route through K4, K5 (compaction off) and K6
+    (slab forced), the class route through the tile loop's row sums, and
+    the tiered dense and class routes through the tile loop.  Each leg's
+    counts must equal the packed plan's (want_plain / want_tiered); each
+    dense kernel must have launched, and no packed kernel.  Then per leg:
+    encode, first call, warm end to end, device busy share; per kernel:
+    the record against its plain version."""
+    import torch
+
+    from cyclonus_tpu_torch.engine import TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.synthetic import bench_tiers
+
+    tiers = bench_tiers()
+    engines = {}
+    pk.reset_launches()
+    dk.reset_launches()
+    for name, tiered, kw, kernel in DENSE_LEGS:
+        key = f"{'tiered ' if tiered else ''}{name}"
+        before = dict(dk.LAUNCHES)
+        eng = TorchPolicyEngine(policy, pods, namespaces, device=device, pack=False,
+                                tiers=tiers if tiered else None, **kw)
+        t0 = time.perf_counter()
+        counts = eng.evaluate_grid_counts(cases)
+        first = time.perf_counter() - t0
+        want = want_tiered if tiered else want_plain
+        if counts != want:
+            raise AssertionError(f"dense plan, {key}: counts {counts} != packed plan {want}")
+        ran = {k: dk.LAUNCHES[k] - before[k] for k in dk.LAUNCHES}
+        if ran != {k: int(k == kernel) for k in dk.LAUNCHES}:
+            raise AssertionError(f"dense plan, {key}: launches {ran}, want {kernel}")
+        if (eng.pod_classes() is not None) != (name == "class"):
+            raise AssertionError(f"dense plan, {key}: class state does not match the leg")
+        engines[key] = (eng, kernel, first)
+    launches = {**dict(dk.LAUNCHES), **dict(pk.LAUNCHES)}
+    log(f"dense plan launches: {launches}")
+    if any(pk.LAUNCHES.values()):
+        raise AssertionError(f"dense plan: a packed kernel launched: {pk.LAUNCHES}")
+    log(f"dense plan counts: every leg equal to the packed plan (untiered "
+        f"{json.dumps(want_plain)}, tiered {json.dumps(want_tiered)})")
+
+    cells = len(cases) * len(pods) ** 2
+    legs, records = {}, []
+    for key, (eng, kernel, first) in engines.items():
+        reps = 1 if key == "tiered dense" else 3  # the tile loop over 98 dense tiles
+        warm_s = time_ms(lambda e=eng: e.evaluate_grid_counts(cases), reps=reps, warm=0) / 1e3
+        share, top = device_time_profile(lambda e=eng: e.evaluate_grid_counts(cases), reps=reps)
+        legs[key] = {"kernel": kernel or "tile loop", "encode_s": eng.encode_s,
+                     "first_call_s": first, "warm_s": warm_s, "cells_per_s": cells / warm_s,
+                     "device_busy_share": share}
+        log(f"dense plan, {key}: warm {warm_s * 1e3:.2f} ms, device busy "
+            f"{'not measured' if share is None else f'{share:.4f}'}; top kernels ms/call: {top}")
+        if kernel is not None:
+            if kernel == "dense_counts_slab":
+                legs[key]["slab_w"] = eng._slab_plan()["w"]
+            records.append(dense_record(kernel, eng, cases, launches[kernel]))
+        del eng
+        engines[key] = None
+        torch.cuda.empty_cache()
+    return records, {"legs": legs, "launches": launches}
 
 
 def phase_main_path(device):
@@ -570,7 +892,7 @@ def phase_main_path(device):
             eng_a, eng_b, cases, first_a, first_b, key
         )
         # each kernel against its plain version on the main path's own inputs
-        w = torch.from_numpy(class_rowsums_plan(tens_a, pc.n_classes, pc.class_size)).to(device)
+        w = torch.from_numpy(class_rowsums_plan(tens_a, pc.n_classes, pc.class_size)[0]).to(device)
         records += [
             kernel_record("packed_counts" + suffix, ref_tiered if tiers else ref, pre_b,
                           n_pods, None, launches["packed_counts" + suffix]),
@@ -595,6 +917,11 @@ def phase_main_path(device):
     log(f"tiers vs untiered: egress equal, ingress {plain['ingress']} -> {tiered['ingress']}, "
         f"combined {plain['combined']} -> {tiered['combined']}")
 
+    dense_records, summary["dense_plan"] = phase_dense_plan(
+        device, policy, pods, namespaces, cases, plain, tiered
+    )
+    records += dense_records
+
     # the main path's end-to-end numbers in one line, next to the kernels
     # line at the end of the output
     log(json.dumps({"main_path": summary}))
@@ -618,6 +945,7 @@ def main() -> int:
     secs = build.build(verbose=True)
     log(f"build: {json.dumps(secs)} (wall {time.perf_counter() - t0:.1f} s)")
     phase_kernels(device)
+    phase_dense_kernels(device)
     phase_truth_tables(device)
     records = phase_main_path(device)
     log(card_info())

@@ -1,6 +1,6 @@
 """State carried across from the reference engine: its numpy tensor dict
 (`TpuPolicyEngine._tensors`, or a class state's `ctensors`) as the
-port's torch tensors.
+port's torch tensors on the device that resolve_device names.
 
 The engine's tensors are integer and boolean arrays built on the host;
 the port moves the same bytes onto its device.  `uint32` columns (pod
@@ -24,6 +24,23 @@ _DTYPES = {
     np.dtype(np.uint32): torch.int64,
     np.dtype(np.float32): torch.float32,
 }
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the current CUDA device when None; raises when that
+    is not available (the port never falls back to the CPU on its own:
+    a caller who wants the CPU asks for it)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "the engine on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{device} requested but no CUDA device is available")
+    return device
 
 
 def to_torch(a: np.ndarray, device) -> torch.Tensor:

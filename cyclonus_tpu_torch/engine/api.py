@@ -8,20 +8,32 @@ the same two entry points:
 
   * evaluate_grid         — the full N x N x Q truth tables;
   * evaluate_grid_counts  — allow counts over the full grid: the class-
-                            compressed route (weighted epilogue of the
-                            packed counts kernel) when class state is on
-                            and fits the device budget, else the dense
-                            route (plain epilogue over ns-sorted pods).
+                            compressed route when class state is on and
+                            fits the device budget, else the dense route
+                            over ns-sorted pods.
 
-With admin tiers (tiers=, a tiers.model.TierSet of AdminNetworkPolicies
-and a BaselineAdminNetworkPolicy) both entry points resolve the
-ANP -> NetworkPolicy -> BANP precedence lattice: the truth tables in
-plain PyTorch, the counts in the tiered epilogue of the packed counts
-kernel, on either route and for any number of tier rows.
+Two dtype plans, as in the reference (`pack`, CYCLONUS_PACK):
 
-The reference's autotune, precompute cache, slab plan, AOT cache and
-plan recording are performance or compile machinery that change no
-result; the port runs the default tile and a one-shot precompute.
+  * packed (the default): the counts kernels contract 32-per-word bitmaps
+    — the weighted epilogue (K2) on the class route, the plain epilogue
+    (K1) on the dense route;
+  * dense (pack=False): int8 operands — the dense route runs the slab
+    kernel (K6) when the slab plan holds (`slab`, CYCLONUS_PALLAS_SLAB=1),
+    else the single-chunk (K4) or chunked (K5) kernel; the class route
+    runs the tile loop's row sums.
+
+backend="xla" runs the tile loop (tiled.evaluate_grid_counts) on either
+plan.  With admin tiers (tiers=, a tiers.model.TierSet of
+AdminNetworkPolicies and a BaselineAdminNetworkPolicy) both entry points
+resolve the ANP -> NetworkPolicy -> BANP precedence lattice: the truth
+tables in plain PyTorch, the packed counts in the tiered epilogue of the
+packed counts kernel (K3), any number of tier rows; the dense plan has
+no tiered kernel, so its tiered counts take the tile loop.
+
+The reference's autotune, precompute cache, AOT cache and plan recording
+are performance or compile machinery that change no result; the port
+runs the default tile and a one-shot precompute, and its slab plan
+engages only when forced.
 """
 
 from __future__ import annotations
@@ -34,8 +46,9 @@ import numpy as np
 import torch
 
 from .. import carry
+from ..carry import resolve_device
 from ..matcher.core import Policy
-from . import host
+from . import dense_kernel, host, tiled
 from .encoding import (
     PEER_IP,
     PolicyEncoding,
@@ -43,10 +56,11 @@ from .encoding import (
     compute_pod_classes,
     encode_policy,
     gather_class_pod_rows,
+    pack_enabled,
     packed_words,
 )
 from .kernel import evaluate_grid_kernel, gather_class_grids, grid_stats_kernel
-from .packed_kernel import sum_partials, verdict_counts_packed
+from .packed_kernel import sum_partials, verdict_counts_packed, verdict_counts_packed_plain
 from .tiled import _precompute, evaluate_grid_counts_classes, packed_tier
 
 
@@ -57,23 +71,6 @@ class PortCase:
     port: int
     port_name: str
     protocol: str
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or the current CUDA device when None; raises when that
-    is not available (the engine never falls back to the CPU on its
-    own: a caller who wants the CPU asks for it)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the engine on the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{device} requested but no CUDA device is available")
-    return device
 
 
 class GridVerdict:
@@ -151,9 +148,11 @@ class TorchPolicyEngine:
     cases.  Pods are (namespace, name, labels, ip) tuples.
 
     `device` None means the current CUDA device, and raises when there is
-    none; pass device="cpu" to run on the CPU.  compact/class_compress
-    override the CYCLONUS_COMPACT / CYCLONUS_CLASS_COMPRESS env defaults
-    (None = env), exactly as in the reference engine.  `tiers` (a
+    none; pass device="cpu" to run on the CPU.  compact/class_compress/
+    pack/slab override the CYCLONUS_COMPACT / CYCLONUS_CLASS_COMPRESS /
+    CYCLONUS_PACK / CYCLONUS_PALLAS_SLAB env defaults (None = env): pack
+    False selects the dense dtype plan, slab "1" forces the slab kernel
+    under it.  `tiers` (a
     tiers.model.TierSet) layers AdminNetworkPolicy / BaselineAdmin-
     NetworkPolicy precedence tiers over the policies; absent or empty, the
     tensor set is byte-identical to the tier-free engine's."""
@@ -168,6 +167,8 @@ class TorchPolicyEngine:
         compact: Optional[bool] = None,
         class_compress: Optional[str] = None,
         tiers=None,
+        pack: Optional[bool] = None,
+        slab: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         t0 = time.perf_counter()
@@ -213,7 +214,11 @@ class TorchPolicyEngine:
             protocols=cluster.vocab.proto,
             classes=classes,
             ctensors=ctensors,
+            pack=pack,
+            slab=slab,
         )
+        # the compaction-time selector pass, reused by the slab plan
+        self._selpod_prebucket = selpod
         self._has_ip_peers = bool(
             np.any(self.encoding.ingress.peer_kind == PEER_IP)
             or np.any(self.encoding.egress.peer_kind == PEER_IP)
@@ -259,6 +264,8 @@ class TorchPolicyEngine:
         classes=None,
         ctensors: Optional[Dict] = None,
         device=None,
+        pack: Optional[bool] = None,
+        slab: Optional[str] = None,
     ) -> "TorchPolicyEngine":
         """An engine over an already built, bucketed numpy tensor dict —
         e.g. the reference engine's `_tensors` and its class state's
@@ -277,6 +284,8 @@ class TorchPolicyEngine:
             protocols=dict(protocols),
             classes=classes,
             ctensors=ctensors,
+            pack=pack,
+            slab=slab,
         )
         self._has_ip_peers = any(
             bool(np.any(tensors[d]["peer_kind"] == PEER_IP))
@@ -286,13 +295,21 @@ class TorchPolicyEngine:
         self.encode_s = 0.0
         return self
 
-    def _init_state(self, tensors, *, pod_keys, port_names, protocols, classes, ctensors):
+    def _init_state(
+        self, tensors, *, pod_keys, port_names, protocols, classes, ctensors, pack, slab
+    ):
         self._tensors = tensors
         self._pod_keys = list(pod_keys)
         self._port_names = port_names
         self._protocols = protocols
+        # the dtype plan: packed words (True) or dense int8 operands
+        self._pack = pack_enabled() if pack is None else bool(pack)
+        self._slab_mode = host._slab_mode(slab)
+        self._slab_plan_state = "unset"  # the slab windows, planned at first use
+        self._selpod_prebucket = None
         self._device_tensors = None
         self._pod_perm = None  # ns-order pod permutation of the dense counts route
+        self._pod_perm_host = None
         self._class_state = None
         self._tier_resolve_s = None
         if classes is not None:
@@ -396,7 +413,7 @@ class TorchPolicyEngine:
         if self._class_state is not None:
             grid = self._evaluate_grid_classes(cases)
         else:
-            out = evaluate_grid_kernel(self._with_cases(self._dev(), cases), pack=True)
+            out = evaluate_grid_kernel(self._with_cases(self._dev(), cases), pack=self._pack)
             # bucketing pads the pod axis; strip the pad rows
             grid = GridVerdict(
                 self.pod_keys,
@@ -416,7 +433,7 @@ class TorchPolicyEngine:
         if st["class_of"] is None:
             st["class_of"] = carry.to_torch(st["classes"].class_of_pod, self.device)
         out = gather_class_grids(
-            evaluate_grid_kernel(self._with_cases(self._class_dev(), cases), pack=True),
+            evaluate_grid_kernel(self._with_cases(self._class_dev(), cases), pack=self._pack),
             st["class_of"],
         )
         return GridVerdict(
@@ -427,32 +444,72 @@ class TorchPolicyEngine:
 
     def _class_counts_eligible(self, q: int) -> bool:
         """The class counts route must fit the device budget it protects:
-        aux/index tensors + the packed class precompute + row sums,
-        estimated on the host before any dispatch."""
+        aux/index tensors + the class precompute + row sums, estimated on
+        the host before any dispatch."""
         st = self._class_state
         if st is None:
             return False
         ct = st["ctensors"]
         cb = int(ct["pod_ns_id"].shape[0])
         t = sum(int(ct[d]["target_ns"].shape[0]) for d in ("ingress", "egress"))
-        w = sum(packed_words(int(ct[d]["target_ns"].shape[0])) for d in ("ingress", "egress"))
-        est = st["aux_bytes"] + cb * (4 * w * (q + 1) + t) + cb * q * 12
+        if self._pack:
+            # packed plan: tallow_pk int32 [W, Cb, Q] + tmatch_pk [W, Cb]
+            # + the bool tmatch
+            w = sum(packed_words(int(ct[d]["target_ns"].shape[0])) for d in ("ingress", "egress"))
+            est = st["aux_bytes"] + cb * (4 * w * (q + 1) + t) + cb * q * 12
+        else:
+            # tallow bf16 [T, Cb, Q] per direction + tmatch + f32 row sums
+            est = st["aux_bytes"] + t * cb * (2 * q + 1) + cb * q * 12
         return est <= host._slab_max_bytes()
 
-    def evaluate_grid_counts(self, cases: Sequence[PortCase]) -> Dict[str, int]:
+    def evaluate_grid_counts(
+        self, cases: Sequence[PortCase], block: int = 1024, backend: Optional[str] = None
+    ) -> Dict[str, int]:
         """Allow counts over the full N x N x Q grid (ingress, egress,
         combined and the cell count), routed as the reference routes
         them: the class-compressed route when class state is on and fits
-        the device budget, else the dense route."""
+        the device budget, else the dense route.
+
+        backend "pallas" (the default) runs the hand-written counts
+        kernels; "xla" runs the tile loop (`block` source rows per tile,
+        the class route's row sums included).  The dense dtype plan has no
+        tiered kernel: tiered counts there take the tile loop, and an
+        explicit backend="pallas" raises."""
+        explicit = backend is not None
+        if backend is None:
+            backend = "pallas"
+        if backend not in ("xla", "pallas"):
+            raise ValueError(f"unknown counts backend {backend!r} (want 'xla' or 'pallas')")
+        if "tiers" in self._tensors and backend == "pallas" and not self._pack:
+            if explicit:
+                raise ValueError(
+                    "counts backend 'pallas' cannot evaluate the precedence-tier "
+                    "lattice under the dense dtype plan (pack off); use "
+                    "backend='xla' or backend=None (auto)"
+                )
+            backend = "xla"
         self._check_ips()
         n = self.n_pods
         if not cases or n == 0:
             return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
         if self._class_counts_eligible(len(cases)):
-            return self._counts_classes(cases)
-        return self._counts_dense(cases)
+            return self._counts_classes(
+                cases, kernel="pallas" if self._pack and backend == "pallas" else "xla",
+                block=block,
+            )
+        if backend == "pallas":
+            return self._counts_dense(cases)
+        return tiled.evaluate_grid_counts(
+            self._with_host_cases(cases), n, block=block, pack=self._pack, device=self.device
+        )
 
-    def _counts_classes(self, cases, counts_fn=verdict_counts_packed) -> Dict[str, int]:
+    def _with_host_cases(self, cases: Sequence[PortCase]) -> Dict:
+        """The host (numpy) tensors with the port-case arrays."""
+        t = dict(self._tensors)
+        t["q_port"], t["q_name"], t["q_proto"] = self._port_case_arrays(cases)
+        return t
+
+    def _counts_classes(self, cases, kernel: str, block: int = 1024) -> Dict[str, int]:
         st = self._class_state
         pc = st["classes"]
         return evaluate_grid_counts_classes(
@@ -460,7 +517,9 @@ class TorchPolicyEngine:
             pc.n_classes,
             pc.class_size,
             self.n_pods,
-            counts_fn=counts_fn,
+            block=block,
+            pack=self._pack,
+            kernel=kernel,
         )
 
     def _dense_counts_tensors(self, cases: Sequence[PortCase]) -> Dict:
@@ -472,7 +531,8 @@ class TorchPolicyEngine:
         if self._pod_perm is None:
             ns = self._tensors["pod_ns_id"]
             key = np.where(ns < 0, np.iinfo(np.int32).max, ns)
-            self._pod_perm = torch.from_numpy(np.argsort(key, kind="stable")).to(self.device)
+            self._pod_perm_host = np.argsort(key, kind="stable")
+            self._pod_perm = torch.from_numpy(self._pod_perm_host).to(self.device)
         perm = self._pod_perm
         t = dict(self._dev())
         for k in host._POD_KEYS:
@@ -484,13 +544,54 @@ class TorchPolicyEngine:
                 t[direction] = d
         return self._with_cases(t, cases)
 
-    def _counts_dense(self, cases, counts_fn=verdict_counts_packed) -> Dict[str, int]:
-        pre = _precompute(self._dense_counts_tensors(cases), True)
+    def _slab_plan(self) -> Optional[Dict]:
+        """The slab windows of the dense route (host._slab_plan), planned
+        once per engine: None unless the slab mode is "1" and the plan
+        holds."""
+        if self._slab_plan_state == "unset":
+            plan = None
+            if self._slab_mode == "1":
+                aux = self._class_state["aux_bytes"] if self._class_state else 0
+                plan = host._slab_plan(
+                    self._tensors, self._pod_perm_host, self.n_pods, aux,
+                    selpod=self._selpod_prebucket,
+                )
+            self._slab_plan_state = plan
+        return self._slab_plan_state
+
+    def _counts_dense(self, cases, plain: bool = False) -> Dict[str, int]:
+        """The dense route: the packed counts kernel (K1, tiered K3) under
+        the packed plan; under the dense plan the slab kernel (K6) when
+        the slab plan holds and its bytes fit the budget at this case
+        count, else K4/K5.  plain=True runs each kernel's plain version."""
+        q = len(cases)
+        tensors = self._dense_counts_tensors(cases)
+        if self._pack:
+            pre = _precompute(tensors, True)
+            e, ig = pre["egress"], pre["ingress"]
+            fn = verdict_counts_packed_plain if plain else verdict_counts_packed
+            partials = fn(
+                e["tmatch_pk"], e["has_target"], e["tallow_pk"],
+                ig["tmatch_pk"], ig["has_target"], ig["tallow_pk"],
+                n_pods=self.n_pods,
+                tier=packed_tier(pre),
+            )
+            return sum_partials(partials, q, self.n_pods)
+        if "tiers" in self._tensors:
+            raise ValueError("the dense dtype plan has no tiered counts kernel")
+        pre = _precompute(tensors, False)
         e, ig = pre["egress"], pre["ingress"]
-        partials = counts_fn(
-            e["tmatch_pk"], e["has_target"], e["tallow_pk"],
-            ig["tmatch_pk"], ig["has_target"], ig["tallow_pk"],
-            n_pods=self.n_pods,
-            tier=packed_tier(pre),
+        args = (
+            e["tmatch"], e["has_target"], e["tallow_bf"],
+            ig["tmatch"], ig["has_target"], ig["tallow_bf"],
         )
-        return sum_partials(partials, len(cases), self.n_pods)
+        plan = self._slab_plan()
+        aux = self._class_state["aux_bytes"] if self._class_state else 0
+        if plan is not None and q * plan["bytes_per_case"] + aux <= plan["budget"]:
+            ops = dense_kernel.slab_operands(
+                *args, plan["egress"], plan["ingress"], self.n_pods, w=plan["w"]
+            )
+            partials = dense_kernel.verdict_counts_slab_from_ops(ops, plain=plain)
+        else:
+            partials = dense_kernel.verdict_counts(*args, n_pods=self.n_pods, plain=plain)
+        return sum_partials(partials, q, self.n_pods)

@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
 #: kernel library name -> its source under csrc/
-SOURCES = {"packed_counts": "packed_counts.cu"}
+SOURCES = {"packed_counts": "packed_counts.cu", "dense_counts": "dense_counts.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -150,6 +150,24 @@ def pack_bool_words(a: np.ndarray, axis: int = 0) -> np.ndarray:
     return np.moveaxis(words, 0, axis)
 
 
+def pack_enabled(mode: Optional[str] = None) -> bool:
+    """Resolve the CYCLONUS_PACK kill switch: "0" turns the packed
+    (32-per-word) dtype plan off everywhere and routes the counts through
+    the dense int8 kernels and the tile loop instead, with identical
+    results; "1"/"auto" (the default) keep it on.  `mode` None reads the
+    environment."""
+    import os
+
+    if mode is None:
+        mode = os.environ.get("CYCLONUS_PACK", "auto")
+    mode = str(mode).lower()
+    if mode not in ("auto", "0", "1"):
+        raise ValueError(
+            f"CYCLONUS_PACK must be auto, 0, or 1, got {mode!r}"
+        )
+    return mode != "0"
+
+
 # protocols: TCP/UDP/SCTP preseeded; unknown protocol strings appearing in
 # policies get fresh ids at encode time so that equal strings still match
 # (the oracle compares protocol strings for equality — matcher/core.py).

@@ -572,3 +572,91 @@ def _np_leaves(tree):
             yield from _np_leaves(v)
     elif isinstance(tree, np.ndarray):
         yield tree
+
+
+def _slab_mode(slab: Optional[str] = None) -> str:
+    """The slab-kernel mode, `slab` or else CYCLONUS_PALLAS_SLAB: "1"
+    forces the slab kernel (K6) on the dense route of the dense dtype
+    plan; "0" and "auto" (the default) leave it off; anything else
+    raises.  (The reference's
+    auto plans only on its TPU, where it times both kernels before it
+    picks one; the port has no autotune, so auto never engages.)"""
+    if slab is None:
+        slab = os.environ.get("CYCLONUS_PALLAS_SLAB", "auto")
+    slab = str(slab).lower()
+    if slab not in ("auto", "0", "1"):
+        raise ValueError(f"slab mode (CYCLONUS_PALLAS_SLAB) must be auto, 0, or 1, got {slab!r}")
+    return slab
+
+
+def _tmatch_host(d: Dict, pod_ns: np.ndarray, selpod: np.ndarray) -> np.ndarray:
+    """[T, N] bool numpy twin of the precompute's tmatch
+    (kernel.direction_precompute): target t applies to pod n when they
+    share the namespace and the target's pod selector matches n."""
+    tm = d["target_ns"][:, None] == pod_ns[None, :]
+    if selpod.size and d["target_sel"].size:
+        t_sel = np.clip(d["target_sel"], 0, selpod.shape[0] - 1)
+        tm &= selpod[t_sel]
+    return tm
+
+
+def _slab_plan(
+    tensors: Dict,
+    perm: np.ndarray,
+    n_pods: int,
+    aux_bytes: int,
+    selpod: Optional[np.ndarray] = None,
+) -> Optional[Dict]:
+    """Per-tile target windows for the slab kernel (K6), or None when it
+    does not apply.
+
+    The same reduction the kernel's safety rests on, on the host: per
+    direction, every pod tile's matching targets on the ns-sorted pod
+    axis (`perm`) must fit one window (dense_kernel.slab_windows), with
+    the pad pods' columns forced False as the kernel's validity mask
+    forces them.  The cluster must span at least two src tiles, and the
+    gathered slabs (both directions at 2 port cases, at the widest window)
+    plus the class state's `aux_bytes` must fit the device budget.  The
+    window width is the narrowest rung of {SLAB_W/4, SLAB_W/2, SLAB_W}
+    that covers every tile of both directions (one w for both).  `selpod`
+    is the compaction-time selector pass (real selectors x real pods),
+    padded here to the bucketed axes.
+
+    Returns {"egress": t0_e [n_i], "ingress": t0_i [n_j], "w",
+    "bytes_per_case", "budget"}."""
+    from . import dense_kernel as dk
+
+    n_b = int(tensors["pod_ns_id"].shape[0])
+    if n_b < 2 * dk.SLAB_BS:
+        return None
+    n_tiles = -(-n_b // dk.SLAB_BS) + -(-n_b // dk.SLAB_BD)
+    bytes_per_case = n_tiles * dk.slab_w_aug() * n_b  # int8 slabs
+    budget = _slab_max_bytes()
+    if 2 * bytes_per_case + aux_bytes > budget:
+        return None
+    if selpod is None:
+        selpod = _selector_pod_matches_host(tensors)
+    else:
+        pre = selpod
+        selpod = np.zeros((tensors["sel_req_kv"].shape[0], n_b), dtype=bool)
+        selpod[: pre.shape[0], : pre.shape[1]] = pre
+    pod_ns = tensors["pod_ns_id"]
+    ladder = sorted({max(1, dk.SLAB_W // 4), max(1, dk.SLAB_W // 2), dk.SLAB_W})
+    plan = {}
+    w_need = ladder[0]
+    for direction, tile in (("egress", dk.SLAB_BS), ("ingress", dk.SLAB_BD)):
+        tm = _tmatch_host(tensors[direction], pod_ns, selpod)[:, perm]
+        tm[:, n_pods:] = False  # pads sort last
+        t0 = ok = None
+        for w_try in ladder:
+            t0, ok = dk.slab_windows(tm, tile, w_try)
+            if ok:
+                w_need = max(w_need, w_try)
+                break
+        if not ok:
+            return None
+        plan[direction] = t0
+    plan["w"] = w_need
+    plan["bytes_per_case"] = bytes_per_case
+    plan["budget"] = budget
+    return plan
