@@ -12,13 +12,20 @@ Phases, each raising on failure:
                 depths from 1 to several hundred (many shared-memory
                 staging chunks), invalid rows and columns, has=False rows,
                 zero weights; the tiered variants (K3) also with 1 to
-                1,500 tier rows per direction, pad rows and random
-                ANP/BANP/Pass actions and ranks; the dense kernels (K4,
+                1,500 tier rows per direction (within one staged pass of
+                256 rows and past it), pad rows, whole words of pad rows
+                and random ANP/BANP/Pass actions, with keys in the
+                engine's order and in random order; the dense kernels (K4,
                 K5) at target depths 0 to 3,000 (one to three chunks),
-                with non-prefix masks, an all-has=False direction and
-                block-diagonal operands for K5's skip, and the slab
-                kernel (K6) at windows of 1 to 128 rows and tiles from 8
-                wide to the default.  Exact equality;
+                with non-prefix masks, an all-has=False direction, a
+                direction whose nz map is all zero, bucketing pad rows
+                past the live depth (a multiple of neither 32 nor 128 nor
+                the chunk, or only the pseudo row), pod axes off 128 and
+                256, and block-diagonal operands for K5's skip (blocks
+                kept for one of a block's two warpgroups or some of its
+                four dst pieces), and the slab kernel (K6) at windows of
+                1 to 128 rows and tiles from 8 wide to the default.
+                Exact equality;
   4. truth tables — TorchPolicyEngine.evaluate_grid on the card against
                 the scalar oracle, on both dtype plans (packed and
                 pack=False), for every policy of all_examples(), and for
@@ -45,7 +52,8 @@ Phases, each raising on failure:
                 counts equal the packed plan's, each dense kernel
                 launched and no packed one.  Times: encode, precompute,
                 kernel (median of 5 CUDA-event runs), plain version, the
-                kernel's bound, end-to-end cells/s.
+                kernel's bound, end-to-end cells/s; per kernel also its
+                registers, shared memory and spill bytes.
 
 Every comparison is exact.  Prints a JSON line of the main path's
 end-to-end numbers, a JSON line of per-kernel numbers, then as its last
@@ -79,15 +87,29 @@ PEAK_INT8_OPS = 1.979e15
 N_PODS = 100_000
 N_POLICIES = 10_000
 SEED = 20260729
-#: per-cell epilogue instructions of the packed counts kernel: two !=0
-#: tests, two ORs with !has, the combined AND and three accumulations
-EPILOGUE_OPS = 8
-#: per cell and direction that some tier row matches, tiered: the lattice
-#: (two key-vs-none compares, two action masks, the has select and the
-#: final select); where no row matches, the verdict stands as it is
-LATTICE_OPS = 6
-#: per (cell, matching tier row) pair: find the bit, clear it, two mins
-TIER_HIT_OPS = 4
+#: the packed counts' epilogue, per cell: the != 0 test of each
+#: direction's accumulator, one bit each of a 32-cell verdict mask; every
+#: later step acts on 32 cells at once
+EPILOGUE_CELL_OPS = 2
+#: per 32 cells, plain counts: fold each direction's bits into a mask (2),
+#: OR each with the cells whose subject has no target (2), AND the two
+#: validity masks (1), then per verdict the AND with validity (the
+#: combined one with both directions' masks in one LOP3), popc and add (9)
+EPILOGUE_WORD_OPS = 14
+#: weighted (row sums by w[dst]), per cell: one select of w[dst] per
+#: verdict, its add going to the float pipe (which has twice the lanes)
+WEIGHTED_CELL_OPS = 3
+#: weighted, per 32 cells: the two folds, the two ORs with !has, the
+#: combined AND and the validity AND
+WEIGHTED_WORD_OPS = 6
+#: tiered, per (live tier row, 32 cells it matches): the AND of the row's
+#: subject and peer masks, then the update of its tier's decided mask and
+#: of its allow or deny mask — processing a tier's rows in key order, a
+#: row decides the cells it matches that no earlier row decided
+TIER_ROW_OPS = 3
+#: tiered, per 32 cells of a direction that some live row matches: the
+#: lattice as mask logic, ANP allow | (~ANP deny & (has ? np : ~BANP deny))
+LATTICE_WORD_OPS = 2
 #: the dense sub-size at which the engine's kernel path is held against
 #: its plain version
 N_SUB = 8192
@@ -147,11 +169,15 @@ def random_operands(rng, q, we, wi, ns, nd, device):
     return args, flags(ns, 0.8), flags(nd, 0.8), w
 
 
-def random_tier(rng, q, ns, nd, ge, gi, device):
+def random_tier(rng, q, ns, nd, ge, gi, device, ordered=False):
     """A seeded `tier` operand of the packed counts kernel: random
     subjects and peers, ANP rows with Allow/Deny/Pass and BANP rows with
     Allow/Deny at random ranks (with ties), and pad rows whose keys are
-    both TIER_KEY_NONE."""
+    both TIER_KEY_NONE, among them the whole second word of rows where
+    there are more than 64.  ordered=True draws the ranks the way the
+    engine emits them: ANP rows first, then BANP rows, each by
+    non-decreasing key (the kernel's in-order, bit-parallel path);
+    otherwise the keys fall in random order (its per-cell min)."""
     import numpy as np
     import torch
 
@@ -162,7 +188,11 @@ def random_tier(rng, q, ns, nd, ge, gi, device):
         banp = rng.random(g) < 0.3
         act = np.where(banp, rng.integers(1, 3, size=g), rng.integers(1, 4, size=g))
         key = (rank * 4 + act).astype(np.int32)
+        if ordered:
+            key = np.concatenate([np.sort(key[~banp]), np.sort(key[banp])])
+            banp = np.sort(banp)
         pad = rng.random(g) < 0.2
+        pad[32:64] = g > 64
         return (
             np.where(~banp & ~pad, key, TIER_KEY_NONE).astype(np.int32),
             np.where(banp & ~pad, key, TIER_KEY_NONE).astype(np.int32),
@@ -254,18 +284,25 @@ def phase_kernels(device) -> None:
     log(f"kernels: {n_checked} untiered kernel-vs-plain checks equal")
 
     # the tiered variants: tier rows from one to past the reference's
-    # 1,024-row ceiling (three 512-row staging chunks per side)
-    tiered = [  # (q, we, wi, ns, nd, ge, gi)
-        (1, 1, 1, 9, 9, 1, 1),
-        (2, 12, 8, 1000, 777, 4, 4),
-        (3, 33, 33, 523, 1500, 40, 7),
-        (2, 1, 33, 2049, 130, 1500, 600),
-        (2, 300, 170, 200, 300, 513, 1500),
+    # 1,024-row ceiling; keys ordered as the engine emits them (K3's
+    # in-order path) or in random order (its per-cell min); one pass of tier
+    # words (256 rows a direction) and past it (restaged per src row)
+    tiered = [  # (q, we, wi, ns, nd, ge, gi, ordered)
+        (1, 1, 1, 9, 9, 1, 1, False),
+        (2, 12, 8, 1000, 777, 4, 4, False),
+        (2, 12, 8, 1000, 777, 4, 4, True),
+        (3, 33, 33, 523, 1500, 40, 7, False),
+        (3, 33, 33, 523, 1500, 100, 70, True),
+        (1, 4, 4, 700, 650, 256, 90, True),
+        (1, 4, 4, 700, 650, 257, 90, True),
+        (2, 1, 33, 2049, 130, 1500, 600, False),
+        (2, 1, 33, 2049, 130, 300, 200, True),
+        (2, 300, 170, 200, 300, 513, 1500, False),
     ]
     n_tiered = 0
-    for q, we, wi, ns, nd, ge, gi in tiered:
+    for q, we, wi, ns, nd, ge, gi, ordered in tiered:
         args, vs, vd, w = random_operands(rng, q, we, wi, ns, nd, device)
-        tier = random_tier(rng, q, ns, nd, ge, gi, device)
+        tier = random_tier(rng, q, ns, nd, ge, gi, device, ordered=ordered)
         variants = [
             {"n_pods": min(ns, nd) - 1},
             {"valid_src": vs, "valid_dst": vd},
@@ -276,40 +313,65 @@ def phase_kernels(device) -> None:
             got = pk.verdict_counts_packed(*args, tier=tier, **kw)
             torch.cuda.synchronize()
             want = pk.verdict_counts_packed_plain(*args, tier=tier, **kw)
-            check_kernel(got, want, f"tiered q={q} ge={ge} gi={gi} ns={ns} nd={nd} {sorted(kw)}")
+            check_kernel(got, want, f"tiered q={q} ge={ge} gi={gi} ns={ns} nd={nd} "
+                         f"ordered={ordered} {sorted(kw)}")
             n_tiered += 1
     log(f"kernels: {n_tiered} tiered kernel-vs-plain checks equal (tolerance: exact)")
 
 
-def random_dense(rng, q, te, ti, ns, nd, device, n_ns=0):
+def random_dense(rng, q, te, ti, ns, nd, device, n_ns=0, pads=(0, 0)):
     """Seeded dense-plan operands (tmatch bool, has bool, tallow bf16 per
     direction) with random rectangular validity.  n_ns > 0: pods and
     targets in the order of n_ns namespaces, tmatch block diagonal — most
     (pod block, target chunk) pairs all zero and narrow target windows
-    per pod tile, as on the ns-sorted dense route."""
+    per pod tile, as on the ns-sorted dense route.  pads: per direction,
+    inert all-zero target rows appended after the te / ti drawn ones, as
+    the engine's bucketing appends them."""
     import numpy as np
     import torch
 
-    def tmatch(t, n):
+    def tmatch(t, n, pad):
         if not n_ns:
-            return rng.random((t, n)) < 0.02
-        return (np.sort(rng.integers(0, n_ns, t))[:, None]
-                == np.sort(rng.integers(0, n_ns, n))[None, :]) & (rng.random((t, n)) < 0.5)
+            m = rng.random((t, n)) < 0.02
+        else:
+            m = (np.sort(rng.integers(0, n_ns, t))[:, None]
+                 == np.sort(rng.integers(0, n_ns, n))[None, :]) & (rng.random((t, n)) < 0.5)
+        return np.concatenate([m, np.zeros((pad, n), dtype=bool)])
 
-    def tallow(t, n):
-        return rng.random((t, n, q)) < 0.05
+    def tallow(t, n, pad):
+        return np.concatenate([rng.random((t, n, q)) < 0.05, np.zeros((pad, n, q), dtype=bool)])
 
     def flags(n, p):
         return rng.random(n) < p
 
-    arrays = [tmatch(te, ns), flags(ns, 0.7), tallow(te, nd),
-              tmatch(ti, nd), flags(nd, 0.7), tallow(ti, ns)]
+    arrays = [tmatch(te, ns, pads[0]), flags(ns, 0.7), tallow(te, nd, pads[0]),
+              tmatch(ti, nd, pads[1]), flags(nd, 0.7), tallow(ti, ns, pads[1])]
     args = [torch.from_numpy(a).to(device) for a in arrays]
     args[2] = args[2].to(torch.bfloat16)
     args[5] = args[5].to(torch.bfloat16)
     vs = torch.from_numpy(flags(ns, 0.8)).to(device)
     vd = torch.from_numpy(flags(nd, 0.8)).to(device)
     return args, vs, vd
+
+
+def _block_groups(nz, width):
+    """[groups, chunks]: per chunk, how many 64-pod blocks of each run of
+    `width` are kept — a K5 block's two src blocks (egress, width 2) or
+    four dst blocks (ingress, width 4)."""
+    import torch
+
+    pad = (-nz.shape[0]) % width
+    return torch.nn.functional.pad(nz, (0, 0, 0, pad)).view(-1, width, nz.shape[1]).sum(dim=1)
+
+
+def mixed_blocks(nz_e, nz_i):
+    """(warpgroup pairs, dst block groups) where the nz maps keep part of
+    a K5 block: (src blocks 2b, 2b + 1; chunk) with one flag set and the
+    other not (one consumer warpgroup contracts, the other skips), and
+    (dst blocks 4b .. 4b + 3; chunk) with some but not all four set (K5
+    loads and contracts the four whole)."""
+    return tuple(int(((g > 0) & (g < w)).sum())
+                 for g, w in ((_block_groups(nz_e, 2), 2), (_block_groups(nz_i, 4), 4)))
 
 
 def phase_dense_kernels(device) -> None:
@@ -321,19 +383,28 @@ def phase_dense_kernels(device) -> None:
     from cyclonus_tpu_torch.engine.packed_kernel import sum_partials
 
     rng = np.random.default_rng(20260730)
-    shapes = [  # (q, te, ti, ns, nd, namespaces): target depths 0 to ~3,000
-        (1, 0, 0, 9, 9, 0),
-        (2, 5, 7, 130, 77, 0),
-        (3, 255, 383, 1000, 777, 0),
-        (1, 1023, 1024, 200, 200, 0),
-        (2, 1100, 40, 300, 513, 0),
-        (2, 3000, 2999, 700, 650, 0),
-        (2, 3000, 2400, 4096, 4096, 300),
-        (1, 40, 1500, 2100, 1900, 5),
+    shapes = [  # (q, te, ti, ns, nd, namespaces, pads): target depths 0 to ~3,000
+        (1, 0, 0, 9, 9, 0, (0, 0)),
+        (2, 5, 7, 130, 77, 0, (0, 0)),
+        (3, 255, 383, 1000, 777, 0, (0, 0)),
+        (1, 1023, 1024, 200, 200, 0, (0, 0)),
+        (2, 1100, 40, 300, 513, 0, (0, 0)),
+        (2, 3000, 2999, 700, 650, 0, (0, 0)),
+        (2, 3000, 2400, 4096, 4096, 300, (0, 0)),
+        (1, 40, 1500, 2100, 1900, 5, (0, 0)),
+        # K5: the live depth a multiple of neither 32 nor 128 nor the
+        # chunk, bucketing pads past it (only the plain version contracts
+        # them), one direction's depth only the pseudo row, pod axes off
+        # 128 and 256, Q from 1 to 3, mixed warpgroup pairs and pieces
+        (3, 1500, 1301, 1000, 700, 40, (37, 5)),
+        (1, 0, 2100, 650, 900, 30, (0, 20)),
+        (2, 2200, 0, 1300, 333, 60, (3, 0)),
+        (2, 1030, 1100, 4100, 2000, 500, (7, 0)),
     ]
     checked = {"dense_counts_1chunk": 0, "dense_counts_chunked": 0}
-    for q, te, ti, ns, nd, n_ns in shapes:
-        args, vs, vd = random_dense(rng, q, te, ti, ns, nd, device, n_ns)
+    mixed = [0, 0]
+    for q, te, ti, ns, nd, n_ns, pads in shapes:
+        args, vs, vd = random_dense(rng, q, te, ti, ns, nd, device, n_ns, pads)
         variants = [
             {"valid_src": vs, "valid_dst": vd},
             {"valid_src": vs, "valid_dst": vd, "bs": 64},
@@ -342,19 +413,41 @@ def phase_dense_kernels(device) -> None:
             n = ns - 3
             variants.append({"valid_src": torch.arange(ns, device=device) < n,
                              "valid_dst": torch.arange(nd, device=device) < n})
-        # has=False everywhere on one direction: the pseudo row alone
+        # has=False everywhere on one direction: the pseudo row alone; and
+        # has=True everywhere with no match: that direction's nz map all zero
         alt = list(args)
         alt[1] = torch.zeros_like(args[1])
-        for a, kw in [(args, v) for v in variants] + [(alt, variants[0])]:
-            before = dict(dk.LAUNCHES)
-            got = dk.verdict_counts_rect(*a, **kw)
+        cases = [(a, v) for a in (args, alt) for v in variants]
+        if te + ti + 1 > dk.KT:
+            empty = list(args)
+            empty[0] = torch.zeros_like(args[0])
+            empty[1] = torch.ones_like(args[1])
+            cases.append((empty, variants[1]))
+        for a, kw in cases:
+            ops = dk.dense_operands(*a, kw["valid_src"], kw["valid_dst"], kw.get("bs"))
+            kind = "dense_counts_1chunk" if dk.single_chunk(ops) else "dense_counts_chunked"
+            before = dk.LAUNCHES[kind]
+            got = dk.counts_from_ops(ops)
             torch.cuda.synchronize()
-            want = dk.verdict_counts_rect(*a, plain=True, **kw)
-            kind = next(k for k in checked if dk.LAUNCHES[k] == before[k] + 1)
-            check_kernel(got, want, f"{kind} q={q} te={te} ti={ti} ns={ns} nd={nd} "
-                         f"namespaces={n_ns} {sorted(kw)}")
+            if dk.LAUNCHES[kind] != before + 1:
+                raise AssertionError(f"{kind} did not launch")
+            want = dk.counts_from_ops(ops, plain=True)
+            label = (f"{kind} q={q} te={te} ti={ti} ns={ns} nd={nd} namespaces={n_ns} "
+                     f"pads={pads} live={ops['live_e']}/{ops['live_i']} {sorted(kw)}")
+            check_kernel(got, want, label)
+            if a is not args:
+                # the same operands through the user's entry point
+                got = dk.verdict_counts_rect(*a, **kw)
+                check_kernel(got, want, label + " via verdict_counts_rect")
+            if kind == "dense_counts_chunked":
+                for i, m in enumerate(mixed_blocks(*dk._nz_maps(ops))):
+                    mixed[i] += m
             checked[kind] += 1
-    log(f"kernels: {json.dumps(checked)} dense kernel-vs-plain checks equal (tolerance: exact)")
+    log(f"kernels: {json.dumps(checked)} dense kernel-vs-plain checks equal (tolerance: exact); "
+        f"K5 (block, chunk) pairs kept in part: {mixed[0]} warpgroup pairs, {mixed[1]} dst "
+        f"piece groups")
+    if not all(mixed):
+        raise AssertionError(f"K5's partly kept blocks not exercised: {mixed}")
 
     n_slab = 0
     slab_shapes = [  # (q, te, ti, n, bs, bd, w, namespaces): 8-wide tiles to the default
@@ -464,57 +557,74 @@ def bound(args, w_dst, out, ops=None, tier_work=(0, 0)):
     """(ms, bound_by, ops, bytes): the least time the card could take for one
     packed counts call on these inputs — the larger of bytes (each input
     read once, the output written once) over HBM bandwidth and 32-bit
-    integer instructions (one LOP3 per packed word, cell and direction,
-    plus the epilogue; tiered, one AND per tier word, cell and direction,
-    TIER_HIT_OPS per matching (cell, tier row) pair and the lattice per
-    matched cell and direction) over the integer pipe's peak — and the two
-    counts.  `ops` is the tiered operand dict (packed tier words and keys)
-    and `tier_work` this run's (pairs, matched cells) from `tier_work`."""
+    integer instructions over the integer pipe's peak — and the two
+    counts.  Instructions: one LOP3 per packed word, cell and direction,
+    EPILOGUE_CELL_OPS per cell, and the rest of the epilogue per 32 cells
+    (the weighted one per cell as well); tiered, TIER_ROW_OPS per live
+    row and 32 cells it matches and LATTICE_WORD_OPS per 32 matched cells
+    and direction, as 32-bit mask logic (a cell that no live row matches
+    needs no tier work).  `ops` is the tiered operand dict (packed tier
+    words and keys) and `tier_work` this run's (matched (row, cell)
+    pairs, matched cells) from `tier_work`."""
     tmatch_e_pk, _has_e, tallow_e_pk, tmatch_i_pk, _has_i, _tallow_i_pk = args
     we, ns = tmatch_e_pk.shape
     wi, nd = tmatch_i_pk.shape
     q = tallow_e_pk.shape[2]
     nbytes = sum(a.numel() * a.element_size() for a in args)
     nbytes += out.numel() * out.element_size()
-    if w_dst is not None:
+    cells = q * ns * nd
+    if w_dst is None:
+        per_cell, per_word = EPILOGUE_CELL_OPS, EPILOGUE_WORD_OPS
+    else:
         nbytes += w_dst.numel() * w_dst.element_size()
-    n_ops = q * ns * nd * (we + wi + EPILOGUE_OPS)
+        per_cell, per_word = EPILOGUE_CELL_OPS + WEIGHTED_CELL_OPS, WEIGHTED_WORD_OPS
+    n_ops = cells * (we + wi + per_cell) + per_word * cells / 32
     if ops is not None:
         t = ops["tier"]
         nbytes += sum(a.numel() * a.element_size() for a in t.values())
-        wge, wgi = t["subj_e"].shape[1], t["subj_i"].shape[0]
-        hits, cells = tier_work
-        n_ops += q * ns * nd * (wge + wgi) + TIER_HIT_OPS * hits + LATTICE_OPS * cells
+        row_cells, tier_cells = tier_work
+        n_ops += (TIER_ROW_OPS * row_cells + LATTICE_WORD_OPS * tier_cells) / 32
     by = "operations" if n_ops / PEAK_INT_OPS >= nbytes / PEAK_BYTES else "bytes"
     return max(n_ops / PEAK_INT_OPS, nbytes / PEAK_BYTES) * 1e3, by, n_ops, nbytes
 
 
+def _matched_cells(subj, peer):
+    """Cells (subject pod, peer pod, port case) that at least one of the
+    rows matches, subj [G, N] and peer [G, M, Q] bool, counted by grouping
+    pods by the set of rows they hold."""
+    import torch
+
+    if subj.shape[0] == 0:
+        return 0
+    cells = 0
+    us, cs = torch.unique(subj.T.to(torch.uint8), dim=0, return_counts=True)
+    for qi in range(peer.shape[2]):
+        up, cp = torch.unique(peer[:, :, qi].T.to(torch.uint8), dim=0, return_counts=True)
+        match = (us.double() @ up.double().T) > 0
+        cells += int((cs.double()[:, None] * cp.double()[None, :])[match].sum())
+    return cells
+
+
 def tier_work(tier, valid_src, valid_dst):
     """This run's tier work that the function needs, both directions:
-    (matching (cell, tier row) pairs, cells with at least one matching
-    row), over valid pods and the rows that can change a verdict (a pad
-    row, both keys TIER_KEY_NONE, changes nothing).  The matched cells are
-    counted by grouping pods by the set of rows they match."""
+    (matched (row, cell) pairs, matched cells) — per live row the cells
+    its subject and peer hold, summed over the rows, and the cells that
+    some live row matches — over valid pods and the rows that can change
+    a verdict (a pad row, both keys TIER_KEY_NONE, changes nothing)."""
     import torch
 
     from cyclonus_tpu_torch.engine.encoding import TIER_KEY_NONE
 
-    hits = cells = 0
+    row_cells = cells = 0
     sides = ((tier["egress"], valid_src, valid_dst), (tier["ingress"], valid_dst, valid_src))
     for t, v_subj, v_peer in sides:
         live = (t["anp_key"] != TIER_KEY_NONE) | (t["banp_key"] != TIER_KEY_NONE)
-        if not bool(live.any()):
-            continue
-        subj = t["subj"][live] & v_subj[None, :]  # [G, N]
-        peer = t["peerq"][live] & v_peer[None, :, None]  # [G, M, Q]
-        hits += int((subj.sum(1).double()[:, None] * peer.sum(1).double()).sum())
-        us, cs = torch.unique(subj.T.to(torch.uint8), dim=0, return_counts=True)
-        for qi in range(peer.shape[2]):
-            up, cp = torch.unique(peer[:, :, qi].T.to(torch.uint8), dim=0,
-                                  return_counts=True)
-            match = (us.double() @ up.double().T) > 0
-            cells += int((cs.double()[:, None] * cp.double()[None, :])[match].sum())
-    return hits, cells
+        subj = (t["subj"] & v_subj[None, :])[live]  # [G, N]
+        peer = (t["peerq"] & v_peer[None, :, None])[live]  # [G, M, Q]
+        row_cells += int((subj.sum(dim=1, dtype=torch.float64)[:, None]
+                          * peer.sum(dim=1, dtype=torch.float64)).sum())
+        cells += _matched_cells(subj, peer)
+    return row_cells, cells
 
 
 def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
@@ -557,6 +667,7 @@ def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
+        **pk.kernel_attrs()[name],
     }
     shape = {
         "q": int(args[2].shape[2]), "we": int(args[0].shape[0]), "wi": int(args[3].shape[0]),
@@ -564,7 +675,7 @@ def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
     }
     if tier is not None:
         shape.update(ge=int(tier["egress"]["subj"].shape[0]),
-                     gi=int(tier["ingress"]["subj"].shape[0]), tier_pairs=work[0],
+                     gi=int(tier["ingress"]["subj"].shape[0]), tier_row_cells=work[0],
                      tier_cells=work[1])
     log(
         f"{name}: {ms:.3f} ms (bound {b_ms:.3f} ms: {b_ops:.4e} ops, {b_bytes:.4e} bytes; "
@@ -681,21 +792,14 @@ def dense_bound(inputs, out, macs):
     return max(n_ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3, by, n_ops, nbytes
 
 
-def live_target_rows(eng, direction, tmatch, kt):
-    """[n_chunks] int64: per kt-row chunk of the direction's augmented
-    target axis (tmatch's rows, then the pseudo row), the rows that hold
-    data — the encoded targets and the pseudo row, not the inert targets
-    that bucket the axis nor the zero rows that pad it to a chunk."""
-    import torch
-
-    t = tmatch.shape[0]
-    target_ns = eng._tensors[direction]["target_ns"]
-    if target_ns.shape[0] != t:
-        raise AssertionError(f"{direction}: {target_ns.shape[0]} encoded targets, tmatch has {t}")
-    live = torch.zeros(-(-(t + 1) // kt) * kt, dtype=torch.int64)
-    live[:t] = torch.from_numpy(target_ns >= 0)
-    live[t] = 1
-    return live.view(-1, kt).sum(dim=1)
+def live_target_rows(a, kt):
+    """[n_chunks] int64: per kt-row chunk of a direction's augmented match
+    operand a [N', T'] (the wrapper's a_e or a_i), the target rows that
+    hold data — a nonzero for some pod: the targets that match a valid
+    pod, and the pseudo row where some valid pod has no target; not the
+    inert targets that bucket the axis, nor the zero rows that pad it to
+    a chunk."""
+    return a.ne(0).any(dim=0).view(-1, kt).sum(dim=1).long().cpu()
 
 
 def dense_record(name, eng, cases, launches):
@@ -733,11 +837,9 @@ def dense_record(name, eng, cases, launches):
         chunked = name == "dense_counts_chunked"
         if dk.single_chunk(ops) == chunked:
             raise AssertionError(f"{name}: the main-path operands take the other kernel")
-        # per chunk of the augmented depth, the rows that hold data: the
-        # encoded targets (not the bucketing's inert pad targets) and the
-        # pseudo row
-        live_rows = [live_target_rows(eng, d, a, ops[kt]) for d, a, kt in
-                     (("egress", args[0], "kt_e"), ("ingress", args[3], "kt_i"))]
+        # per chunk of the augmented depth, the rows that hold data
+        live_rows = [live_target_rows(ops[a], ops[kt]) for a, kt in
+                     (("a_e", "kt_e"), ("a_i", "kt_i"))]
         te, ti = (int(r.sum()) for r in live_rows)
         nz = dk._nz_maps(ops) if chunked else None
         if chunked:
@@ -757,7 +859,10 @@ def dense_record(name, eng, cases, launches):
         run = lambda: dk._counts_cuda(ops, nz)  # noqa: E731
         run_plain = lambda: dk._counts_plain(ops)  # noqa: E731
         shape = {"q": q, "ns": ns, "nd": nd, "te": te, "ti": ti,
-                 "kt": [ops["kt_e"], ops["kt_i"]], "nz_kept": kept}
+                 "kt": [ops["kt_e"], ops["kt_i"]], "live_depth": [ops["live_e"], ops["live_i"]],
+                 "nz_kept": kept}
+        if chunked:
+            shape["nz_partly_kept"] = mixed_blocks(*nz)
         replaces = ("cyclonus_tpu/engine/pallas_kernel.py:601" if chunked
                     else "cyclonus_tpu/engine/pallas_kernel.py:523")
     before = dict(dk.LAUNCHES)
@@ -777,6 +882,7 @@ def dense_record(name, eng, cases, launches):
         "name": name, "route": "cuda", "source": "cyclonus_tpu_torch/csrc/dense_counts.cu",
         "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **dk.kernel_attrs()[name],
     }
 
 

@@ -14,15 +14,20 @@ row per direction (_augment): it matches the valid pods that have no
 target and allows the valid pods, and invalid pod columns are zero in
 both operands, so `acc > 0` is the whole verdict (the allow-if-no-target
 rule and the validity mask ride the contraction) and an invalid pod
-counts nothing.  The output is [Q, n_src_tiles, 3] int32 partial counts
-(ingress, egress, combined), summed on the host in int64 (sum_partials).
+counts nothing.  The pseudo row sits right after the last target row
+whose (validity-masked) match row holds a nonzero; the rows after it
+(the inert targets that bucket the axis, or targets that match no valid
+pod) add nothing to either contraction.  Each direction's LIVE DEPTH —
+the rows up to the pseudo row, rounded up to 32 — is all K5 loads.  The
+output is [Q, n_src_tiles, 3] int32 partial counts (ingress, egress,
+combined), summed on the host in int64 (sum_partials).
 
 Routes, decided as the reference decides them:
 
   * verdict_counts_rect / verdict_counts — K4 when both directions'
     augmented target axes fit one chunk of at most KT rows (_kt_for), else
     K5, which skips a (64-pod block, target chunk) pair whose match
-    operand is all zero (nz maps, _nz_maps);
+    operand is all zero (nz maps, _nz_maps) and stops at the live depth;
   * verdict_counts_slab_from_ops — K6 over operands gathered per pod tile
     (slab_operands): each tile pair contracts over its w-row target
     windows plus the pseudo/validity row, padded to slab_w_aug rows.  The
@@ -59,9 +64,11 @@ import torch
 KT = 1024
 #: src rows per int32 partial count (a multiple of CUDA_TILE on the card)
 BS = 1024
-#: the CUDA kernel's block tile: src rows and dst columns per block; the
-#: dst axis pads to it, and K5's nz maps are built over it
+#: the CUDA kernels' pod block: K4's block tile (src rows and dst
+#: columns), the granularity of K5's nz maps; the dst axis pads to it
 CUDA_TILE = 64
+#: the depth granularity of the int8 tensor-core instructions (bytes)
+DEPTH_STEP = 32
 
 #: K6 defaults: window rows, src tile and dst tile.  Read at call time, so
 #: a test can set them small.
@@ -111,32 +118,49 @@ def _check_int32_partials(bs: int, nd_pad: int) -> None:
         raise ValueError(f"dst axis {nd_pad} too large for int32 tile counts at bs={bs}")
 
 
+def live_depth(n_rows: int) -> int:
+    """K5's live depth of a direction: its first n_rows target rows plus
+    the pseudo row, rounded up to DEPTH_STEP bytes."""
+    return -(-(int(n_rows) + 1) // DEPTH_STEP) * DEPTH_STEP
+
+
+def data_rows(tmatch: torch.Tensor) -> int:
+    """The target rows up to the last one that matches a pod (tmatch
+    [T, N], validity-masked): every row after it is zero on the match
+    side, so it adds nothing to the contraction."""
+    rows = tmatch.ne(0).any(dim=1).nonzero()
+    return int(rows[-1]) + 1 if rows.numel() else 0
+
+
 def _augment(tmatch, has, tallow_qtn, valid_match, valid_allow):
-    """Append the pseudo-target row (matches valid no-target pods on the
-    MATCH side, allows valid pods on the ALLOW side) and zero the
-    invalid-pod columns of BOTH operands: peers that match every pod match
-    the inert pad pods too, and an unmasked pad column would count as
-    allowed; tmatch needs the mask as well, since a validity mask may
-    invalidate a real pod that a real target matches.  Returns tmatch'
-    [T+1, N] and tallow' [Q, T+1, N], int8."""
+    """Zero the invalid-pod columns of BOTH operands — peers that match
+    every pod match the inert pad pods too, and an unmasked pad column
+    would count as allowed; tmatch needs the mask as well, since a
+    validity mask may invalidate a real pod that a real target matches —
+    and insert the pseudo-target row (matches valid no-target pods on the
+    MATCH side, allows valid pods on the ALLOW side) right after the
+    data_rows of the masked tmatch.  Returns tmatch' [T+1, N], tallow'
+    [Q, T+1, N], int8, and the pseudo row's index."""
     od = torch.int8
     va = valid_allow.to(od)
     vm = valid_match.to(od)
     pseudo_match = ((~has) & valid_match).to(od)[None, :]
-    tmatch = torch.cat([tmatch.to(od) * vm[None, :], pseudo_match], dim=0)
+    tmatch = tmatch.to(od) * vm[None, :]
+    n = data_rows(tmatch)
+    tmatch = torch.cat([tmatch[:n], pseudo_match, tmatch[n:]], dim=0)
     tallow_qtn = tallow_qtn * va[None, None, :]
     q = tallow_qtn.shape[0]
     valid_q = va[None, None, :].expand(q, 1, va.shape[0])
-    tallow_qtn = torch.cat([tallow_qtn, valid_q], dim=1)
-    return tmatch, tallow_qtn
+    tallow_qtn = torch.cat([tallow_qtn[:, :n], valid_q, tallow_qtn[:, n:]], dim=1)
+    return tmatch, tallow_qtn, n
 
 
 def dense_operands(
     tmatch_e, has_e, tallow_e, tmatch_i, has_i, tallow_i,
     valid_src=None, valid_dst=None, bs: Optional[int] = None,
 ) -> Dict:
-    """The K4/K5 operand layout (module docstring) with its chunks:
-    {a_e, b_e, b_i, a_i, kt_e, kt_i, bs}."""
+    """The K4/K5 operand layout (module docstring) with its chunks and
+    live depths: {a_e, b_e, b_i, a_i, kt_e, kt_i, live_e, live_i, bs}."""
     bs = BS if bs is None else int(bs)
     if bs < 1 or bs % CUDA_TILE:
         raise ValueError(f"bs={bs}: want a positive multiple of {CUDA_TILE}")
@@ -144,14 +168,17 @@ def dense_operands(
     nd = tmatch_i.shape[1]
     _check_int32_partials(bs, -(-max(nd, 1) // CUDA_TILE) * CUDA_TILE)
     dev = tmatch_e.device
+    if dev.type not in ("cpu", "cuda"):
+        # the live depth is read from the operands' values
+        raise ValueError(f"no dense counts kernel for device {dev}")
     if valid_src is None:
         valid_src = torch.ones(ns, dtype=torch.bool, device=dev)
     if valid_dst is None:
         valid_dst = torch.ones(nd, dtype=torch.bool, device=dev)
-    tm_e, tl_e = _augment(
+    tm_e, tl_e, live_e = _augment(
         tmatch_e, has_e, tallow_e.permute(2, 0, 1).to(torch.int8), valid_src, valid_dst
     )
-    tm_i, tl_i = _augment(
+    tm_i, tl_i, live_i = _augment(
         tmatch_i, has_i, tallow_i.permute(2, 0, 1).to(torch.int8), valid_dst, valid_src
     )
     kt_e = _kt_for(tm_e.shape[0])
@@ -162,7 +189,8 @@ def dense_operands(
     b_e = _pad_to(_pad_to(tl_e, 1, kt_e), 2, CUDA_TILE).transpose(1, 2).contiguous()  # [Q, Nd', Te']
     b_i = _pad_to(_pad_to(tl_i, 1, kt_i), 2, bs).transpose(1, 2).contiguous()  # [Q, Ns', Ti']
     a_i = _pad_to(_pad_to(tm_i, 0, kt_i), 1, CUDA_TILE).T.contiguous()  # [Nd', Ti']
-    return {"a_e": a_e, "b_e": b_e, "b_i": b_i, "a_i": a_i, "kt_e": kt_e, "kt_i": kt_i, "bs": bs}
+    return {"a_e": a_e, "b_e": b_e, "b_i": b_i, "a_i": a_i, "kt_e": kt_e, "kt_i": kt_i,
+            "live_e": live_depth(live_e), "live_i": live_depth(live_i), "bs": bs}
 
 
 def single_chunk(ops: Dict) -> bool:
@@ -194,7 +222,8 @@ def _dot_dtype(device: torch.device) -> torch.dtype:
 def _counts_plain(ops: Dict) -> torch.Tensor:
     """The plain version of K4 and K5: per port case and src segment of
     `bs` rows, one matmul per direction over the whole depth.  It skips
-    no block, so it checks K5's skip rather than repeating it."""
+    no block and contracts past the live depth, so it checks K5's skip and
+    its live depth rather than repeating them."""
     a_e, b_e, b_i, a_i, bs = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"], ops["bs"]
     dt = _dot_dtype(a_e.device)
     q = b_e.shape[0]
@@ -222,44 +251,92 @@ def _library():
         from .build import load
 
         lib = load("dense_counts")
-        lib.cyclonus_dense_counts.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
-            ctypes.c_void_p
-        ]
-        lib.cyclonus_dense_counts.restype = ctypes.c_int
-        lib.cyclonus_dense_error_string.argtypes = [ctypes.c_int]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cyclonus_dense_counts.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.cyclonus_dense_counts.restype = i
+        lib.cyclonus_dense_counts_chunked.argtypes = [p] * 7 + [i] * 10 + [p]
+        lib.cyclonus_dense_counts_chunked.restype = i
+        lib.cyclonus_dense_kernel_attrs.argtypes = [i] + [ctypes.POINTER(i)] * 4
+        lib.cyclonus_dense_kernel_attrs.restype = i
+        lib.cyclonus_dense_error_string.argtypes = [i]
         lib.cyclonus_dense_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _launch(kind: str, a_e, b_e, b_i, a_i, nz, q, ns_pad, nd_pad, kt_e, kt_i, bs, bd):
-    dev = a_e.device
-    for name, t in (("a_e", a_e), ("b_e", b_e), ("b_i", b_i), ("a_i", a_i)) + (
-        () if nz is None else (("nz_e", nz[0]), ("nz_i", nz[1]))
-    ):
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        msg = _library().cyclonus_dense_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} ({err})")
+
+
+def kernel_attrs() -> Dict[str, Dict[str, int]]:
+    """Per kernel (LAUNCHES keys): registers per thread, static and
+    dynamic shared memory and local (spill) bytes per thread, as the
+    loaded library reports them."""
+    lib = _library()
+    out = {}
+    for which, name in enumerate(("dense_counts_1chunk", "dense_counts_chunked",
+                                  "dense_counts_slab")):
+        vals = [ctypes.c_int() for _ in range(4)]
+        _check(lib.cyclonus_dense_kernel_attrs(which, *[ctypes.byref(v) for v in vals]),
+               f"{name} attributes")
+        out[name] = dict(zip(("regs", "smem_static", "smem_dynamic", "local_bytes"),
+                             (v.value for v in vals)))
+    return out
+
+
+def _check_operands(dev, named) -> None:
+    for name, t in named:
         want = torch.int32 if name.startswith("nz") else torch.int8
         if t.device != dev or t.dtype != want or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: want a contiguous, 16-byte aligned {want} tensor on {dev}")
+
+
+def _launch(kind: str, a_e, b_e, b_i, a_i, q, ns_pad, nd_pad, bs, bd):
+    """K4 (dense_counts_1chunk) or K6 (dense_counts_slab)."""
+    dev = a_e.device
+    _check_operands(dev, (("a_e", a_e), ("b_e", b_e), ("b_i", b_i), ("a_i", a_i)))
     de, di = a_e.shape[-1], a_i.shape[-1]
     out = torch.zeros((q, ns_pad // bs, 3), dtype=torch.int32, device=dev)
-    lib = _library()
     with torch.cuda.device(dev):
-        err = lib.cyclonus_dense_counts(
-            a_e.data_ptr(), b_e.data_ptr(), b_i.data_ptr(), a_i.data_ptr(),
-            None if nz is None else nz[0].data_ptr(),
-            None if nz is None else nz[1].data_ptr(),
-            out.data_ptr(), q, ns_pad, nd_pad, de, di, kt_e, kt_i, bs, bd,
-            int(kind == "dense_counts_slab"),
+        err = _library().cyclonus_dense_counts(
+            a_e.data_ptr(), b_e.data_ptr(), b_i.data_ptr(), a_i.data_ptr(), out.data_ptr(),
+            q, ns_pad, nd_pad, de, di, bs, bd, int(kind == "dense_counts_slab"),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if err != 0:
-        msg = lib.cyclonus_dense_error_string(err).decode()
-        raise RuntimeError(f"{kind} kernel launch failed: {msg} ({err})")
+    _check(err, f"{kind} kernel launch")
     LAUNCHES[kind] += 1
     return out
 
 
+def _launch_chunked(ops: Dict, nz) -> torch.Tensor:
+    """K5 over its operands, nz maps and live depths."""
+    a_e, b_e, b_i, a_i, bs = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"], ops["bs"]
+    dev = a_e.device
+    _check_operands(dev, (("a_e", a_e), ("b_e", b_e), ("b_i", b_i), ("a_i", a_i),
+                          ("nz_e", nz[0]), ("nz_i", nz[1])))
+    q, nd_pad, de = b_e.shape
+    ns_pad, di = b_i.shape[1], b_i.shape[2]
+    for name, live, depth in (("live_e", ops["live_e"], de), ("live_i", ops["live_i"], di)):
+        if live % DEPTH_STEP or not DEPTH_STEP <= live <= depth:
+            raise ValueError(f"{name}={live}: want a multiple of {DEPTH_STEP} in "
+                             f"[{DEPTH_STEP}, {depth}]")
+    out = torch.zeros((q, ns_pad // bs, 3), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _library().cyclonus_dense_counts_chunked(
+            a_e.data_ptr(), b_e.data_ptr(), b_i.data_ptr(), a_i.data_ptr(),
+            nz[0].data_ptr(), nz[1].data_ptr(), out.data_ptr(),
+            q, ns_pad, nd_pad, de, di, ops["live_e"], ops["live_i"], ops["kt_e"], ops["kt_i"],
+            bs, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _check(err, "dense_counts_chunked kernel launch")
+    LAUNCHES["dense_counts_chunked"] += 1
+    return out
+
+
 def _counts_cuda(ops: Dict, nz=None) -> torch.Tensor:
+    """K4 (nz None) or K5 (with its nz maps) on the operands' device."""
     a_e, b_e, b_i, a_i, bs = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"], ops["bs"]
     q, nd_pad, de = b_e.shape
     ns_pad, di = b_i.shape[1], b_i.shape[2]
@@ -270,9 +347,9 @@ def _counts_cuda(ops: Dict, nz=None) -> torch.Tensor:
             f"the CUDA kernel needs bs % {CUDA_TILE} == 0 and a dst axis padded to a "
             f"multiple of {CUDA_TILE} (bs={bs}, Nd'={nd_pad})"
         )
-    kind = "dense_counts_1chunk" if nz is None else "dense_counts_chunked"
-    return _launch(kind, a_e, b_e, b_i, a_i, nz, q, ns_pad, nd_pad,
-                   ops["kt_e"], ops["kt_i"], bs, CUDA_TILE)
+    if nz is not None:
+        return _launch_chunked(ops, nz)
+    return _launch("dense_counts_1chunk", a_e, b_e, b_i, a_i, q, ns_pad, nd_pad, bs, CUDA_TILE)
 
 
 def counts_from_ops(ops: Dict, plain: bool = False) -> torch.Tensor:
@@ -494,7 +571,6 @@ def verdict_counts_slab_from_ops(ops: Dict, plain: bool = False) -> torch.Tensor
     if plain or kind == "cpu":
         return _slab_counts_plain(ops)
     if kind == "cuda":
-        return _launch("dense_counts_slab", a_e, b_e, b_i, a_i, None, q, ns_pad, nd_pad,
-                       0, 0, bs, bd)
+        return _launch("dense_counts_slab", a_e, b_e, b_i, a_i, q, ns_pad, nd_pad, bs, bd)
     raise ValueError(f"no slab counts kernel for device {a_e.device}")
 

@@ -303,10 +303,32 @@ def _library():
             ctypes.c_void_p
         ]
         lib.cyclonus_packed_counts.restype = ctypes.c_int
+        lib.cyclonus_packed_kernel_attrs.argtypes = [ctypes.c_int] + [
+            ctypes.POINTER(ctypes.c_int)
+        ] * 3
+        lib.cyclonus_packed_kernel_attrs.restype = ctypes.c_int
         lib.cyclonus_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cyclonus_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_attrs() -> Dict[str, Dict[str, int]]:
+    """Per kernel instance (LAUNCHES keys): registers per thread, static
+    and dynamic shared memory (none) and local (spill) bytes per thread,
+    as the loaded library reports them."""
+    lib = _library()
+    out = {}
+    for which, name in enumerate(("packed_counts", "packed_rowsums", "packed_counts_tiered",
+                                  "packed_rowsums_tiered")):
+        vals = [ctypes.c_int() for _ in range(3)]
+        err = lib.cyclonus_packed_kernel_attrs(which, *[ctypes.byref(v) for v in vals])
+        if err != 0:
+            msg = lib.cyclonus_cuda_error_string(err).decode()
+            raise RuntimeError(f"{name} attributes failed: {msg} ({err})")
+        regs, smem, local = (v.value for v in vals)
+        out[name] = {"regs": regs, "smem_static": smem, "smem_dynamic": 0, "local_bytes": local}
+    return out
 
 
 def _counts_cuda(ops: Dict, bs: int) -> torch.Tensor:

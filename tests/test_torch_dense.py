@@ -102,6 +102,38 @@ SHAPES = [
 ]
 
 
+# (seed, q, te, ti, ns, nd, namespaces, pads): target axes that end in
+# inert rows that match no pod (the engine's bucketing pads), so the
+# pseudo row sits before them and the live depth is ragged: a multiple of
+# neither 32 nor 128 nor the chunk, or only the pseudo row
+RAGGED = [
+    (30, 2, 1100, 40, 60, 70, 0, (37, 5)),
+    (31, 1, 0, 1300, 50, 45, 0, (0, 20)),
+    (32, 3, 30, 20, 130, 77, 0, (3, 100)),
+    (33, 2, 1200, 1300, 300, 260, 40, (7, 1)),
+]
+
+
+def _with_pads(ops, pads):
+    """ops with pads[0] / pads[1] target rows appended to the egress /
+    ingress tmatch and tallow: they match no pod, and half their allow
+    entries are set (a peer that selects every pod), so only the match
+    side tells they add nothing."""
+    rng = np.random.default_rng(sum(pads))
+    out = dict(ops)
+    for d, pad in zip("ei", pads):
+        tm, tl = ops["tmatch_" + d], ops["tallow_" + d]
+        out["tmatch_" + d] = np.concatenate([tm, np.zeros((pad,) + tm.shape[1:], dtype=bool)])
+        out["tallow_" + d] = np.concatenate([tl, rng.random((pad,) + tl.shape[1:]) < 0.5])
+    return out
+
+
+def _data_rows(tmatch, valid):
+    """The rows up to the last one that matches a valid pod, in numpy."""
+    rows = np.flatnonzero((tmatch & valid[None, :]).any(axis=1))
+    return int(rows[-1]) + 1 if rows.size else 0
+
+
 class TestDensePlainVsPallas:
     @pytest.mark.parametrize("seed,q,te,ti,ns,nd,n_ns", SHAPES)
     def test_rect_masks(self, seed, q, te, ti, ns, nd, n_ns):
@@ -171,6 +203,57 @@ class TestDensePlainVsPallas:
             interpret=True,
         )
         assert np.array_equal(_per_q(dk.counts_from_ops(d_ops)), _per_q(want))
+
+    @pytest.mark.parametrize("seed,q,te,ti,ns,nd,n_ns,pads", RAGGED)
+    def test_ragged_live_depth(self, seed, q, te, ti, ns, nd, n_ns, pads):
+        """The pseudo row right after the last row that matches a valid
+        pod, the pads after it: the plain version equals the reference's
+        Pallas kernel in interpret mode (its pseudo row after every row),
+        and the live depth is those rows plus the pseudo row, rounded up
+        to 32, with only zeros past it on the match side."""
+        ops = _with_pads(_operands(seed, q, te, ti, ns, nd, n_ns), pads)
+        want = ref_pk.verdict_counts_pallas_rect(
+            *_ref_args(ops), valid_src=ops["valid_src"], valid_dst=ops["valid_dst"],
+            interpret=True,
+        )
+        vs, vd = torch.from_numpy(ops["valid_src"]), torch.from_numpy(ops["valid_dst"])
+        got = dk.verdict_counts_rect(*_port_args(ops), valid_src=vs, valid_dst=vd, bs=64)
+        assert np.array_equal(_per_q(got), _per_q(want))
+        d_ops = dk.dense_operands(*_port_args(ops), vs, vd)
+        for d, key, a, valid in (("e", "live_e", "a_e", ops["valid_src"]),
+                                 ("i", "live_i", "a_i", ops["valid_dst"])):
+            n = _data_rows(ops["tmatch_" + d], valid)
+            assert n <= (te if d == "e" else ti)
+            assert d_ops[key] == dk.live_depth(n) == -(-(n + 1) // 32) * 32
+            assert d_ops[key] % 32 == 0 and d_ops[key] <= d_ops[a].shape[1]
+            assert not d_ops[a][:, n + 1:].any()
+
+    def test_data_rows(self):
+        """data_rows stops at the last row that matches a pod, and the
+        wrapper counts only valid pods: a target whose pods are all
+        invalid moves the pseudo row (and the live depth) before it."""
+        t = torch.tensor([[0, 0, 0], [0, 1, 0], [0, 0, 0]], dtype=torch.int8)
+        assert dk.data_rows(t) == 2
+        assert dk.data_rows(torch.zeros(4, 3, dtype=torch.int8)) == 0
+        assert dk.data_rows(torch.zeros(0, 3, dtype=torch.int8)) == 0
+        ops = _operands(0, 1, 40, 70, 9, 9)
+        ops["tmatch_e"][:] = False
+        ops["tmatch_e"][[3, 35], 4] = True
+        ops["tmatch_i"][:] = False
+        ops["tmatch_i"][[2, 64], [1, 6]] = True
+        vs = np.ones(9, dtype=bool)
+        vd = np.ones(9, dtype=bool)
+        vd[6] = False  # ingress target 64 matches only an invalid pod
+        d_ops = dk.dense_operands(*_port_args(ops), torch.from_numpy(vs), torch.from_numpy(vd))
+        assert (d_ops["live_e"], d_ops["live_i"]) == (64, 32)
+        assert d_ops["a_e"][4, 35] == 1 and d_ops["a_e"][:9, 36].equal(
+            torch.from_numpy(~ops["has_e"] & vs).to(torch.int8))
+        assert not d_ops["a_i"][:, 4:].any()
+        want = ref_pk.verdict_counts_pallas_rect(
+            *_ref_args(ops), valid_src=vs, valid_dst=vd, interpret=True,
+        )
+        got = dk.counts_from_ops(d_ops)
+        assert np.array_equal(_per_q(got), _per_q(want))
 
     def test_chunk_rule_and_helpers(self):
         for n in (0, 1, 127, 128, 129, 383, 1023, 1024, 1025, 5000):
@@ -387,6 +470,47 @@ class TestEnginePackOff:
         assert spy.calls == ["_class_rowsums_kernel" if route.startswith("_class")
                              else "evaluate_grid_counts"]
 
+    @pytest.mark.parametrize("seed,extra", [(1, 7), (4, 11), (6, 3)])
+    def test_live_depth_is_data_rows(self, monkeypatch, seed, extra):
+        """On the engine's dense route the live depth is each direction's
+        rows up to the last encoded target that matches a valid pod, plus
+        the pseudo row; the inert targets that bucket the axis lie past
+        it, and the rows chip_smoke.live_target_rows counts (the numbers
+        its K4 / K5 bounds use) lie within it."""
+        import chip_smoke
+        from cyclonus_tpu_torch.engine.tiled import _precompute
+
+        policies, pods, namespaces = fuzz_policies(seed, extra)
+        port = TorchPolicyEngine(port_policy(policies), pods, namespaces, device="cpu",
+                                 pack=False, class_compress="0", compact=False)
+        seen = []
+        real = dk.dense_operands
+
+        def spy(*a, **kw):
+            seen.append(real(*a, **kw))
+            return seen[-1]
+
+        monkeypatch.setattr(dk, "dense_operands", spy)
+        port.evaluate_grid_counts(PORT_CASES)
+        (ops,) = seen
+        pre = _precompute(port._dense_counts_tensors(PORT_CASES), False)
+        valid = np.arange(pre["egress"]["tmatch"].shape[1]) < port.n_pods
+        for d, key, a, kt in (("egress", "live_e", "a_e", "kt_e"),
+                              ("ingress", "live_i", "a_i", "kt_i")):
+            target_ns = port._tensors[d]["target_ns"]
+            tmatch = pre[d]["tmatch"].numpy()
+            n = _data_rows(tmatch, valid)
+            encoded = np.flatnonzero(target_ns >= 0)
+            assert n <= (encoded[-1] + 1 if encoded.size else 0)
+            # the inert targets that bucket the axis match no pod
+            assert not (tmatch[target_ns < 0] & valid[None, :]).any()
+            assert ops[key] == dk.live_depth(n)
+            rows = chip_smoke.live_target_rows(ops[a], ops[kt])
+            assert int(rows.sum()) == int((tmatch & valid[None, :]).any(axis=1).sum()) + int(
+                ops[a][:, n].any())
+            assert int(rows.sum()) <= n + 1
+            assert not ops[a][:, ops[key]:].any()
+
     @pytest.mark.parametrize("mode", ["0", "1"])
     def test_grid_pack_off(self, monkeypatch, mode):
         policies, pods, namespaces = fuzz_policies(3, 9)
@@ -463,6 +587,27 @@ class TestCudaKernels:
         torch.cuda.synchronize()
         assert dk.LAUNCHES[kind] == before + 1
         assert torch.equal(got, dk.counts_from_ops(d_ops, plain=True))
+
+    @pytest.mark.parametrize("seed,q,te,ti,ns,nd,n_ns,pads", RAGGED + [
+        (34, 3, 2200, 1500, 1000, 700, 40, (37, 5)),
+        (35, 2, 1030, 1100, 4100, 2000, 500, (7, 0))])
+    def test_ragged_live_depth_matches_plain(self, seed, q, te, ti, ns, nd, n_ns, pads):
+        """K5 stops at the live depth; its plain version contracts every
+        row, pads included, and skips no block."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        ops = _with_pads(_operands(seed, q, te, ti, ns, nd, n_ns), pads)
+        args = [a.cuda() for a in _port_args(ops)]
+        vs = torch.from_numpy(ops["valid_src"]).cuda()
+        vd = torch.from_numpy(ops["valid_dst"]).cuda()
+        for bs in (64, None):
+            d_ops = dk.dense_operands(*args, vs, vd, bs=bs)
+            kind = "dense_counts_1chunk" if dk.single_chunk(d_ops) else "dense_counts_chunked"
+            before = dk.LAUNCHES[kind]
+            got = dk.counts_from_ops(d_ops)
+            torch.cuda.synchronize()
+            assert dk.LAUNCHES[kind] == before + 1
+            assert torch.equal(got, dk.counts_from_ops(d_ops, plain=True))
 
     @pytest.mark.parametrize("seed,q,te,ti,n,bs,bd,w,n_ns", TestSlab.SLABS + [
         (3, 2, 200, 300, 5000, 2048, 1024, 128, 100)])

@@ -48,11 +48,13 @@ def _operands(seed, q, we, wi, ns, nd, density=0.05):
     }
 
 
-def _tier(seed, q, ns, nd, ge, gi, density=0.3):
+def _tier(seed, q, ns, nd, ge, gi, density=0.3, ordered=False):
     """A seeded `tier` operand ({direction: {subj, peerq, anp_key,
     banp_key}}) as numpy arrays: random subjects and peers, ANP rows with
     Allow/Deny/Pass, BANP rows with Allow/Deny, random ranks with ties,
-    and pad rows (both keys TIER_KEY_NONE)."""
+    and pad rows (both keys TIER_KEY_NONE).  ordered=True lays the rows
+    out as the engine does: ANP rows first, then BANP rows, each by
+    non-decreasing key."""
     rng = np.random.default_rng(seed)
 
     def keys(g):
@@ -60,6 +62,9 @@ def _tier(seed, q, ns, nd, ge, gi, density=0.3):
         banp = rng.random(g) < 0.3
         act = np.where(banp, rng.integers(1, 3, size=g), rng.integers(1, 4, size=g))
         key = (rank * 4 + act).astype(np.int32)
+        if ordered:
+            key = np.concatenate([np.sort(key[~banp]), np.sort(key[banp])])
+            banp = np.sort(banp)
         pad = rng.random(g) < 0.2
         anp_key = np.where(~banp & ~pad, key, TIER_KEY_NONE).astype(np.int32)
         banp_key = np.where(banp & ~pad, key, TIER_KEY_NONE).astype(np.int32)
@@ -190,6 +195,59 @@ class TestPlainVsPallas:
             verdict_counts_packed(*[a.to("meta") for a in ops])
 
 
+def _word_rule(match, keys):
+    """Plain-Python model of the tiered kernel's per-word rule: min keys
+    (anp, banp) per cell from match [W, n] int32 (subject & peer words)
+    and keys [2, 32 W].  Per word and key vector, the rows with a real key
+    form a mask; where the vector's real keys are non-decreasing in bit
+    order the word contributes the key of the first set bit of match &
+    mask, otherwise the min over its set bits."""
+    n_words, n = match.shape
+    out = np.full((2, n), TIER_KEY_NONE, dtype=np.int64)
+    for v in range(2):
+        for w in range(n_words):
+            kw = keys[v, 32 * w:32 * (w + 1)]
+            real_bits = [b for b in range(32) if kw[b] < TIER_KEY_NONE]
+            real = sum(1 << b for b in real_bits)
+            ordered = all(kw[a] <= kw[b] for a, b in zip(real_bits, real_bits[1:]))
+            for j in range(n):
+                m = int(match[w, j]) & 0xFFFFFFFF & real
+                if not m:
+                    continue
+                bits = [b for b in range(32) if m >> b & 1]
+                best = kw[bits[0]] if ordered else min(kw[b] for b in bits)
+                out[v, j] = min(out[v, j], best)
+    return out
+
+
+class TestWordRule:
+    @pytest.mark.parametrize("seed", range(6))
+    @pytest.mark.parametrize("ordered", [True, False])
+    def test_word_rule_matches_min_keys(self, seed, ordered):
+        """The per-word rule that the kernel's fast path takes (first set
+        bit under ordered keys, the walk otherwise) equals the plain
+        version's min over every matching row, on seeded words with pad
+        rows, whole pad words, and keys in and out of order."""
+        rng = np.random.default_rng(seed)
+        n_words, n = 3, 200
+        tier = _tier(seed, 1, 1, 1, 32 * n_words, 1, ordered=ordered)["egress"]
+        keys = np.stack([tier["anp_key"], tier["banp_key"]])
+        keys[:, 32:64] = TIER_KEY_NONE  # a word with no real row
+        bits = rng.random((n_words, n, 32)) < rng.choice([0.02, 0.2, 0.6])
+        match = (bits.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(-1)
+        match = match.astype(np.uint32).view(np.int32)
+        kt = torch.from_numpy(keys)
+        got = packed_kernel._min_keys(
+            lambda w: torch.from_numpy(match[w]), kt, packed_kernel._live_rows(kt), (n,), "cpu"
+        )
+        want = _word_rule(match, keys)
+        assert np.array_equal(np.stack([g.numpy() for g in got]), want)
+        real = keys < TIER_KEY_NONE
+        in_order = [bool((np.diff(keys[v, 32 * w:32 * w + 32][real[v, 32 * w:32 * w + 32]]) >= 0).all())
+                    for v in range(2) for w in range(n_words)]
+        assert all(in_order) if ordered else not all(in_order)
+
+
 @pytest.mark.cuda
 class TestCudaKernel:
     @pytest.mark.parametrize(
@@ -219,12 +277,16 @@ class TestCudaKernel:
         # reference's 1,024-row ceiling
         [(0, 1, 1, 1, 9, 9, 1, 1), (1, 3, 12, 8, 777, 1500, 4, 40), (2, 2, 33, 3, 300, 257, 600, 1500)],
     )
-    def test_tiered_kernel_matches_plain(self, seed, q, we, wi, ns, nd, ge, gi):
+    @pytest.mark.parametrize("ordered", [False, True])
+    def test_tiered_kernel_matches_plain(self, seed, q, we, wi, ns, nd, ge, gi, ordered):
+        """Keys in random order (the kernel walks each word's set bits) and
+        in the engine's order (its first-bit path); tier words within one
+        pass and past it."""
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA device: the kernel has no CPU mode")
         ops = _operands(seed, q, we, wi, ns, nd, density=0.02)
         args = [a.cuda() for a in _torch(_split(ops))]
-        tier = _tier_torch(_tier(seed, q, ns, nd, ge, gi, density=0.05), "cuda")
+        tier = _tier_torch(_tier(seed, q, ns, nd, ge, gi, density=0.05, ordered=ordered), "cuda")
         vs = torch.from_numpy(ops["valid_src"]).cuda()
         vd = torch.from_numpy(ops["valid_dst"]).cuda()
         w = torch.from_numpy(ops["w"]).cuda()

@@ -272,3 +272,45 @@ def test_bench_tiers_match_reference(monkeypatch):
     with pytest.raises(Captured) as info:
         bench.tiers_case([RefPortCase(80, "serve-80-tcp", "TCP")], 8, 8)
     assert tier_dicts(bench_tiers()) == tier_dicts(info.value.args[0])
+
+
+def _tier_keys_in_word_order(port, cases):
+    """Assert that the engine's tier keys, as the tiered counts kernel
+    gets them, are non-decreasing over the real keys of each key vector
+    within every 32-row tier word (the order the kernel's first-bit path
+    relies on); returns the number of real keys seen."""
+    from cyclonus_tpu_torch.engine.encoding import TIER_KEY_NONE as NONE
+    from cyclonus_tpu_torch.engine.tiled import _precompute, packed_tier
+
+    tier = packed_tier(_precompute(port._dense_counts_tensors(cases), True))
+    n_real = 0
+    for d, t in tier.items():
+        for name in ("anp_key", "banp_key"):
+            keys = t[name].numpy()
+            for g0 in range(0, keys.shape[0], 32):
+                word = keys[g0:g0 + 32]
+                real = word[word < NONE]
+                assert (np.diff(real) >= 0).all(), (d, name, g0, word)
+                n_real += real.size
+    return n_real
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_engine_tier_keys_ordered_within_words(seed):
+    fc, _ref, _policy, tiers, port = fuzz_engines(seed, "0")
+    if tiers is None:
+        assert "tiers" not in port._tensors
+        return
+    assert _tier_keys_in_word_order(port, cases_of(fc)[1]) > 0
+
+
+def test_bench_tier_keys_ordered_within_words():
+    import random
+
+    from cyclonus_tpu_torch.synthetic import bench_tiers, build_synthetic
+
+    pods, namespaces, policies = build_synthetic(1024, 100, random.Random(20260729))
+    port = TorchPolicyEngine(build_network_policies(True, policies), pods, namespaces,
+                             tiers=bench_tiers(), class_compress="0", device="cpu")
+    cases = [PortCase(80, "serve-80-tcp", "TCP"), PortCase(81, "serve-81-udp", "UDP")]
+    assert _tier_keys_in_word_order(port, cases) > 0
