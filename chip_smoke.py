@@ -20,12 +20,15 @@ Phases, each raising on failure:
                 with non-prefix masks, an all-has=False direction, a
                 direction whose nz map is all zero, bucketing pad rows
                 past the live depth (a multiple of neither 32 nor 128 nor
-                the chunk, or only the pseudo row), pod axes off 128 and
-                256, and block-diagonal operands for K5's skip (blocks
-                kept for one of a block's two warpgroups or some of its
-                four dst pieces), and the slab kernel (K6) at windows of
-                1 to 128 rows and tiles from 8 wide to the default.
-                Exact equality;
+                the chunk, or only the pseudo row; K4 too), pod axes off
+                128 and 256, and block-diagonal operands for K5's skip
+                (blocks kept for one of a block's two warpgroups or some
+                of its four dst pieces), and the slab kernel (K6) at
+                windows of 1 to 128 rows (w_aug 32 to 160 bytes), tiles
+                from 8 wide to the default, tiles that are not multiples
+                of the kernel's 128 x 256 item or span several items, and
+                more items than the persistent grid holds, so each block
+                walks several src-tile segments.  Exact equality;
   4. truth tables — TorchPolicyEngine.evaluate_grid on the card against
                 the scalar oracle, on both dtype plans (packed and
                 pack=False), for every policy of all_examples(), and for
@@ -374,6 +377,14 @@ def mixed_blocks(nz_e, nz_i):
                  for g, w in ((_block_groups(nz_e, 2), 2), (_block_groups(nz_i, 4), 4)))
 
 
+def slab_items(ops) -> int:
+    """Work items of one K6 launch: (q, src tile, dst tile, 128 src rows,
+    256 dst cols), none straddling two tiles."""
+    n_i, bs, _ = ops["a_e"].shape
+    n_j, bd, _ = ops["a_i"].shape
+    return ops["b_e"].shape[0] * n_i * n_j * -(-bs // 128) * -(-bd // 256)
+
+
 def phase_dense_kernels(device) -> None:
     """K4/K5/K6 against their plain versions on seeded operands."""
     import numpy as np
@@ -400,6 +411,11 @@ def phase_dense_kernels(device) -> None:
         (1, 0, 2100, 650, 900, 30, (0, 20)),
         (2, 2200, 0, 1300, 333, 60, (3, 0)),
         (2, 1030, 1100, 4100, 2000, 500, (7, 0)),
+        # K4 at live depths below its chunk, bucketing pads past them, and
+        # a direction whose live depth is only the pseudo row
+        (2, 200, 300, 3000, 2000, 0, (50, 60)),
+        (1, 0, 300, 500, 700, 20, (100, 0)),
+        (3, 90, 0, 1300, 900, 0, (0, 37)),
     ]
     checked = {"dense_counts_1chunk": 0, "dense_counts_chunked": 0}
     mixed = [0, 0]
@@ -450,6 +466,7 @@ def phase_dense_kernels(device) -> None:
         raise AssertionError(f"K5's partly kept blocks not exercised: {mixed}")
 
     n_slab = 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     slab_shapes = [  # (q, te, ti, n, bs, bd, w, namespaces): 8-wide tiles to the default
         (1, 30, 40, 100, 8, 8, 1, 30),
         (2, 60, 50, 250, 8, 16, 8, 50),
@@ -457,7 +474,17 @@ def phase_dense_kernels(device) -> None:
         (2, 250, 300, 5000, 2048, 1024, 128, 100),
         (2, 20, 30, 5000, 2048, 1024, 32, 20),
         (2, 600, 900, 5000, 2048, 1024, 128, 40),
+        # tiles off the kernel's 128 x 256 item, tile pairs of several
+        # items, w_aug 160 (three 64-byte stages a direction), Q 1 and 3
+        (1, 150, 200, 1000, 136, 200, 16, 60),
+        (3, 300, 300, 1000, 256, 512, 32, 80),
+        (2, 400, 500, 3000, 264, 136, 128, 40),
+        (3, 100, 120, 2000, 72, 328, 64, 90),
+        # many more items than the persistent grid: each block walks
+        # items of several src tiles, flushing its counts at each change
+        (2, 500, 600, 12000, 512, 256, 64, 120),
     ]
+    max_items = 0
     for q, te, ti, n, bs, bd, w, n_ns in slab_shapes:
         args, _vs, _vd = random_dense(rng, q, te, ti, n, n, device, n_ns)
         n_pods = n - 5
@@ -473,6 +500,7 @@ def phase_dense_kernels(device) -> None:
         check_kernel(got, dk.verdict_counts_slab_from_ops(ops, plain=True),
                      f"dense_counts_slab q={q} te={te} ti={ti} n={n} bs={bs} bd={bd} w={w}")
         n_slab += 1
+        max_items = max(max_items, slab_items(ops))
         if t0[0][1] and t0[1][1]:
             # windows that hold every target: the slab counts equal K4/K5's
             dense = sum_partials(dk.verdict_counts(*args, n_pods=n_pods), q, n_pods)
@@ -480,7 +508,9 @@ def phase_dense_kernels(device) -> None:
                 raise AssertionError(f"slab counts != dense counts at q={q} n={n} w={w}")
             n_slab += 1
     log(f"kernels: {n_slab} slab kernel checks equal (vs plain, and vs the dense kernels "
-        f"where the windows hold; tolerance: exact)")
+        f"where the windows hold; tolerance: exact); up to {max_items} items on {sms} SMs")
+    if max_items < 8 * sms:
+        raise AssertionError(f"no slab case walks several items per block: {max_items} items")
 
 
 def phase_truth_tables(device) -> None:
@@ -829,7 +859,7 @@ def dense_record(name, eng, cases, launches):
         run = lambda: dk.verdict_counts_slab_from_ops(ops)  # noqa: E731
         run_plain = lambda: dk.verdict_counts_slab_from_ops(ops, plain=True)  # noqa: E731
         shape = {"q": q, "n": ns, "w": plan["w"], "w_aug": w_aug,
-                 "tiles": [ops["a_e"].shape[0], ops["a_i"].shape[0]]}
+                 "tiles": [ops["a_e"].shape[0], ops["a_i"].shape[0]], "items": slab_items(ops)}
         replaces = "cyclonus_tpu/engine/pallas_kernel.py:1414"
     else:
         valid = torch.arange(ns, device=args[0].device) < n
@@ -860,7 +890,7 @@ def dense_record(name, eng, cases, launches):
         run_plain = lambda: dk._counts_plain(ops)  # noqa: E731
         shape = {"q": q, "ns": ns, "nd": nd, "te": te, "ti": ti,
                  "kt": [ops["kt_e"], ops["kt_i"]], "live_depth": [ops["live_e"], ops["live_i"]],
-                 "nz_kept": kept}
+                 "nz_kept": kept, "items": q * -(-ns // 128) * -(-nd // 256)}
         if chunked:
             shape["nz_partly_kept"] = mixed_blocks(*nz)
         replaces = ("cyclonus_tpu/engine/pallas_kernel.py:601" if chunked

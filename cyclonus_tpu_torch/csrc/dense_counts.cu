@@ -1,19 +1,20 @@
-// Dense (int8) verdict-count kernels for Hopper (sm_90a): K4, K5 and K6.
+// Dense (int8) verdict-count kernels for Hopper (sm_90a): K4, K5 and K6 on
+// one main loop.
 //
 // Replaces the TPU kernels of the reference's dense dtype plan
 // (CYCLONUS_PACK=0) in cyclonus_tpu/engine/pallas_kernel.py:
-//   * K4 single-chunk (the mma.sync template, kSlab = false):
-//        _make_verdict_counts_kernel_1chunk, launched by
+//   * K4 single-chunk: _make_verdict_counts_kernel_1chunk, launched by
 //        _verdict_counts_pallas_rect when both directions' augmented target
-//        axes fit one chunk;
-//   * K5 chunked (chunked_counts_kernel, its own kernel on wgmma and TMA):
-//        _make_verdict_counts_kernel, the same contraction over several
-//        target chunks, skipping a (64-pod block, chunk) pair whose match
-//        operand is all zero (the reference's nz maps);
-//   * K6 target slabs (the mma.sync template, kSlab = true):
-//        _make_verdict_counts_kernel_slab via
+//        axes fit one chunk -- here dense_counts_kernel<false, 128> over
+//        one src tile and one dst tile (the whole pod axes);
+//   * K5 chunked: _make_verdict_counts_kernel, the same contraction over
+//        several target chunks, skipping a (64-pod block, chunk) pair whose
+//        match operand is all zero (the reference's nz maps) -- here
+//        dense_counts_kernel<true, 128>, which reads the nz maps;
+//   * K6 target slabs: _make_verdict_counts_kernel_slab via
 //        verdict_counts_pallas_slab_from_ops, the contraction over each
-//        (src tile, dst tile) pair's w_aug-row target window.
+//        (src tile, dst tile) pair's w_aug-row target window -- here
+//        dense_counts_kernel<false, 64> over n_i x n_j slab tiles.
 //
 // Per cell (s, d) of port case q, all operands 0/1 int8 with the target
 // (contraction) axis innermost:
@@ -36,56 +37,67 @@
 // per multiply-add, reached only by wgmma), against the operand bytes over
 // 3.35e12 B/s.  The operands (gigabytes at 100k pods) do not fit the 50 MB
 // L2, and each block re-reads its tiles from L2, so what the kernels
-// really wait on is the bytes a block stages per multiply-add.
+// really wait on is the bytes a block stages per multiply-add and, at a
+// shallow depth (K6's window is 64 bytes: one stage per direction), the
+// latency of filling and draining the pipeline once per output tile.
 //
-// K5 (chunked_counts_kernel) is built for that:
-//   * one block per (q, 128 src rows, 256 dst cols): 85 multiply-adds per
-//     staged byte, 2.7x the 64 x 64 block's 32; blocks are issued in groups
-//     of 16 src row tiles, so the tiles that a wave of blocks shares stay
-//     in L2;
-//   * two consumer warpgroups own 64 src rows each, four wgmma m64n256k32
-//     s8 -> s32 per stage of 128 bytes of depth, both operands read from
-//     shared memory in the 128-byte swizzle TMA writes; one producer
-//     thread keeps TMA loads in flight in a ring of 4 stages (48 KB each)
-//     guarded by full/empty mbarriers; setmaxnreg moves registers from the
-//     producer warpgroup to the consumers;
-//   * the skip reads the nz maps at their 64-pod geometry: egress is keyed
-//     on (src block, chunk), one block per consumer warpgroup, so a
-//     warpgroup whose block is all zero neither loads nor contracts the
-//     chunk; ingress on (dst block, chunk), and a chunk is loaded and
-//     contracted for the whole 256-column block when any of its four dst
-//     blocks is kept (the others are zero in memory, so they add nothing).
-//     Issuing the ingress product as m64n64 pieces, each on its own flag,
-//     was measured slower: ptxas serializes every wgmma of the kernel once
-//     one of them sits under a data-dependent branch (its note C7520), and
-//     that costs more than the pieces save (measured on the H100: PERF.md);
+// The design, shared by the three:
+//   * one work item per (q, src tile, dst tile, 128 src rows, 256 dst
+//     cols): 85 multiply-adds per staged byte.  An item never straddles
+//     two tiles (K6's windows differ per tile); a tile narrower than the
+//     item, or not a multiple of 128 rows or 256 columns, masks the cells
+//     past its end in the epilogue (TMA's box reads the neighbouring
+//     tile's rows there, so zero fill would not mask them).  K4/K5 have
+//     one tile per axis, whose rows past the pod axes TMA fills with zeros;
+//   * items in raster order: tile pairs outermost, 16 src row blocks to a
+//     raster group within, so the tiles a wave of items shares stay in L2.
+//     K4 and K6 run persistent blocks: a grid of one block per SM walks the
+//     items with a stride of the grid; the producer walks the same item
+//     sequence and runs up to the ring's depth ahead of the consumers,
+//     across items, so one item's epilogue overlaps the next item's loads.
+//     K5 launches one block per item instead: its items' work varies with
+//     the skip, and persistent blocks drift apart in the item order until
+//     the tiles they share fall out of L2 (measured: PERF.md);
+//   * two consumer warpgroups own 64 src rows each, one wgmma m64n256k32
+//     s8 -> s32 per 32 bytes of a stage's depth, both operands read from
+//     shared memory in the swizzle TMA writes; one producer thread keeps
+//     TMA loads in flight in a ring of 192 KB guarded by full/empty
+//     mbarriers: 4 stages 128 bytes deep (K4, K5: the 128-byte swizzle) or,
+//     for K6's shallow windows, 8 stages 64 bytes deep (the 64-byte
+//     swizzle), so a 64-byte window is one stage a direction with no
+//     products over zero fill; setmaxnreg moves registers from the
+//     producer warpgroup to the consumers.  Every role walks the same
+//     (item, direction, stage) sequence, and a consumer that contracts
+//     nothing in a stage still waits for it and releases it, so the
+//     barriers' phases agree across items;
 //   * no loads past the live depth: each direction's tensor maps end at
-//     it (the target rows up to the last one that matches a pod, plus the
-//     pseudo row, rounded up to 32 bytes; the wrapper reads it from the
-//     operands), the walk stops at it, and TMA fills
-//     the ragged last box (and any row past the pod axes) with zeros, which
-//     the last stage of a chunk contracts (at most 96 bytes);
+//     it (K4/K5: the target rows up to the last one that matches a pod,
+//     plus the pseudo row, rounded up to 32 bytes, read by the wrapper from
+//     the operands; K6: the window, w_aug bytes), the walk stops at it,
+//     and TMA fills the rest of the last box with zeros (a box may be
+//     wider than the tensor: a 32-byte window is one 64-byte stage);
+//   * K5's skip (the <true, 128> instance) reads the nz maps at their 64-pod
+//     geometry: egress is keyed on (src block, chunk), one block per
+//     consumer warpgroup, so a warpgroup whose block is all zero neither
+//     loads nor contracts the chunk; ingress on (dst block, chunk), and a
+//     chunk is loaded and contracted for the whole 256-column block when
+//     any of its four dst blocks is kept.  ptxas serializes every wgmma of
+//     a kernel once one of them sits under a data-dependent branch (its
+//     note C7520), so K4 and K6 run <false, ...> instances, whose wgmmas
+//     sit under no branch at all;
 //   * one direction's accumulators live at a time (128 registers a
 //     thread): egress folds into 128 verdict bits before ingress starts;
-//     counts reduce with popc, warp shuffles and one atomicAdd per
-//     warpgroup and verdict.
-//
-// K4 and K6 (dense_counts_kernel) are simple and right, not fast: the
-// warp-level mma.sync m16n8k32 s8 -> s32, fed from shared memory that a
-// plain load/store loop fills, with no copy/compute overlap:
-//   * one block per (q, 64 src rows, 64 dst cols), 256 threads = 8 warps;
-//     warp w owns rows 16 (w % 4) .. +16 and cols 32 (w / 4) .. +32 of the
-//     block as four m16n8 accumulator tiles per direction (16 registers);
-//   * each direction loops over its own depth, staging 32 words (128 int8
-//     values) per row of the block's src and dst rows in shared memory per
-//     pass with 16-byte loads and stores, target axis innermost, so each
-//     fragment register is one 32-bit shared load (row stride 36 words: the
-//     32 lanes of a fragment load hit 32 different banks);
-//   * K6's blocks never straddle two slab tiles (their windows differ): a
-//     tile narrower than 64 rows or columns leaves the rest of the block
-//     masked, so the kernel takes any tile width;
-//   * counts reduce with warp shuffles, then one atomicAdd per block and
-//     verdict; integer sums are exact in any order.
+//     the item's verdicts count with popc into per-thread counts (in
+//     shared memory, beside the ring) that stay there while the
+//     warpgroup's items fall in one (q, src segment), and reach `counts`
+//     with warp shuffles and one atomicAdd per verdict when the block's
+//     next item falls in another segment or there is none.  The
+//     accumulators leave no registers to spare: the persistent loop
+//     decodes its item anew at each use rather than hold its fields across
+//     the products, and flushes at the end of the item's body; either the
+//     fields held or a flush before the products made ptxas spill the
+//     accumulators (its note C7512, 2-4x slower; measured).  Integer sums
+//     are exact in any order.
 // The kernels allocate nothing and run on the caller's stream.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
@@ -94,205 +106,101 @@
 
 namespace {
 
-// --- K4 / K6: mma.sync ------------------------------------------------------
-
-constexpr int kTile = 64;              // src rows and dst cols per block
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kNTiles = 4;             // m16n8 accumulator tiles per warp and direction
-constexpr int kPass = 32;              // contraction words staged per pass (4 k32 steps)
-constexpr int kStride = kPass + 4;     // shared-memory row stride, in words
-constexpr int kVec = 4;                // words per 16-byte load
-constexpr int kLoads = kTile * kPass / kVec / kThreads;  // 16-byte loads per thread and operand
-
-struct Args {
-  const int8_t* a_e;    // [ns_pad, de]               (K6: [n_i, bs, de])
-  const int8_t* b_e;    // [q, nd_pad, de]            (K6: [q, n_i, nd_pad, de])
-  const int8_t* b_i;    // [q, ns_pad, di]            (K6: [q, n_j, ns_pad, di])
-  const int8_t* a_i;    // [nd_pad, di]               (K6: [n_j, bd, di])
-  int32_t* counts;      // [q, ns_pad / bs, 3]: ingress, egress, combined
-  int q, ns_pad, nd_pad, de, di, bs, bd;
-};
-
-__device__ __forceinline__ int4 load_vec(const int8_t* p) {
-  return __ldg(reinterpret_cast<const int4*>(p));
-}
-
-// d += a (16 x 32 int8, row-major) . b (32 x 8 int8, column-major), int32
-__device__ __forceinline__ void mma_s8(int32_t (&d)[4], int32_t a0, int32_t a1, int32_t a2,
-                                       int32_t a3, int32_t b0, int32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The accumulator fragment layout of mma.sync m16n8 within the block:
-// register c of tile j in lane 4 g + t of warp w holds the cell
-// (frag_row, frag_col).
-__device__ __forceinline__ int frag_row(int warp, int lane, int c) {
-  return (warp & 3) * 16 + (lane >> 2) + 8 * (c >> 1);
-}
-__device__ __forceinline__ int frag_col(int warp, int lane, int j, int c) {
-  return (warp >> 2) * 32 + 8 * j + 2 * (lane & 3) + (c & 1);
-}
-
-// acc += src rows . dst rows over the depth (int8, 4 per word) for this
-// warp's fragment tiles.  `src` points at the block's first src row, `dst`
-// at its first dst row, both with `depth` bytes per row (a multiple of 32).
-__device__ __forceinline__ void contract(const int8_t* __restrict__ src,
-                                         const int8_t* __restrict__ dst, int depth, int rows,
-                                         int cols, int32_t (*s_src)[kStride],
-                                         int32_t (*s_dst)[kStride], int32_t (&acc)[kNTiles][4]) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int ar = (warp & 3) * 16 + g;  // A fragment rows ar, ar + 8
-  const int bc = (warp >> 2) * 32 + g;  // B fragment cols bc + 8 j
-  const int words = depth / 4;
-  for (int k0 = 0; k0 < words; k0 += kPass) {
-    const int nw = min(kPass, words - k0);  // a multiple of 8 words
-    int4 vs[kLoads], vd[kLoads];
-#pragma unroll
-    for (int m = 0; m < kLoads; ++m) {
-      const int idx = tid + m * kThreads;
-      const int r = idx / (kPass / kVec), v = idx % (kPass / kVec);
-      vs[m] = vd[m] = make_int4(0, 0, 0, 0);
-      if (v * kVec < nw) {
-        const size_t off = (size_t)r * depth + 4 * (size_t)(k0 + v * kVec);
-        if (r < rows) vs[m] = load_vec(src + off);
-        if (r < cols) vd[m] = load_vec(dst + off);
-      }
-    }
-    __syncthreads();  // every read of the previous pass is done
-#pragma unroll
-    for (int m = 0; m < kLoads; ++m) {
-      const int idx = tid + m * kThreads;
-      const int r = idx / (kPass / kVec), v = idx % (kPass / kVec);
-      *reinterpret_cast<int4*>(&s_src[r][v * kVec]) = vs[m];
-      *reinterpret_cast<int4*>(&s_dst[r][v * kVec]) = vd[m];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kPass; k += 8) {  // one k32 step
-      if (k >= nw) break;  // the same for every thread
-      const int32_t a0 = s_src[ar][k + t], a1 = s_src[ar + 8][k + t];
-      const int32_t a2 = s_src[ar][k + 4 + t], a3 = s_src[ar + 8][k + 4 + t];
-#pragma unroll
-      for (int j = 0; j < kNTiles; ++j) {
-        mma_s8(acc[j], a0, a1, a2, a3, s_dst[bc + 8 * j][k + t], s_dst[bc + 8 * j][k + 4 + t]);
-      }
-    }
-  }
-}
-
-template <bool kSlab>
-__global__ void __launch_bounds__(kThreads) dense_counts_kernel(const Args a) {
-  __shared__ __align__(16) int32_t s_src[kTile][kStride];
-  __shared__ __align__(16) int32_t s_dst[kTile][kStride];
-  __shared__ int32_t red[3][kWarps];
-
-  const int q = blockIdx.z;
-  // blocks per segment: a segment (K4: bs src rows; K6: a slab tile) is
-  // covered by whole blocks, the last one masked where the segment ends
-  const int nbs = (a.bs + kTile - 1) / kTile;
-  const int nbd = (a.bd + kTile - 1) / kTile;
-  const int seg_i = blockIdx.y / nbs;
-  const int seg_j = blockIdx.x / nbd;
-  const int row0 = seg_i * a.bs + (blockIdx.y - seg_i * nbs) * kTile;
-  const int col0 = seg_j * a.bd + (blockIdx.x - seg_j * nbd) * kTile;
-  const int rows = min(kTile, (seg_i + 1) * a.bs - row0);
-  const int cols = min(kTile, (seg_j + 1) * a.bd - col0);
-
-  const size_t be_mat = kSlab ? (size_t)q * (a.ns_pad / a.bs) + seg_i : (size_t)q;
-  const size_t bi_mat = kSlab ? (size_t)q * (a.nd_pad / a.bd) + seg_j : (size_t)q;
-  const int8_t* ae = a.a_e + (size_t)row0 * a.de;
-  const int8_t* be = a.b_e + (be_mat * a.nd_pad + col0) * a.de;
-  const int8_t* bi = a.b_i + (bi_mat * a.ns_pad + row0) * a.di;
-  const int8_t* ai = a.a_i + (size_t)col0 * a.di;
-
-  int32_t acc_e[kNTiles][4], acc_i[kNTiles][4];
-#pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_e[j][c] = acc_i[j][c] = 0;
-  }
-  // egress: the src block is the target side (a_e); ingress: the dst block
-  contract(ae, be, a.de, rows, cols, s_src, s_dst, acc_e);
-  contract(bi, ai, a.di, rows, cols, s_src, s_dst, acc_i);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  int c_in = 0, c_eg = 0, c_co = 0;
-#pragma unroll
-  for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const bool live = frag_row(warp, lane, c) < rows && frag_col(warp, lane, j, c) < cols;
-      const bool eg = live && acc_e[j][c] > 0;
-      const bool in = live && acc_i[j][c] > 0;
-      c_in += in;
-      c_eg += eg;
-      c_co += in && eg;
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    c_in += __shfl_down_sync(0xffffffffu, c_in, off);
-    c_eg += __shfl_down_sync(0xffffffffu, c_eg, off);
-    c_co += __shfl_down_sync(0xffffffffu, c_co, off);
-  }
-  if (lane == 0) {
-    red[0][warp] = c_in;
-    red[1][warp] = c_eg;
-    red[2][warp] = c_co;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    int32_t total = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += red[tid][w];
-    if (total != 0) {
-      atomicAdd(&a.counts[((size_t)q * (a.ns_pad / a.bs) + seg_i) * 3 + tid], total);
-    }
-  }
-}
-
-template <bool kSlab>
-int launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid((a.nd_pad / a.bd) * ((a.bd + kTile - 1) / kTile),
-                  (a.ns_pad / a.bs) * ((a.bs + kTile - 1) / kTile), a.q);
-  if (grid.x > 2147483647u || grid.y > 65535u) return (int)cudaErrorInvalidConfiguration;
-  dense_counts_kernel<kSlab><<<grid, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// --- K5: wgmma fed by TMA ----------------------------------------------------
-
-namespace k5 {
-
-constexpr int kM = 128;                 // src rows per block: two consumer warpgroups
-constexpr int kN = 256;                 // dst cols per block
-constexpr int kPieces = kN / 64;        // 64-pod dst blocks (ingress flags) per block
-constexpr int kK = 128;                 // bytes of depth per stage: one 128-byte swizzle row
-constexpr int kStages = 4;
-constexpr int kGroup = 16;              // src row tiles per raster group
-constexpr int kBox = 64 * kK;           // one 64-row box, 8 KB
-constexpr int kABytes = 2 * kBox;       // src rows of a stage
-constexpr int kBBytes = kPieces * kBox; // dst rows of a stage
-constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kSmem = kStages * kStageBytes + 1024;  // + the 1,024-byte alignment of the swizzle
+constexpr int kM = 128;                 // src rows per item: two consumer warpgroups
+constexpr int kN = 256;                 // dst cols per item
+constexpr int kPieces = kN / 64;        // 64-pod dst blocks (ingress flags) per item
+constexpr int kGroup = 16;              // src row blocks per raster group
+constexpr int kRingBytes = 4 * (kM + kN) * 128;  // 192 KB of stages
+constexpr int kSmem = kRingBytes + 1024;  // + the 1,024-byte alignment of the swizzle
+constexpr int kMaxStages = 8;
 constexpr int kBlockThreads = 384;      // warpgroups 0, 1: consumers; 2: producer
 constexpr int kConsumers = 256;
 constexpr int kAcc = kN / 2;            // s32 accumulators per thread (m64n256)
 
-struct Params {
-  const int32_t* nz_e;  // [ns_pad / 64, nk_e] egress (src block, chunk) flags
-  const int32_t* nz_i;  // [nd_pad / 64, nk_i] ingress (dst block, chunk) flags
-  int32_t* counts;      // [q, ns_pad / bs, 3]
-  int ns_pad, nd_pad, live_e, live_i, kt_e, kt_i, nk_e, nk_i, bs, n_x, n_y;
+// The ring at a stage depth of kK bytes, one row of the kK-byte swizzle
+// per pod row: 4 stages of 48 KB at 128 bytes (K4, K5), 8 of 24 KB at 64
+// (K6, whose window is 32 to 160 bytes deep).
+template <int kK>
+struct Geo {
+  static constexpr int kBox = 64 * kK;            // one 64-row box
+  static constexpr int kABytes = 2 * kBox;        // src rows of a stage
+  static constexpr int kBBytes = kPieces * kBox;  // dst rows of a stage
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = kRingBytes / kStageBytes;
+  static_assert(kK == 64 || kK == 128, "a stage is one 64- or 128-byte swizzle row deep");
+  static_assert(kStages <= kMaxStages, "barrier arrays");
 };
+
+// Division by a divisor fixed at launch, for dividends below 2^31: a
+// multiply-high and a shift (the round-up method of Granlund and
+// Montgomery) instead of the dozens of instructions of `/`.
+struct FastDiv {
+  uint32_t div, mul, shr;
+};
+
+FastDiv fast_div(uint32_t d) {
+  FastDiv f{d, 0, 0};
+  if (d > 1) {
+    uint32_t l = 0;
+    while ((1u << l) < d) ++l;  // ceil(log2 d)
+    f.mul = (uint32_t)(((1ull << (31 + l)) + d - 1) / d);
+    f.shr = l - 1;
+  }
+  return f;
+}
+
+__device__ __forceinline__ int operator/(int n, const FastDiv& f) {
+  return f.div == 1 ? n : (int)(__umulhi((uint32_t)n, f.mul) >> f.shr);
+}
+
+struct Params {
+  const int32_t* nz_e;  // <true> only: [ns_pad / 64, nk_e] egress (src block, chunk) flags
+  const int32_t* nz_i;  // <true> only: [nd_pad / 64, nk_i] ingress (dst block, chunk) flags
+  int32_t* counts;      // [q, n_seg, 3]: ingress, egress, combined
+  int n_i, n_j;         // src and dst tiles (K4/K5: one each)
+  int tile_rows, tile_cols;
+  int n_seg;            // partial counts (src segments) per q
+  int ns_pad, nd_pad;   // n_i * tile_rows, n_j * tile_cols
+  int live_e, live_i, kt_e, kt_i, nk_e, nk_i;
+  int nr, nc;           // 128-row and 256-col blocks per tile
+  int per_pair, per_q;  // items per tile pair (nr * nc) and per port case
+  int items;            // q * per_q, below 2^30
+  // divisors: per_q, per_pair, n_j, kGroup * nc, and the src rows per
+  // partial count
+  FastDiv by_per_q, by_per_pair, by_n_j, by_group, by_seg_rows;
+};
+
+// One work item: port case, src and dst tile, first src row and dst col.
+struct Item {
+  int q, i, j, row0, col0;
+};
+
+__device__ __forceinline__ Item item_at(const Params& p, int it) {
+  Item x;
+  x.q = it / p.by_per_q;
+  const int rem = it - x.q * p.per_q;
+  const int pair = rem / p.by_per_pair;
+  const int local = rem - pair * p.per_pair;
+  x.i = pair / p.by_n_j;
+  x.j = pair - x.i * p.n_j;
+  // grouped raster within the tile pair: kGroup row blocks at a time (the
+  // last group of a tile may hold fewer)
+  const int group = local / p.by_group;
+  const int first_r = group * kGroup;
+  const int in_group = local - group * (kGroup * p.nc);
+  int r, c;
+  if (p.nr - first_r >= kGroup) {
+    r = in_group % kGroup;
+    c = in_group / kGroup;
+  } else {
+    const int rows_here = p.nr - first_r;
+    r = in_group % rows_here;
+    c = in_group / rows_here;
+  }
+  x.row0 = x.i * p.tile_rows + (first_r + r) * kM;
+  x.col0 = x.j * p.tile_cols + c * kN;
+  return x;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -337,21 +245,26 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0
       : "memory");
 }
 
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
-                                       uint64_t* bar) {
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                       int c3, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
-// (rows of 128 bytes, 8-row groups 1,024 bytes apart), starting `p`; a
-// step of 32 bytes of depth inside the swizzle row adds 32 to `p`.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+// wgmma shared-memory descriptor of a K-major tile in the kK-byte swizzle
+// (rows of kK bytes, 8-row groups 8 kK bytes apart; layout type 1 is the
+// 128-byte swizzle, 2 the 64-byte one), starting `p`; a step of 32 bytes
+// of depth inside the swizzle row adds 32 to `p`.
+template <int kK>
+__device__ __forceinline__ uint64_t sw_desc(const void* p) {
   const uint64_t addr = smem_u32(p);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+  const uint64_t layout = kK == 128 ? 1 : 2;
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(8 * kK >> 4) << 32) |
+         (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -376,7 +289,7 @@ __device__ __forceinline__ void fence_acc(int32_t (&d)[kAcc]) {
       "+r"(d[(o) + 4]), "+r"(d[(o) + 5]), "+r"(d[(o) + 6]), "+r"(d[(o) + 7])
 
 // d += A (64 x 32 int8, K-major, shared) . B (256 x 32, K-major,
-// shared)^T, s32: the warpgroup's 64 src rows against the block's 256 dst
+// shared)^T, s32: the warpgroup's 64 src rows against the item's 256 dst
 // cols, 128 accumulators a thread.
 __device__ __forceinline__ void wgmma_n256(int32_t (&d)[kAcc], uint64_t da, uint64_t db) {
   asm volatile(
@@ -403,7 +316,7 @@ __device__ __forceinline__ void wgmma_n256(int32_t (&d)[kAcc], uint64_t da, uint
 #undef ACC8
 
 // The skip flags, the same for every thread that asks: egress per src
-// block (consumer warpgroup w), ingress per dst block (j of the block's
+// block (consumer warpgroup w), ingress per dst block (j of the item's
 // four); a block past the pod axis is never kept.
 __device__ __forceinline__ bool eg_flag(const Params& p, int row0, int w, int c) {
   const int b = row0 / 64 + w;
@@ -414,178 +327,295 @@ __device__ __forceinline__ bool in_flag(const Params& p, int col0, int j, int c)
   return b < p.nd_pad / 64 && __ldg(p.nz_i + (size_t)b * p.nk_i + c) != 0;
 }
 
-// One direction's walk over its kept stages, identical in every role:
-// calls stage(k0, mine) for each stage of 128 bytes of depth [k0, k0 +
-// 128) below the live depth in a chunk that some consumer needs, where
-// bit w of `mine` says whether consumer warpgroup w contracts it (egress:
-// its src block's flag; ingress: both, when any of the four dst blocks'
-// flags is set).
-template <bool kIngress, typename F>
-__device__ __forceinline__ void walk(const Params& p, int row0, int col0, F&& stage) {
-  const int live = kIngress ? p.live_i : p.live_e;
-  const int kt = kIngress ? p.kt_i : p.kt_e;
-  for (int c0 = 0, c = 0; c0 < live; c0 += kt, ++c) {
-    uint32_t mine;
-    if (kIngress) {
-      bool any = false;
+// Which consumer warpgroups contract chunk c of one direction of an item
+// (bit w for warpgroup w), the same in every role: without the skip both;
+// with it, egress by the flag of each warpgroup's src block, ingress both
+// when any of the item's four dst blocks' flags is set.
+template <bool kSkip, bool kIngress>
+__device__ __forceinline__ uint32_t chunk_mine(const Params& p, const Item& x, int c) {
+  if (!kSkip) return 3u;
+  if (kIngress) {
+    bool any = false;
 #pragma unroll
-      for (int j = 0; j < kPieces; ++j) any = any || in_flag(p, col0, j, c);
-      mine = any ? 3u : 0u;
-    } else {
-      mine = (uint32_t)eg_flag(p, row0, 0, c) | (uint32_t)eg_flag(p, row0, 1, c) << 1;
-    }
-    if (mine == 0) continue;
-    const int c1 = min(c0 + kt, live);
-    for (int k0 = c0; k0 < c1; k0 += kK) stage(k0, mine);
+    for (int j = 0; j < kPieces; ++j) any = any || in_flag(p, x.col0, j, c);
+    return any ? 3u : 0u;
+  }
+  return (uint32_t)eg_flag(p, x.row0, 0, c) | (uint32_t)eg_flag(p, x.row0, 1, c) << 1;
+}
+
+// A position in the ring: the stage and the parity of its round.  Every
+// role advances through the same sequence of stages: the chunks that some
+// consumer needs, each cut into stages of kK bytes of depth below the live
+// depth.
+struct Ring {
+  int stage;
+  uint32_t phase;
+};
+
+template <int kK>
+__device__ __forceinline__ void advance(Ring& r) {
+  if (++r.stage == Geo<kK>::kStages) {
+    r.stage = 0;
+    r.phase ^= 1;
   }
 }
 
-__global__ void __launch_bounds__(kBlockThreads, 1)
-    chunked_counts_kernel(const __grid_constant__ CUtensorMap tm_ae,
-                          const __grid_constant__ CUtensorMap tm_be,
-                          const __grid_constant__ CUtensorMap tm_bi,
-                          const __grid_constant__ CUtensorMap tm_ai, const Params p) {
-  extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[kStages];
-  __shared__ __align__(8) uint64_t empty[kStages];
-  __shared__ int32_t red[2][3][4];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-
-  // grouped raster: kGroup src row tiles at a time, dst tiles within
-  const int q = blockIdx.z;
-  const int per_group = kGroup * p.n_x;
-  const int group = blockIdx.x / per_group;
-  const int first_y = group * kGroup;
-  const int rows_here = min(p.n_y - first_y, kGroup);
-  const int in_group = blockIdx.x - group * per_group;
-  const int row0 = (first_y + in_group % rows_here) * kM;
-  const int col0 = (in_group / rows_here) * kN;
-
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers);
+// The producer's loads of one direction of an item: egress stages the
+// warpgroups' a_e rows (those that contract) and the item's b_e rows,
+// ingress its b_i and a_i rows.
+template <bool kSkip, bool kIngress, int kK>
+__device__ __forceinline__ void produce(const Params& p, const Item& x, uint8_t* smem,
+                                        uint64_t* full, uint64_t* empty, Ring& r,
+                                        const CUtensorMap* tm_src, const CUtensorMap* tm_dst) {
+  const int live = kIngress ? p.live_i : p.live_e;
+  const int kt = kIngress ? p.kt_i : p.kt_e;
+  for (int c0 = 0, c = 0; c0 < live; c0 += kt, ++c) {
+    const uint32_t mine = chunk_mine<kSkip, kIngress>(p, x, c);
+    if (mine == 0) continue;
+    const int c1 = min(c0 + kt, live);
+    for (int k0 = c0; k0 < c1; k0 += kK) {
+      mbar_wait(&empty[r.stage], r.phase ^ 1);
+      using G = Geo<kK>;
+      uint8_t* a = smem + r.stage * G::kStageBytes;
+      uint64_t* bar = &full[r.stage];
+      if (kIngress) {
+        mbar_expect_tx(bar, G::kABytes + G::kBBytes);
+        tma_4d(a, tm_src, k0, x.row0, x.j, x.q, bar);
+        tma_2d(a + G::kABytes, tm_dst, k0, x.col0, bar);
+      } else {
+        mbar_expect_tx(bar, __popc(mine) * G::kBox + G::kBBytes);
+        if (mine & 1) tma_2d(a, tm_src, k0, x.row0, bar);
+        if (mine & 2) tma_2d(a + G::kBox, tm_src, k0, x.row0 + 64, bar);
+        tma_4d(a + G::kABytes, tm_dst, k0, x.col0, x.i, x.q, bar);
+      }
+      advance<kK>(r);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+}
 
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {
-    // producer: one thread issues every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 256) {
-      int stage = 0;
-      uint32_t phase = 0;
-      auto next = [&]() {
-        if (++stage == kStages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      };
-      walk<false>(p, row0, col0, [&](int k0, uint32_t mine) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        uint8_t* a = smem + stage * kStageBytes;
-        mbar_expect_tx(&full[stage], __popc(mine) * kBox + kBBytes);
-        if (mine & 1) tma_2d(a, &tm_ae, k0, row0, &full[stage]);
-        if (mine & 2) tma_2d(a + kBox, &tm_ae, k0, row0 + 64, &full[stage]);
-        tma_3d(a + kABytes, &tm_be, k0, col0, q, &full[stage]);
-        next();
-      });
-      walk<true>(p, row0, col0, [&](int k0, uint32_t) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        uint8_t* a = smem + stage * kStageBytes;
-        mbar_expect_tx(&full[stage], kABytes + kBBytes);
-        tma_3d(a, &tm_bi, k0, row0, q, &full[stage]);
-        tma_2d(a + kABytes, &tm_ai, k0, col0, &full[stage]);
-        next();
-      });
-    }
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    int stage = 0;
-    uint32_t phase = 0;
-    int32_t acc[kAcc];
-    uint32_t eg_bits[kAcc / 32];
-    const int off_a = wg * kBox;  // this warpgroup's 64 src rows in the stage
-
-    // one stage: wait for its data, run this warpgroup's products on it,
-    // release it.  The four wgmmas sit under no branch of their own: ptxas
-    // serializes every wgmma of a kernel once one depends on a
-    // data-dependent branch (C7520)
-    auto consume = [&](bool mine) {
-      mbar_wait(&full[stage], phase);
-      if (mine) {
-        const uint8_t* a = smem + stage * kStageBytes + off_a;
-        const uint8_t* b = smem + stage * kStageBytes + kABytes;
+// A consumer warpgroup's products of one direction of an item into acc:
+// per stage, wait for its data, run this warpgroup's wgmmas on it (one
+// per 32 bytes of depth) if it contracts the chunk, release it.  The wgmmas sit under no branch in
+// the instance without the skip: ptxas serializes every wgmma of a kernel
+// once one depends on a data-dependent branch (C7520).
+template <bool kSkip, bool kIngress, int kK>
+__device__ __forceinline__ void contract(const Params& p, const Item& x, const uint8_t* smem,
+                                         uint64_t* full, uint64_t* empty, Ring& r, int wg,
+                                         int32_t (&acc)[kAcc]) {
+  const int live = kIngress ? p.live_i : p.live_e;
+  const int kt = kIngress ? p.kt_i : p.kt_e;
+  using G = Geo<kK>;
+  const int off_a = wg * G::kBox;  // this warpgroup's 64 src rows in the stage
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+  for (int c0 = 0, c = 0; c0 < live; c0 += kt, ++c) {
+    const uint32_t mine = chunk_mine<kSkip, kIngress>(p, x, c);
+    if (mine == 0) continue;
+    const bool own = kSkip ? ((mine >> wg) & 1u) != 0 : true;
+    const int c1 = min(c0 + kt, live);
+    for (int k0 = c0; k0 < c1; k0 += kK) {
+      mbar_wait(&full[r.stage], r.phase);
+      if (own) {
+        const uint8_t* a = smem + r.stage * G::kStageBytes + off_a;
+        const uint8_t* b = smem + r.stage * G::kStageBytes + G::kABytes;
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
         for (int s = 0; s < kK / 32; ++s) {
-          wgmma_n256(acc, sw128_desc(a + 32 * s), sw128_desc(b + 32 * s));
+          wgmma_n256(acc, sw_desc<kK>(a + 32 * s), sw_desc<kK>(b + 32 * s));
         }
         wgmma_commit();
         wgmma_wait_all();
         fence_acc(acc);
       }
-      mbar_arrive(&empty[stage]);
-      if (++stage == kStages) {
-        stage = 0;
-        phase ^= 1;
-      }
-    };
+      mbar_arrive(&empty[r.stage]);
+      advance<kK>(r);
+    }
+  }
+}
 
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[i] = 0;
-    walk<false>(p, row0, col0, [&](int, uint32_t mine) { consume(mine >> wg & 1); });
-#pragma unroll
-    for (int j = 0; j < kAcc / 32; ++j) {
-      uint32_t m = 0;
-#pragma unroll
-      for (int b = 0; b < 32; ++b) m |= (uint32_t)(acc[32 * j + b] > 0) << b;
-      eg_bits[j] = m;
-    }
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[i] = 0;
-    walk<true>(p, row0, col0, [&](int, uint32_t mine) { consume(mine >> wg & 1); });
+// Shared memory beside the ring: per consumer thread (index ct = 0..255)
+// its counts of the segment it holds and the egress verdict bits of the
+// current item, kept out of the registers that the accumulators fill.
+struct Held {
+  int32_t counts[3][kConsumers];  // ingress, egress, combined
+  uint32_t eg_bits[kAcc / 32][kConsumers];
+  int32_t red[2][3][4];           // per warpgroup and verdict, per warp
+};
 
-    // accumulator register i of thread t holds the cell (row 16 (t / 32) +
-    // (t % 32) / 4 + 8 ((i / 2) % 2), col 8 (i / 4) + 2 (t % 4) + i % 2) of
-    // the warpgroup's 64 x 256 tile in both directions, so the verdicts
-    // combine bit by bit; cells past the pod axes hold zero sums
-    int c_in = 0, c_eg = 0, c_co = 0;
+// The warpgroup's counts of segment `seg` into `counts`: warp shuffles,
+// one partial per warp, one atomicAdd per verdict; then zeroed.  Every
+// thread of the warpgroup calls it; `last` when the block has no more
+// items (nothing reuses the partials then).
+__device__ __forceinline__ void flush(const Params& p, int seg, int wg, int ct, Held& h,
+                                      bool last) {
+  const int t = ct & 127, lane = t & 31, warp = t >> 5;
 #pragma unroll
-    for (int j = 0; j < kAcc / 32; ++j) {
-      uint32_t in = 0;
+  for (int v = 0; v < 3; ++v) {
+    int32_t c = h.counts[v][ct];
+    h.counts[v][ct] = 0;
 #pragma unroll
-      for (int b = 0; b < 32; ++b) in |= (uint32_t)(acc[32 * j + b] > 0) << b;
-      c_in += __popc(in);
-      c_eg += __popc(eg_bits[j]);
-      c_co += __popc(in & eg_bits[j]);
-    }
+    for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
+    if (lane == 0) h.red[wg][v][warp] = c;
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
+  if (t < 3) {
+    const int32_t total = h.red[wg][t][0] + h.red[wg][t][1] + h.red[wg][t][2] + h.red[wg][t][3];
+    if (total != 0) atomicAdd(&p.counts[seg * 3 + t], total);
+  }
+  if (!last) asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // red is read
+}
+
+// The segment (partial count) of warpgroup wg's rows of item x: rows past
+// the tile, which the epilogue masks, count toward the tile's last one.
+__device__ __forceinline__ int segment(const Params& p, const Item& x, int wg) {
+  const int last = (x.i + 1) * p.tile_rows - 1;
+  return x.q * p.n_seg + min(x.row0 + 64 * wg, last) / p.by_seg_rows;
+}
+
+// The `acc > 0` verdicts of a warpgroup's 64 x 256 tile as 128 bits a
+// thread: bit b of word j is accumulator register 32 j + b.
+__device__ __forceinline__ void verdict_bits(const int32_t (&acc)[kAcc],
+                                             uint32_t (&bits)[kAcc / 32]) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      c_in += __shfl_down_sync(0xffffffffu, c_in, off);
-      c_eg += __shfl_down_sync(0xffffffffu, c_eg, off);
-      c_co += __shfl_down_sync(0xffffffffu, c_co, off);
+  for (int j = 0; j < kAcc / 32; ++j) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) m |= (uint32_t)(acc[32 * j + b] > 0) << b;
+    bits[j] = m;
+  }
+}
+
+// This thread's counts of item x: ingress from acc, egress from eg_bits,
+// combined from both.  Accumulator register 32 j + b of the thread holds
+// the cell (row 16 warp + lane / 4 + 8 ((b / 2) % 2), col 64 j + 8 (b / 4)
+// + 2 (lane % 4) + b % 2) of the warpgroup's 64 x 256 tile in both
+// directions, so the verdicts combine bit by bit.  Cells past the item's
+// tiles are masked; those past the pod axes hold zero sums.
+__device__ __forceinline__ void count_cells(const Params& p, const Item& x, int wg, int ct,
+                                            const int32_t (&acc)[kAcc],
+                                            const uint32_t (&eg_bits)[kAcc / 32], int& c_in,
+                                            int& c_eg, int& c_co) {
+  const int lane = ct & 31, warp = (ct >> 5) & 3;
+  const int rows_ok = (x.i + 1) * p.tile_rows - (x.row0 + 64 * wg);
+  const int cols_ok = (x.j + 1) * p.tile_cols - x.col0;
+  const int r0 = 16 * warp + (lane >> 2);
+  const uint32_t row_mask =
+      (r0 < rows_ok ? 0x33333333u : 0u) | (r0 + 8 < rows_ok ? 0xCCCCCCCCu : 0u);
+  c_in = c_eg = c_co = 0;
+#pragma unroll
+  for (int j = 0; j < kAcc / 32; ++j) {
+    uint32_t in = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) in |= (uint32_t)(acc[32 * j + b] > 0) << b;
+    uint32_t live = row_mask;
+    if (cols_ok < kN) {
+      uint32_t col_mask = 0;
+#pragma unroll
+      for (int b = 0; b < 32; ++b) {
+        const int col = 64 * j + 8 * (b >> 2) + 2 * (lane & 3) + (b & 1);
+        col_mask |= (uint32_t)(col < cols_ok) << b;
+      }
+      live &= col_mask;
     }
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    if (lane == 0) {
-      red[wg][0][warp] = c_in;
-      red[wg][1][warp] = c_eg;
-      red[wg][2][warp] = c_co;
+    in &= live;
+    const uint32_t eg = eg_bits[j] & live;
+    c_in += __popc(in);
+    c_eg += __popc(eg);
+    c_co += __popc(in & eg);
+  }
+}
+
+// The item index, opaque to the compiler: each use decodes the item anew
+// (a few multiply-highs) instead of holding its fields in registers across
+// the products, where the accumulators leave none to spare (ptxas spills
+// them otherwise).
+__device__ __forceinline__ int opaque(int it) {
+  asm volatile("" : "+r"(it));
+  return it;
+}
+
+template <bool kSkip, int kK>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    dense_counts_kernel(const __grid_constant__ CUtensorMap tm_ae,
+                        const __grid_constant__ CUtensorMap tm_be,
+                        const __grid_constant__ CUtensorMap tm_bi,
+                        const __grid_constant__ CUtensorMap tm_ai, const Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+  __shared__ Held held;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < Geo<kK>::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // this warpgroup only
-    const int r = row0 + 64 * wg;
-    if ((threadIdx.x & 127) < 3 && r < p.ns_pad) {
-      const int v = threadIdx.x & 127;
-      const int32_t total = red[wg][v][0] + red[wg][v][1] + red[wg][v][2] + red[wg][v][3];
-      if (total != 0) {
-        atomicAdd(&p.counts[((size_t)q * (p.ns_pad / p.bs) + r / p.bs) * 3 + v], total);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!kSkip && threadIdx.x < kConsumers) {
+#pragma unroll
+    for (int v = 0; v < 3; ++v) held.counts[v][threadIdx.x] = 0;
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  Ring ring{0, 0};
+  if (wg == 2) {
+    // producer: one thread issues every load, for every item of the block
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      for (int it = blockIdx.x; it < p.items; it += gridDim.x) {
+        const Item x = item_at(p, it);
+        produce<kSkip, false, kK>(p, x, smem, full, empty, ring, &tm_ae, &tm_be);
+        produce<kSkip, true, kK>(p, x, smem, full, empty, ring, &tm_bi, &tm_ai);
       }
     }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  int32_t acc[kAcc];
+  uint32_t eg_bits[kAcc / 32];
+  const int ct = threadIdx.x;
+  int c_in, c_eg, c_co;
+  if (kSkip) {
+    // K5: the block's one item in one pass, its fields held in registers
+    const Item x = item_at(p, blockIdx.x);
+    const int seg = segment(p, x, wg);
+    contract<kSkip, false, kK>(p, x, smem, full, empty, ring, wg, acc);
+    verdict_bits(acc, eg_bits);
+    contract<kSkip, true, kK>(p, x, smem, full, empty, ring, wg, acc);
+    count_cells(p, x, wg, ct, acc, eg_bits, c_in, c_eg, c_co);
+    held.counts[0][ct] = c_in;
+    held.counts[1][ct] = c_eg;
+    held.counts[2][ct] = c_co;
+    flush(p, seg, wg, ct, held, true);
+    return;
+  }
+  for (int it = blockIdx.x; it < p.items; it += gridDim.x) {
+    contract<kSkip, false, kK>(p, item_at(p, opaque(it)), smem, full, empty, ring, wg, acc);
+    verdict_bits(acc, eg_bits);
+#pragma unroll
+    for (int j = 0; j < kAcc / 32; ++j) held.eg_bits[j][ct] = eg_bits[j];
+    contract<kSkip, true, kK>(p, item_at(p, opaque(it)), smem, full, empty, ring, wg, acc);
+#pragma unroll
+    for (int j = 0; j < kAcc / 32; ++j) eg_bits[j] = held.eg_bits[j][ct];
+    const Item x = item_at(p, opaque(it));
+    count_cells(p, x, wg, ct, acc, eg_bits, c_in, c_eg, c_co);
+    held.counts[0][ct] += c_in;
+    held.counts[1][ct] += c_eg;
+    held.counts[2][ct] += c_co;
+
+    // flush when the block's next item falls in another segment for this
+    // warpgroup, or there is none.  (Here, at the end of the body: with a
+    // flush before the products ptxas spills the accumulators, C7512.)
+    const int seg = segment(p, x, wg);
+    const int next = opaque(it) + gridDim.x;
+    const bool last = next >= p.items;
+    if (last || segment(p, item_at(p, next), wg) != seg) flush(p, seg, wg, ct, held, last);
   }
 }
 
@@ -615,134 +645,181 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// An int8 tensor map of `rank` (2 or 3) dims, innermost first, with the
-// 128-byte swizzle; reads past `dims` fill with zeros.
+// An int8 tensor map of `rank` (2 or 4) dims, innermost first, in the
+// kK-byte swizzle; reads past `dims` fill with zeros.
+template <int kK>
 bool make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
               const uint64_t* strides, const uint32_t* box) {
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
-  cuuint64_t gdim[3], gstride[2];
-  cuuint32_t gbox[3], estride[3] = {1, 1, 1};
+  cuuint64_t gdim[4], gstride[3];
+  cuuint32_t gbox[4], estride[4] = {1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     gbox[i] = box[i];
   }
   for (int i = 0; i + 1 < rank; ++i) gstride[i] = strides[i];
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), gdim, gstride,
-                gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                gbox, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                kK == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-}  // namespace k5
-
 // returned when a tensor map cannot be encoded (no cudaError_t has it)
 constexpr int kErrTensorMap = -1;
 
-}  // namespace
-
-// Launch K4 (slab == 0) or K6 (slab != 0) on `stream`.  Depths de, di are
-// in bytes, multiples of 32.  K4: bs and bd multiples of 64.  Operands
-// 16-byte aligned.  `counts` must be zero-filled by the caller.  Returns 0
-// or a cudaError_t code.
-extern "C" int cyclonus_dense_counts(const void* a_e, const void* b_e, const void* b_i,
-                                     const void* a_i, void* counts, int q, int ns_pad, int nd_pad,
-                                     int de, int di, int bs, int bd, int slab, void* stream) {
-  if (q < 1 || q > 65535 || ns_pad < 1 || nd_pad < 1 || bs < 1 || bd < 1 || ns_pad % bs != 0 ||
-      nd_pad % bd != 0 || de < 32 || di < 32 || de % 32 != 0 || di % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (!slab && (bs % kTile != 0 || bd % kTile != 0)) return (int)cudaErrorInvalidValue;
-  auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
-  const Args a{i8(a_e), i8(b_e), i8(b_i), i8(a_i), static_cast<int32_t*>(counts),
-               q, ns_pad, nd_pad, de, di, bs, bd};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return slab ? launch<true>(a, s) : launch<false>(a, s);
-}
-
-// Launch K5 on `stream`.  a_e [ns_pad, de], b_e [q, nd_pad, de], b_i [q,
-// ns_pad, di], a_i [nd_pad, di] int8, 16-byte aligned; nz_e [ns_pad / 64,
-// de / kt_e] and nz_i [nd_pad / 64, di / kt_i] int32 flags.  de, di are
-// the row pitches (multiples of the chunks kt_e, kt_i, themselves
-// multiples of 128); live_e <= de and live_i <= di the depths that can
-// hold data, multiples of 32: nothing past them is read.  ns_pad a
-// multiple of bs, bs and nd_pad multiples of 64.  `counts` [q, ns_pad /
-// bs, 3] must be zero-filled by the caller.  Returns 0, a cudaError_t code
-// or -1 (a tensor map could not be encoded).
-extern "C" int cyclonus_dense_counts_chunked(const void* a_e, const void* b_e, const void* b_i,
-                                             const void* a_i, const void* nz_e,
-                                             const void* nz_i, void* counts, int q, int ns_pad,
-                                             int nd_pad, int de, int di, int live_e, int live_i,
-                                             int kt_e, int kt_i, int bs, void* stream) {
-  using namespace k5;
-  if (q < 1 || q > 65535 || ns_pad < 64 || nd_pad < 64 || bs < 64 || bs % 64 != 0 ||
-      ns_pad % bs != 0 || nd_pad % 64 != 0 || kt_e < 128 || kt_i < 128 || kt_e % 128 != 0 ||
-      kt_i % 128 != 0 || de % kt_e != 0 || di % kt_i != 0 || live_e < 32 || live_i < 32 ||
-      live_e % 32 != 0 || live_i % 32 != 0 || live_e > de || live_i > di ||
-      nz_e == nullptr || nz_i == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const void* operands[4] = {a_e, b_e, b_i, a_i};
-  for (const void* ptr : operands) {
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorInvalidValue;
-  }
-  CUtensorMap tm_ae, tm_be, tm_bi, tm_ai;
-  const uint64_t ae_dims[2] = {(uint64_t)live_e, (uint64_t)ns_pad};
+// Encode the four tensor maps (each direction's ends at its live depth)
+// and launch.  K5 takes one block per item: its items' work varies with
+// the skip, and persistent blocks striding through them drift apart in the
+// item order until the tiles they share no longer fit in L2 (measured on
+// the H100: PERF.md).  K4 and K6, whose items are alike, run persistent.
+template <bool kSkip, int kK>
+int launch(const void* a_e, const void* b_e, const void* b_i, const void* a_i, int q,
+           int de, int di, const Params& p, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const uint64_t ae_dims[2] = {(uint64_t)p.live_e, (uint64_t)p.ns_pad};
   const uint64_t ae_strides[1] = {(uint64_t)de};
-  const uint32_t box_64[3] = {kK, 64, 1};
-  const uint64_t be_dims[3] = {(uint64_t)live_e, (uint64_t)nd_pad, (uint64_t)q};
-  const uint64_t be_strides[2] = {(uint64_t)de, (uint64_t)nd_pad * de};
-  const uint32_t box_n[3] = {kK, kN, 1};
-  const uint64_t bi_dims[3] = {(uint64_t)live_i, (uint64_t)ns_pad, (uint64_t)q};
-  const uint64_t bi_strides[2] = {(uint64_t)di, (uint64_t)ns_pad * di};
-  const uint32_t box_m[3] = {kK, kM, 1};
-  const uint64_t ai_dims[2] = {(uint64_t)live_i, (uint64_t)nd_pad};
+  const uint32_t box_64[2] = {kK, 64};
+  const uint64_t be_dims[4] = {(uint64_t)p.live_e, (uint64_t)p.nd_pad, (uint64_t)p.n_i,
+                               (uint64_t)q};
+  const uint64_t be_strides[3] = {(uint64_t)de, (uint64_t)p.nd_pad * de,
+                                  (uint64_t)p.n_i * p.nd_pad * de};
+  const uint32_t box_n[4] = {kK, kN, 1, 1};
+  const uint64_t bi_dims[4] = {(uint64_t)p.live_i, (uint64_t)p.ns_pad, (uint64_t)p.n_j,
+                               (uint64_t)q};
+  const uint64_t bi_strides[3] = {(uint64_t)di, (uint64_t)p.ns_pad * di,
+                                  (uint64_t)p.n_j * p.ns_pad * di};
+  const uint32_t box_m[4] = {kK, kM, 1, 1};
+  const uint64_t ai_dims[2] = {(uint64_t)p.live_i, (uint64_t)p.nd_pad};
   const uint64_t ai_strides[1] = {(uint64_t)di};
-  if (!make_map(&tm_ae, a_e, 2, ae_dims, ae_strides, box_64) ||
-      !make_map(&tm_be, b_e, 3, be_dims, be_strides, box_n) ||
-      !make_map(&tm_bi, b_i, 3, bi_dims, bi_strides, box_m) ||
-      !make_map(&tm_ai, a_i, 2, ai_dims, ai_strides, box_n)) {
+  if (!make_map<kK>(&maps[0], a_e, 2, ae_dims, ae_strides, box_64) ||
+      !make_map<kK>(&maps[1], b_e, 4, be_dims, be_strides, box_n) ||
+      !make_map<kK>(&maps[2], b_i, 4, bi_dims, bi_strides, box_m) ||
+      !make_map<kK>(&maps[3], a_i, 2, ai_dims, ai_strides, box_n)) {
     return kErrTensorMap;
   }
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chunked_counts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        dense_counts_kernel<kSkip, kK>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  const int n_x = (nd_pad + kN - 1) / kN, n_y = (ns_pad + kM - 1) / kM;
-  const Params p{static_cast<const int32_t*>(nz_e), static_cast<const int32_t*>(nz_i),
-                 static_cast<int32_t*>(counts), ns_pad, nd_pad, live_e, live_i, kt_e, kt_i,
-                 de / kt_e, di / kt_i, bs, n_x, n_y};
-  const dim3 grid((unsigned)n_x * (unsigned)n_y, 1, q);
-  chunked_counts_kernel<<<grid, kBlockThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      tm_ae, tm_be, tm_bi, tm_ai, p);
+  int grid = p.items;
+  if (!kSkip) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return (int)err;
+    grid = p.items < sms ? p.items : sms;
+  }
+  dense_counts_kernel<kSkip, kK><<<grid, kBlockThreads, kSmem, stream>>>(maps[0], maps[1],
+                                                                        maps[2], maps[3], p);
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// Launch `kind` on `stream`: 0 = K4, 1 = K5, 2 = K6.  The src axis is n_i
+// tiles of tile_rows rows (ns_pad), the dst axis n_j tiles of tile_cols
+// (nd_pad); K4 and K5 pass one tile per axis.  a_e [ns_pad, de] and a_i
+// [nd_pad, di] int8 (K6: its [n_i, bs, w_aug] and [n_j, bd, w_aug]
+// operands, flattened); b_e [q, n_i, nd_pad, de] and b_i [q, n_j, ns_pad,
+// di] int8 (K4/K5: n_i = n_j = 1); all 16-byte aligned.  de, di are the
+// row pitches (multiples of 16); live_e <= de and live_i <= di the depths
+// that can hold data, multiples of 32: nothing past them is read.
+// Partials go to counts [q, ns_pad / seg_rows, 3], which the caller
+// zero-fills; seg_rows is the tile (K6) or a multiple of 64 that divides
+// it (K4/K5: bs).  K5 only: nz_e [ns_pad / 64, de / kt_e] and nz_i [nd_pad
+// / 64, di / kt_i] int32 flags, one tile per axis, both a multiple of 64,
+// chunks kt_e, kt_i multiples of 128 that divide the pitches; K4 and K6
+// pass null flags.  Returns 0, a cudaError_t code or -1 (a tensor map
+// could not be encoded).
+extern "C" int cyclonus_dense_counts(const void* a_e, const void* b_e, const void* b_i,
+                                     const void* a_i, const void* nz_e, const void* nz_i,
+                                     void* counts, int kind, int q, int n_i, int n_j,
+                                     int tile_rows, int tile_cols, int seg_rows, int de, int di,
+                                     int live_e, int live_i, int kt_e, int kt_i, void* stream) {
+  const bool skip = kind == 1;
+  const long long ns_pad = (long long)n_i * tile_rows, nd_pad = (long long)n_j * tile_cols;
+  if (kind < 0 || kind > 2 || skip != (nz_e != nullptr) || skip != (nz_i != nullptr) ||
+      q < 1 || q > 65535 || n_i < 1 || n_j < 1 || tile_rows < 1 || tile_cols < 1 ||
+      seg_rows < 1 || ns_pad >= (1ll << 30) || nd_pad >= (1ll << 30) ||
+      !(seg_rows == tile_rows || (seg_rows % 64 == 0 && tile_rows % seg_rows == 0)) ||
+      de % 16 != 0 || di % 16 != 0 || live_e < 32 || live_i < 32 || live_e % 32 != 0 ||
+      live_i % 32 != 0 || live_e > de || live_i > di) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (skip && (n_i != 1 || n_j != 1 || tile_rows % 64 != 0 || tile_cols % 64 != 0 ||
+               kt_e < 128 || kt_i < 128 || kt_e % 128 != 0 || kt_i % 128 != 0 ||
+               de % kt_e != 0 || di % kt_i != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* operands[4] = {a_e, b_e, b_i, a_i};
+  for (const void* ptr : operands) {
+    if (ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  Params p{};
+  p.nz_e = static_cast<const int32_t*>(nz_e);
+  p.nz_i = static_cast<const int32_t*>(nz_i);
+  p.counts = static_cast<int32_t*>(counts);
+  p.n_i = n_i;
+  p.n_j = n_j;
+  p.tile_rows = tile_rows;
+  p.tile_cols = tile_cols;
+  p.n_seg = (int)(ns_pad / seg_rows);
+  p.ns_pad = (int)ns_pad;
+  p.nd_pad = (int)nd_pad;
+  p.live_e = live_e;
+  p.live_i = live_i;
+  p.kt_e = skip ? kt_e : live_e;  // without the skip, one chunk of the live depth
+  p.kt_i = skip ? kt_i : live_i;
+  p.nk_e = skip ? de / kt_e : 0;
+  p.nk_i = skip ? di / kt_i : 0;
+  p.nr = (tile_rows + kM - 1) / kM;
+  p.nc = (tile_cols + kN - 1) / kN;
+  const long long per_q = (long long)n_i * n_j * p.nr * p.nc;
+  if (per_q * q >= (1ll << 30)) return (int)cudaErrorInvalidValue;
+  p.per_pair = p.nr * p.nc;
+  p.per_q = (int)per_q;
+  p.items = (int)(per_q * q);
+  p.by_per_q = fast_div(p.per_q);
+  p.by_per_pair = fast_div(p.per_pair);
+  p.by_n_j = fast_div(n_j);
+  p.by_group = fast_div(kGroup * p.nc);
+  p.by_seg_rows = fast_div(seg_rows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind == 0) return launch<false, 128>(a_e, b_e, b_i, a_i, q, de, di, p, s);
+  if (kind == 1) return launch<true, 128>(a_e, b_e, b_i, a_i, q, de, di, p, s);
+  return launch<false, 64>(a_e, b_e, b_i, a_i, q, de, di, p, s);
+}
+
 // Registers, static and dynamic shared memory and local (spill) bytes per
-// thread of each kernel instance: 0 = K4, 1 = K5, 2 = K6.  Returns 0 or a
-// cudaError_t code.
-extern "C" int cyclonus_dense_kernel_attrs(int which, int* regs, int* smem_static,
+// thread of the instance `kind` launches (as cyclonus_dense_counts):
+// dense_counts_kernel<false, 128> (K4), <true, 128> (K5), <false, 64>
+// (K6).  Returns 0 or a cudaError_t code.
+extern "C" int cyclonus_dense_kernel_attrs(int kind, int* regs, int* smem_static,
                                            int* smem_dynamic, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
-  int dynamic = 0;
-  if (which == 0) {
-    err = cudaFuncGetAttributes(&attr, dense_counts_kernel<false>);
-  } else if (which == 1) {
-    err = cudaFuncGetAttributes(&attr, k5::chunked_counts_kernel);
-    dynamic = k5::kSmem;
-  } else if (which == 2) {
-    err = cudaFuncGetAttributes(&attr, dense_counts_kernel<true>);
+  if (kind == 0) {
+    err = cudaFuncGetAttributes(&attr, dense_counts_kernel<false, 128>);
+  } else if (kind == 1) {
+    err = cudaFuncGetAttributes(&attr, dense_counts_kernel<true, 128>);
+  } else if (kind == 2) {
+    err = cudaFuncGetAttributes(&attr, dense_counts_kernel<false, 64>);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *smem_static = (int)attr.sharedSizeBytes;
-  *smem_dynamic = dynamic;
+  *smem_dynamic = kSmem;
   *local_bytes = (int)attr.localSizeBytes;
   return 0;
 }

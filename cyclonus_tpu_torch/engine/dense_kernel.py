@@ -18,16 +18,16 @@ counts nothing.  The pseudo row sits right after the last target row
 whose (validity-masked) match row holds a nonzero; the rows after it
 (the inert targets that bucket the axis, or targets that match no valid
 pod) add nothing to either contraction.  Each direction's LIVE DEPTH —
-the rows up to the pseudo row, rounded up to 32 — is all K5 loads.  The
-output is [Q, n_src_tiles, 3] int32 partial counts (ingress, egress,
-combined), summed on the host in int64 (sum_partials).
+the rows up to the pseudo row, rounded up to 32 — is all K4 and K5
+load.  The output is [Q, n_src_tiles, 3] int32 partial counts (ingress,
+egress, combined), summed on the host in int64 (sum_partials).
 
 Routes, decided as the reference decides them:
 
   * verdict_counts_rect / verdict_counts — K4 when both directions'
     augmented target axes fit one chunk of at most KT rows (_kt_for), else
     K5, which skips a (64-pod block, target chunk) pair whose match
-    operand is all zero (nz maps, _nz_maps) and stops at the live depth;
+    operand is all zero (nz maps, _nz_maps); both stop at the live depth;
   * verdict_counts_slab_from_ops — K6 over operands gathered per pod tile
     (slab_operands): each tile pair contracts over its w-row target
     windows plus the pseudo/validity row, padded to slab_w_aug rows.  The
@@ -64,8 +64,8 @@ import torch
 KT = 1024
 #: src rows per int32 partial count (a multiple of CUDA_TILE on the card)
 BS = 1024
-#: the CUDA kernels' pod block: K4's block tile (src rows and dst
-#: columns), the granularity of K5's nz maps; the dst axis pads to it
+#: the CUDA kernel's pod block: a consumer warpgroup's src rows, the
+#: granularity of K5's nz maps; the dst axis pads to it
 CUDA_TILE = 64
 #: the depth granularity of the int8 tensor-core instructions (bytes)
 DEPTH_STEP = 32
@@ -119,7 +119,7 @@ def _check_int32_partials(bs: int, nd_pad: int) -> None:
 
 
 def live_depth(n_rows: int) -> int:
-    """K5's live depth of a direction: its first n_rows target rows plus
+    """The live depth of a direction: its first n_rows target rows plus
     the pseudo row, rounded up to DEPTH_STEP bytes."""
     return -(-(int(n_rows) + 1) // DEPTH_STEP) * DEPTH_STEP
 
@@ -223,7 +223,7 @@ def _counts_plain(ops: Dict) -> torch.Tensor:
     """The plain version of K4 and K5: per port case and src segment of
     `bs` rows, one matmul per direction over the whole depth.  It skips
     no block and contracts past the live depth, so it checks K5's skip and
-    its live depth rather than repeating them."""
+    K4/K5's live depth rather than repeating them."""
     a_e, b_e, b_i, a_i, bs = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"], ops["bs"]
     dt = _dot_dtype(a_e.device)
     q = b_e.shape[0]
@@ -252,10 +252,8 @@ def _library():
 
         lib = load("dense_counts")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.cyclonus_dense_counts.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.cyclonus_dense_counts.argtypes = [p] * 7 + [i] * 13 + [p]
         lib.cyclonus_dense_counts.restype = i
-        lib.cyclonus_dense_counts_chunked.argtypes = [p] * 7 + [i] * 10 + [p]
-        lib.cyclonus_dense_counts_chunked.restype = i
         lib.cyclonus_dense_kernel_attrs.argtypes = [i] + [ctypes.POINTER(i)] * 4
         lib.cyclonus_dense_kernel_attrs.restype = i
         lib.cyclonus_dense_error_string.argtypes = [i]
@@ -270,19 +268,29 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: {msg} ({err})")
 
 
-def kernel_attrs() -> Dict[str, Dict[str, int]]:
-    """Per kernel (LAUNCHES keys): registers per thread, static and
-    dynamic shared memory and local (spill) bytes per thread, as the
-    loaded library reports them."""
+#: the kernel instance each wrapper launches, dense_counts_kernel<skip,
+#: stage depth> in csrc/dense_counts.cu, in the order of the C entry's
+#: `kind` argument
+INSTANCES = {
+    "dense_counts_1chunk": "dense_counts_kernel<false, 128>",
+    "dense_counts_chunked": "dense_counts_kernel<true, 128>",
+    "dense_counts_slab": "dense_counts_kernel<false, 64>",
+}
+_KIND = {name: k for k, name in enumerate(INSTANCES)}
+
+
+def kernel_attrs() -> Dict[str, Dict]:
+    """Per kernel (LAUNCHES keys): the instance it launches, registers per
+    thread, static and dynamic shared memory and local (spill) bytes per
+    thread, as the loaded library reports them."""
     lib = _library()
     out = {}
-    for which, name in enumerate(("dense_counts_1chunk", "dense_counts_chunked",
-                                  "dense_counts_slab")):
+    for name, instance in INSTANCES.items():
         vals = [ctypes.c_int() for _ in range(4)]
-        _check(lib.cyclonus_dense_kernel_attrs(which, *[ctypes.byref(v) for v in vals]),
+        _check(lib.cyclonus_dense_kernel_attrs(_KIND[name], *[ctypes.byref(v) for v in vals]),
                f"{name} attributes")
-        out[name] = dict(zip(("regs", "smem_static", "smem_dynamic", "local_bytes"),
-                             (v.value for v in vals)))
+        out[name] = {"instance": instance, **dict(zip(
+            ("regs", "smem_static", "smem_dynamic", "local_bytes"), (v.value for v in vals)))}
     return out
 
 
@@ -293,16 +301,30 @@ def _check_operands(dev, named) -> None:
             raise ValueError(f"{name}: want a contiguous, 16-byte aligned {want} tensor on {dev}")
 
 
-def _launch(kind: str, a_e, b_e, b_i, a_i, q, ns_pad, nd_pad, bs, bd):
-    """K4 (dense_counts_1chunk) or K6 (dense_counts_slab)."""
+def _launch(kind: str, ops: Dict, *, n_i: int, n_j: int, tile_rows: int, tile_cols: int,
+            seg_rows: int, live_e: int, live_i: int, nz=None) -> torch.Tensor:
+    """One launch of csrc/dense_counts.cu over n_i x n_j (src, dst) tiles:
+    K4 (one tile per axis), K5 (the same with its nz maps) or K6 (the slab
+    tiles).  Returns the [Q, n_i * tile_rows / seg_rows, 3] partials."""
+    a_e, b_e, b_i, a_i = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"]
     dev = a_e.device
-    _check_operands(dev, (("a_e", a_e), ("b_e", b_e), ("b_i", b_i), ("a_i", a_i)))
+    named = [("a_e", a_e), ("b_e", b_e), ("b_i", b_i), ("a_i", a_i)]
+    if nz is not None:
+        named += [("nz_e", nz[0]), ("nz_i", nz[1])]
+    _check_operands(dev, named)
+    q = b_e.shape[0]
     de, di = a_e.shape[-1], a_i.shape[-1]
-    out = torch.zeros((q, ns_pad // bs, 3), dtype=torch.int32, device=dev)
+    for name, live, depth in (("live_e", live_e, de), ("live_i", live_i, di)):
+        if live % DEPTH_STEP or not DEPTH_STEP <= live <= depth:
+            raise ValueError(f"{name}={live}: want a multiple of {DEPTH_STEP} in "
+                             f"[{DEPTH_STEP}, {depth}]")
+    out = torch.zeros((q, n_i * tile_rows // seg_rows, 3), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = _library().cyclonus_dense_counts(
-            a_e.data_ptr(), b_e.data_ptr(), b_i.data_ptr(), a_i.data_ptr(), out.data_ptr(),
-            q, ns_pad, nd_pad, de, di, bs, bd, int(kind == "dense_counts_slab"),
+            a_e.data_ptr(), b_e.data_ptr(), b_i.data_ptr(), a_i.data_ptr(),
+            None if nz is None else nz[0].data_ptr(), None if nz is None else nz[1].data_ptr(),
+            out.data_ptr(), _KIND[kind], q, n_i, n_j, tile_rows, tile_cols, seg_rows, de, di,
+            live_e, live_i, ops.get("kt_e", 0), ops.get("kt_i", 0),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _check(err, f"{kind} kernel launch")
@@ -310,33 +332,9 @@ def _launch(kind: str, a_e, b_e, b_i, a_i, q, ns_pad, nd_pad, bs, bd):
     return out
 
 
-def _launch_chunked(ops: Dict, nz) -> torch.Tensor:
-    """K5 over its operands, nz maps and live depths."""
-    a_e, b_e, b_i, a_i, bs = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"], ops["bs"]
-    dev = a_e.device
-    _check_operands(dev, (("a_e", a_e), ("b_e", b_e), ("b_i", b_i), ("a_i", a_i),
-                          ("nz_e", nz[0]), ("nz_i", nz[1])))
-    q, nd_pad, de = b_e.shape
-    ns_pad, di = b_i.shape[1], b_i.shape[2]
-    for name, live, depth in (("live_e", ops["live_e"], de), ("live_i", ops["live_i"], di)):
-        if live % DEPTH_STEP or not DEPTH_STEP <= live <= depth:
-            raise ValueError(f"{name}={live}: want a multiple of {DEPTH_STEP} in "
-                             f"[{DEPTH_STEP}, {depth}]")
-    out = torch.zeros((q, ns_pad // bs, 3), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = _library().cyclonus_dense_counts_chunked(
-            a_e.data_ptr(), b_e.data_ptr(), b_i.data_ptr(), a_i.data_ptr(),
-            nz[0].data_ptr(), nz[1].data_ptr(), out.data_ptr(),
-            q, ns_pad, nd_pad, de, di, ops["live_e"], ops["live_i"], ops["kt_e"], ops["kt_i"],
-            bs, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _check(err, "dense_counts_chunked kernel launch")
-    LAUNCHES["dense_counts_chunked"] += 1
-    return out
-
-
 def _counts_cuda(ops: Dict, nz=None) -> torch.Tensor:
-    """K4 (nz None) or K5 (with its nz maps) on the operands' device."""
+    """K4 (nz None: every (block, chunk) kept) or K5 (with its nz maps) on
+    the operands' device, each loading up to its live depths."""
     a_e, b_e, b_i, a_i, bs = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"], ops["bs"]
     q, nd_pad, de = b_e.shape
     ns_pad, di = b_i.shape[1], b_i.shape[2]
@@ -347,9 +345,9 @@ def _counts_cuda(ops: Dict, nz=None) -> torch.Tensor:
             f"the CUDA kernel needs bs % {CUDA_TILE} == 0 and a dst axis padded to a "
             f"multiple of {CUDA_TILE} (bs={bs}, Nd'={nd_pad})"
         )
-    if nz is not None:
-        return _launch_chunked(ops, nz)
-    return _launch("dense_counts_1chunk", a_e, b_e, b_i, a_i, q, ns_pad, nd_pad, bs, CUDA_TILE)
+    kind = "dense_counts_1chunk" if nz is None else "dense_counts_chunked"
+    return _launch(kind, ops, n_i=1, n_j=1, tile_rows=ns_pad, tile_cols=nd_pad, seg_rows=bs,
+                   live_e=ops["live_e"], live_i=ops["live_i"], nz=nz)
 
 
 def counts_from_ops(ops: Dict, plain: bool = False) -> torch.Tensor:
@@ -571,6 +569,7 @@ def verdict_counts_slab_from_ops(ops: Dict, plain: bool = False) -> torch.Tensor
     if plain or kind == "cpu":
         return _slab_counts_plain(ops)
     if kind == "cuda":
-        return _launch("dense_counts_slab", a_e, b_e, b_i, a_i, q, ns_pad, nd_pad, bs, bd)
+        return _launch("dense_counts_slab", ops, n_i=n_i, n_j=n_j, tile_rows=bs, tile_cols=bd,
+                       seg_rows=bs, live_e=w_aug, live_i=w_aug)
     raise ValueError(f"no slab counts kernel for device {a_e.device}")
 

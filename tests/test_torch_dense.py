@@ -99,6 +99,8 @@ SHAPES = [
     (4, 1, 40, 1030, 50, 45, 0),
     (5, 2, 1023, 1024, 40, 40, 0),
     (6, 2, 1200, 1300, 300, 260, 40),
+    # single chunk at Q = 3, chunks of 256 and 128 rows
+    (8, 3, 250, 100, 200, 150, 0),
 ]
 
 
@@ -111,6 +113,11 @@ RAGGED = [
     (31, 1, 0, 1300, 50, 45, 0, (0, 20)),
     (32, 3, 30, 20, 130, 77, 0, (3, 100)),
     (33, 2, 1200, 1300, 300, 260, 40, (7, 1)),
+    # single chunk (K4): live depths below the chunk, and a direction
+    # whose live depth is only the pseudo row
+    (36, 2, 200, 250, 70, 90, 0, (40, 60)),
+    (37, 1, 0, 90, 40, 50, 0, (30, 0)),
+    (38, 3, 100, 0, 60, 45, 6, (20, 27)),
 ]
 
 
@@ -263,6 +270,16 @@ class TestDensePlainVsPallas:
             assert dk.slab_w_aug(w) == ref_pk.slab_w_aug("int8", w)
         assert dk.slab_w_aug() == ref_pk.slab_w_aug("int8")
 
+    def test_every_kernel_names_its_instance(self):
+        """Each launch counter has the CUDA instance its wrapper launches,
+        in the order of the C entry's `kind`: K4 and K6 without the skip,
+        K5 with it, K6 in 64-byte stages."""
+        assert list(dk.INSTANCES) == list(dk.LAUNCHES)
+        assert [dk._KIND[k] for k in dk.LAUNCHES] == [0, 1, 2]
+        assert dk.INSTANCES["dense_counts_chunked"] == "dense_counts_kernel<true, 128>"
+        assert {dk.INSTANCES[k] for k in ("dense_counts_1chunk", "dense_counts_slab")} == {
+            "dense_counts_kernel<false, 128>", "dense_counts_kernel<false, 64>"}
+
     def test_int32_partial_guard_and_device(self):
         args = _port_args(_operands(0, 1, 1, 1, 4, 4))
         with pytest.raises(ValueError, match="too large"):
@@ -292,6 +309,12 @@ class TestSlab:
         (0, 1, 12, 16, 40, 8, 8, 8, 10),
         (1, 2, 30, 20, 70, 16, 8, 4, 20),
         (2, 3, 25, 40, 100, 8, 16, 32, 12),
+        # tiles off the CUDA kernel's 128 x 256 item, a tile pair of
+        # several items, w_aug = 160 (w = 128), Q = 1 and 3
+        (3, 1, 60, 80, 300, 136, 200, 16, 20),
+        (4, 2, 100, 120, 1000, 256, 512, 32, 50),
+        (5, 3, 150, 200, 400, 64, 32, 128, 30),
+        (6, 1, 40, 50, 350, 72, 328, 128, 25),
     ]
 
     @pytest.mark.parametrize("seed,q,te,ti,n,bs,bd,w,n_ns", SLABS)
