@@ -9,13 +9,15 @@ Phases, each raising on failure:
   2. build    — compile every CUDA kernel of the package (nvcc, sm_90a);
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 on seeded operands: ragged axes, Q in {1, 2, 3}, word
-                depths from 1 to several hundred (many shared-memory
-                staging chunks), invalid rows and columns, has=False rows,
-                zero weights; the tiered variants (K3) also with 1 to
-                1,500 tier rows per direction (within one staged pass of
-                256 rows and past it), pad rows, whole words of pad rows
-                and random ANP/BANP/Pass actions, with keys in the
-                engine's order and in random order; the dense kernels (K4,
+                depths from 1 to 420 (one to 53 single-bit k256 steps;
+                among them 7, 8, 9, 16 and 17 words), pod axes off 128
+                and 256, more items than the persistent grid holds (each
+                block walks several bs segments), invalid rows and
+                columns, has=False rows, zero weights; the tiered variants
+                (K3) also with 1 to 1,500 tier rows per direction, pad
+                rows, whole words of pad rows and random ANP/BANP/Pass
+                actions, with keys in the engine's order and in random
+                order; the dense kernels (K4,
                 K5) at target depths 0 to 3,000 (one to three chunks),
                 with non-prefix masks, an all-has=False direction, a
                 direction whose nz map is all zero, bucketing pad rows
@@ -84,8 +86,14 @@ PEAK_INT_OPS = 67e12 / 4
 PEAK_BYTES = 3.35e12
 #: dense int8 tensor-core operations/s of the same card (data sheet; a
 #: multiply-add counts two) — the least time for the dense kernels' int8
-#: multiply-adds, whatever unit the port's kernels run them on
+#: multiply-adds
 PEAK_INT8_OPS = 1.979e15
+#: single-bit tensor-core operations/s of the same card (a bit
+#: multiply-add counts two): the data sheet gives no rate, so this is the
+#: rate that torch_tools/mma_probe.py measured for wgmma m64n256k256
+#: .b1.and.popc on an H100 80GB HBM3 at 700 W, 7.883e15 bit multiply-adds/s
+#: — the least time for the packed kernels' contraction, which runs on it
+PEAK_B1_OPS = 2 * 7.883e15
 #: the benchmark's headline cluster (bench.py): pods, policies, seed
 N_PODS = 100_000
 N_POLICIES = 10_000
@@ -254,6 +262,13 @@ def check_kernel(got, want, what: str) -> None:
         raise AssertionError(f"kernel != plain at {what}: {bad} entries differ")
 
 
+def packed_items(ops) -> int:
+    """Work items of one packed counts launch: (q, 128 src rows, 256 dst
+    cols) over the padded pod axes."""
+    q, nd_pad, _ = ops["b_e"].shape
+    return q * -(-ops["a_e"].shape[0] // 128) * -(-nd_pad // 256)
+
+
 def phase_kernels(device) -> None:
     import numpy as np
     import torch
@@ -261,6 +276,10 @@ def phase_kernels(device) -> None:
     from cyclonus_tpu_torch.engine import packed_kernel as pk
 
     rng = np.random.default_rng(20260729)
+    # word depths 1 to 420 (one k256 step is 8 words; 9 and 17 words take
+    # a second and third step with mostly zero words, 300 and 420 several
+    # dozen), pod axes off 128 and 256, and more items than the persistent
+    # grid holds, so each block walks several bs segments
     shapes = [  # (q, we, wi, ns, nd)
         (1, 1, 1, 9, 9),
         (2, 12, 8, 1000, 777),
@@ -268,8 +287,13 @@ def phase_kernels(device) -> None:
         (2, 1, 33, 2049, 130),
         (2, 300, 170, 200, 300),
         (1, 17, 420, 130, 260),
+        (2, 7, 8, 300, 500),
+        (1, 9, 16, 1000, 1000),
+        (3, 17, 7, 129, 257),
+        (1, 16, 9, 257, 129),
+        (2, 8, 17, 3000, 2900),
     ]
-    n_checked = 0
+    n_checked = max_items = 0
     for q, we, wi, ns, nd in shapes:
         args, vs, vd, w = random_operands(rng, q, we, wi, ns, nd, device)
         variants = [
@@ -284,12 +308,19 @@ def phase_kernels(device) -> None:
             want = pk.verdict_counts_packed_plain(*args, **kw)
             check_kernel(got, want, f"q={q} we={we} wi={wi} ns={ns} nd={nd} {sorted(kw)}")
             n_checked += 1
-    log(f"kernels: {n_checked} untiered kernel-vs-plain checks equal")
+        bs, bd = pk.PACKED_BS, pk.PACKED_BD
+        max_items = max(max_items, q * -(-ns // bs) * bs // 128 * (-(-nd // bd) * bd // 256))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    log(f"kernels: {n_checked} untiered kernel-vs-plain checks equal (tolerance: exact); "
+        f"up to {max_items} items on {sms} SMs")
+    if max_items < 4 * sms:
+        raise AssertionError(f"no packed case walks several items per block: {max_items} items")
 
     # the tiered variants: tier rows from one to past the reference's
-    # 1,024-row ceiling; keys ordered as the engine emits them (K3's
-    # in-order path) or in random order (its per-cell min); one pass of tier
-    # words (256 rows a direction) and past it (restaged per src row)
+    # 1,024-row ceiling; keys ordered as the engine emits them or in random
+    # order (the kernel walks each key vector's rows sorted by key either
+    # way); walks of one row to past several passes of 128 positions; a tier
+    # word depth past one and many items on the persistent grid
     tiered = [  # (q, we, wi, ns, nd, ge, gi, ordered)
         (1, 1, 1, 9, 9, 1, 1, False),
         (2, 12, 8, 1000, 777, 4, 4, False),
@@ -301,6 +332,7 @@ def phase_kernels(device) -> None:
         (2, 1, 33, 2049, 130, 1500, 600, False),
         (2, 1, 33, 2049, 130, 300, 200, True),
         (2, 300, 170, 200, 300, 513, 1500, False),
+        (2, 9, 17, 3000, 2900, 5, 33, False),
     ]
     n_tiered = 0
     for q, we, wi, ns, nd, ge, gi, ordered in tiered:
@@ -583,20 +615,44 @@ def phase_truth_tables(device) -> None:
         f"tiered settings), {cells} cells and all counts equal to the tiered oracle")
 
 
-def bound(args, w_dst, out, ops=None, tier_work=(0, 0)):
+def live_target_bits(tmatch_pk, has, valid):
+    """Target bits of one direction of the packed plan that hold data, as
+    `live_target_rows` counts K4's rows over the same targets: the bits of
+    the packed match operand tmatch_pk [W, N] int32 set for some valid pod,
+    plus one where some valid pod has no target (the has flag, K4's pseudo
+    row)."""
+    import torch
+
+    words = torch.where(valid[None, :], tmatch_pk, torch.zeros_like(tmatch_pk))
+    bits = sum(int(((words >> b) & 1).ne(0).any(dim=1).sum()) for b in range(32))
+    return bits + int((valid & ~has).any())
+
+
+def bound(args, w_dst, out, valid_src, valid_dst, tier=None, tier_work=(0, 0)):
     """(ms, bound_by, ops, bytes): the least time the card could take for one
     packed counts call on these inputs — the larger of bytes (each input
-    read once, the output written once) over HBM bandwidth and 32-bit
-    integer instructions over the integer pipe's peak — and the two
-    counts.  Instructions: one LOP3 per packed word, cell and direction,
-    EPILOGUE_CELL_OPS per cell, and the rest of the epilogue per 32 cells
-    (the weighted one per cell as well); tiered, TIER_ROW_OPS per live
-    row and 32 cells it matches and LATTICE_WORD_OPS per 32 matched cells
-    and direction, as 32-bit mask logic (a cell that no live row matches
-    needs no tier work).  `ops` is the tiered operand dict (packed tier
-    words and keys) and `tier_work` this run's (matched (row, cell)
-    pairs, matched cells) from `tier_work`."""
-    tmatch_e_pk, _has_e, tallow_e_pk, tmatch_i_pk, _has_i, _tallow_i_pk = args
+    read once, the output written once) over HBM bandwidth and the
+    operations' time — and the two counts.  The operations' time is the
+    least of three ways to run the same contraction, plus the tier work:
+      * on the integer pipe: one LOP3 per packed word, cell and direction,
+        EPILOGUE_CELL_OPS per cell and the rest of the epilogue per 32
+        cells (the weighted one per cell as well), over PEAK_INT_OPS;
+      * on the int8 tensor cores: two operations per (valid cell, target
+        bit that holds data) over PEAK_INT8_OPS, the bits counted per
+        direction by `live_target_bits` (the count `dense_bound` takes for
+        K4 on the same targets);
+      * on the single-bit tensor cores: the same operations over
+        PEAK_B1_OPS, the rate measured for the instruction the kernels
+        use (the data sheet gives none);
+    tiered, plus TIER_ROW_OPS per live row and 32 cells it matches and
+    LATTICE_WORD_OPS per 32 matched cells and direction, as 32-bit mask
+    logic on the integer pipe (a cell that no live row matches needs no
+    tier work), and the bytes of `tier` (the input tier rows and keys).
+    `tier_work` is this run's (matched (row, cell) pairs, matched cells)
+    from `tier_work`.  The returned count is the integer instructions or
+    the tensor-core operations, whichever way was fastest, plus the tier
+    instructions."""
+    tmatch_e_pk, has_e, tallow_e_pk, tmatch_i_pk, has_i, _tallow_i_pk = args
     we, ns = tmatch_e_pk.shape
     wi, nd = tmatch_i_pk.shape
     q = tallow_e_pk.shape[2]
@@ -608,14 +664,20 @@ def bound(args, w_dst, out, ops=None, tier_work=(0, 0)):
     else:
         nbytes += w_dst.numel() * w_dst.element_size()
         per_cell, per_word = EPILOGUE_CELL_OPS + WEIGHTED_CELL_OPS, WEIGHTED_WORD_OPS
-    n_ops = cells * (we + wi + per_cell) + per_word * cells / 32
-    if ops is not None:
-        t = ops["tier"]
-        nbytes += sum(a.numel() * a.element_size() for a in t.values())
+    int_ops = cells * (we + wi + per_cell) + per_word * cells / 32
+    live = live_target_bits(tmatch_e_pk, has_e, valid_src) + live_target_bits(
+        tmatch_i_pk, has_i, valid_dst)
+    tc_ops = 2 * q * int(valid_src.sum()) * int(valid_dst.sum()) * live
+    n_ops, ops_s = min((int_ops, int_ops / PEAK_INT_OPS), (tc_ops, tc_ops / PEAK_INT8_OPS),
+                       (tc_ops, tc_ops / PEAK_B1_OPS), key=lambda c: c[1])
+    if tier is not None:
+        nbytes += sum(a.numel() * a.element_size() for t in tier.values() for a in t.values())
         row_cells, tier_cells = tier_work
-        n_ops += (TIER_ROW_OPS * row_cells + LATTICE_WORD_OPS * tier_cells) / 32
-    by = "operations" if n_ops / PEAK_INT_OPS >= nbytes / PEAK_BYTES else "bytes"
-    return max(n_ops / PEAK_INT_OPS, nbytes / PEAK_BYTES) * 1e3, by, n_ops, nbytes
+        tier_ops = (TIER_ROW_OPS * row_cells + LATTICE_WORD_OPS * tier_cells) / 32
+        n_ops += tier_ops
+        ops_s += tier_ops / PEAK_INT_OPS
+    by = "operations" if ops_s >= nbytes / PEAK_BYTES else "bytes"
+    return max(ops_s, nbytes / PEAK_BYTES) * 1e3, by, n_ops, nbytes
 
 
 def _matched_cells(subj, peer):
@@ -684,7 +746,8 @@ def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
     ms = time_ms(lambda: pk._counts_cuda(ops, bs), reps=5, warm=1)
     plain_ms = time_ms(lambda: pk._counts_plain(ops, bs), reps=1, warm=0)
     work = (0, 0) if tier is None else tier_work(tier, valid_src, valid_dst)
-    b_ms, b_by, b_ops, b_bytes = bound(args, w_dst, got, None if tier is None else ops, work)
+    b_ms, b_by, b_ops, b_bytes = bound(args, w_dst, got, valid_src, valid_dst, tier, work)
+    items = packed_items(ops)
     rec = {
         "name": name,
         "route": "cuda",
@@ -697,11 +760,12 @@ def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
+        "items": items,
         **pk.kernel_attrs()[name],
     }
     shape = {
         "q": int(args[2].shape[2]), "we": int(args[0].shape[0]), "wi": int(args[3].shape[0]),
-        "ns": int(args[0].shape[1]), "nd": int(args[3].shape[1]),
+        "ns": int(args[0].shape[1]), "nd": int(args[3].shape[1]), "items": items,
     }
     if tier is not None:
         shape.update(ge=int(tier["egress"]["subj"].shape[0]),

@@ -1,691 +1,483 @@
-// Packed verdict-count kernel for Hopper (sm_90a).
+// Packed verdict-count kernels for Hopper (sm_90a): K1, K2 and K3 on the
+// counts kernels' shared tensor-core main loop (wgmma_ring.cuh).
 //
 // Replaces the TPU kernel cyclonus_tpu/engine/pallas_kernel.py
 // _make_packed_kernel (launched by _verdict_counts_pallas_packed) in its
-// four variants, epilogue x tiers:
-//   * plain    (K1): validity-masked allow counts of ingress / egress /
-//                    combined, one int32 partial per (port case, src tile
-//                    of `bs` rows) -> out [Q, ns_pad / bs, 3] int32;
-//   * weighted (K2): per-src-row sums of each verdict weighted by w[dst]
-//                    (class sizes) -> out [Q, ns_pad, 3] float32;
-//   * tiered   (K3): either of the two, with each direction's verdict first
-//                    resolved through the AdminNetworkPolicy -> NetworkPolicy
-//                    -> BaselineAdminNetworkPolicy precedence lattice.
+// four variants, epilogue x tiers, as packed_counts_kernel<weighted,
+// tiered>:
+//   * plain    (K1, <false, false>): validity-masked allow counts of
+//                    ingress / egress / combined, one int32 partial per
+//                    (port case, src segment of `bs` rows) -> out [Q,
+//                    ns_pad / bs, 3] int32;
+//   * weighted (K2, <true, false>): per-src-row sums of each verdict
+//                    weighted by w[dst] (class sizes) -> out [Q, ns_pad, 3]
+//                    float32;
+//   * tiered   (K3, <*, true>): either of the two, with each direction's
+//                    verdict first resolved through the AdminNetworkPolicy
+//                    -> NetworkPolicy -> BaselineAdminNetworkPolicy lattice.
 //
-// Per cell (s, d) of port case q, with the target axis packed 32 per word:
-//   acc_e = OR_w (a_e[s, w] & b_e[q, w, d])     egress contraction
-//   acc_i = OR_w (b_i[q, s, w] & a_i[w, d])     ingress contraction
+// Per cell (s, d) of port case q, with the target axis packed 32 per int32
+// word, both contraction operands K-major (words innermost, zero-padded to
+// a multiple of 8 words: 32 bytes, one k256 step):
+//   acc_e = sum_w popc(a_e[s, w] & b_e[q, d, w])     egress contraction
+//   acc_i = sum_w popc(b_i[q, s, w] & a_i[d, w])     ingress contraction
 //   egress  = !has_s || acc_e != 0
 //   ingress = !has_d || acc_i != 0
 //   combined = egress && ingress
-// Flags words (bit 0 = has_target, bit 1 = valid) sit at a_e[s, we] and
-// a_i[wi, d].
+// The popc sum is nonzero exactly where OR_w(a & b) is, and stays below
+// 2^31 at any depth that fits the int32 operands.  The flags (bit 0 =
+// has_target, bit 1 = valid) are their own vectors f_s [ns_pad] and f_d
+// [nd_pad]; invalid pods are zero in every operand.
 //
-// Tiered: the tier rows are packed 32 per word too, laid out like the
-// contraction operand of the same side (egress subject = src pod, peer =
-// dst pod; ingress the other way round).  Per cell and direction
+// Tiered: per cell and direction
 //   anp  = min over rows g with subject[g] & peer[g, q] of keys[0][g]
-//   banp = the same over keys[1][g]      (kKeyNone when no row matches)
-// where a key is rank * 4 + action, so key & 3 is the winning action; then
+//   banp = the same over keys[1][g]      (none when no row matches)
+// where a key is rank * 4 + action; then
 //   verdict = ANP Allow/Deny if anp decides, else the NetworkPolicy verdict
 //             where a target selects the subject, else BANP Allow/Deny,
-//             else allow                             (resolve_tier below).
-// Pad rows carry kKeyNone in both key vectors, so a pad row that matches
-// changes nothing.
+//             else allow.
+// A cell's min key is the key of the first row that matches it when the
+// rows are walked by non-decreasing key, so the wrapper lists each
+// direction's rows as one walk (the ANP rows by key, then the BANP rows by
+// key) and lays the tier bits out in walk order: the lattice runs over the
+// thread's 128 cells as 32-bit masks, each position deciding the cells it
+// matches that no earlier position of its tier decided, for any key order
+// and any number of rows.  Egress subjects are src pods and peers dst pods,
+// ingress the other way round.
 //
-// What bounds it: the operands are small (about 10 MB at 100k pods) and
-// are re-read from L2, so the card is bound by 32-bit integer logic on
-// the CUDA cores: one LOP3 (AND then OR) per word per cell and direction,
-// plus a few epilogue ops per cell, all on the integer pipe (64 lanes per
-// clock and SM on Hopper, half the float32 lane count).  The design keeps
-// that loop tight:
-//   * one block per (q, 64-src-row tile, 128-dst-col tile), 256 threads;
-//   * the tile's src-side and dst-side words are staged in shared memory
-//     word-major, kChunk words per side at a time, so a warp reads one src
-//     word as a broadcast and 32 consecutive dst words without bank
-//     conflicts, and shared memory stays at a fixed 25 KB however deep the
-//     word axis is (the accumulators carry across the chunks);
-//   * each thread keeps an 8 x 4 cell block of both OR-accumulators in
-//     registers, so each shared-memory load feeds 4 or 8 LOP3s; tiered,
-//     the verdicts then fold into one 32-bit mask per direction, which
-//     frees the accumulators before the tier epilogue;
-//   * the tier epilogue (K3) spends its work where a tier row can change a
-//     verdict.  When both directions' tier words fit one pass (kTierPass
-//     words, 256 rows, per direction) they and both key vectors are
-//     staged in their own shared memory once per block, before the main
-//     loop, with facts per word computed once (one warp each): the rows
-//     with a real anp / banp key, whether each vector's real keys are
-//     non-decreasing in bit order, their least and greatest key, and the
-//     real rows that some subject and some peer of the block hold.  A
-//     direction with no such row in the block is skipped whole (the
-//     benchmark lattice's egress pads).  Where a direction's keys are in
-//     order across its words (the engine emits rows rank by rank, ANP
-//     before BANP, so its keys always are), a cell's min key is its first
-//     matching row's, so the lattice runs bit-parallel over the thread's
-//     32 cells: each live row, in order, decides the cells it matches that
-//     no earlier row of its tier decided (one AND of a row mask and a
-//     column mask per row, no per-cell work).  Otherwise each cell takes
-//     its min key per word — for a sorted word the key of the first set
-//     bit of subject & peer & real (O(1), __ffs), for an unsorted one a
-//     walk over the set bits with keys read from shared memory (uniform
-//     per word) — and a cell that no real row matches keeps its
-//     NetworkPolicy bit with no lattice.  No barrier in either.  Past one
-//     pass, each src row walks every pass, staging it again, so any row
-//     count launches;
-//   * counts reduce with warp shuffles, then one atomic per block (K1) or
-//     one atomic per src row and verdict (K2).  Integer counts are exact
-//     in any order; K2's float partials are integers below 2^24 (the
-//     caller's gate), so they are exact in any order too.
-// The kernel allocates nothing and runs on the caller's stream.
+// What bounds them: the contraction is 1 bit x 1 bit, and the least time
+// for it is the single-bit tensor-core rate (measured 7.88e15 bit
+// multiply-adds/s on the H100 by torch_tools/mma_probe.py, 8x the int8
+// rate) over the target bits that hold data, against the operand bytes
+// over 3.35e12 B/s (chip_smoke.bound).  The products are far from binding:
+// what the kernels wait on is the rest of each item, the stage round trips
+// between producer and consumers, the fold of 2 x 128 accumulators a
+// thread into verdict bits, and the epilogue (the tier walk above all).
+//
+// The design: the dense kernels' loop over the same byte geometry (an int32
+// word row is a byte row to TMA and wgmma), at 32-byte stages (the 32-byte
+// swizzle, 16 stages of 12 KB), one k256 product a stage, so any depth is
+// whole stages and no product runs over zero fill; persistent blocks, one
+// per SM, walking 128 x 256-cell items in raster order; one producer
+// thread, two consumer warpgroups of 64 src rows.  A direction's products
+// queue back to back (the first overwrites the accumulators, each stage is
+// released once its product is done: wgmma_ring.cuh's contract).  Egress
+// first, folded into 128 verdict bits a thread (min(acc, 1) shifted into
+// place) and parked in shared memory, then ingress, so one direction's
+// accumulators are live at a time.  The epilogue works on 32-bit masks in
+// the accumulators' bit order (bit b of word j is the cell (row 16 warp +
+// lane / 4 + 8 ((b / 2) % 2), col 64 j + 8 (b / 4) + 2 (lane % 4) + b % 2)
+// of the warpgroup's 64 x 256 tile): row-side facts are two bits a thread,
+// and every dst-side fact (the dst flags, each tier row's dst-side subjects
+// or peers) comes precomputed by the wrapper in that order, 16 words per
+// 256 columns (one 16-byte load per word kind and item).  The tier walk
+// stages kPass positions a pass in shared memory, one round trip to device
+// memory a pass (the first pass's in flight with the flags' loads), and
+// visits only the positions that some row of the warp holds, so its cost
+// grows with the rows by their mask work.
+// K1/K3-plain hold their counts per thread in shared memory while a
+// warpgroup stays in one (q, src segment) and flush them with one atomicAdd
+// per verdict (wgmma_ring.cuh's flush); K2/K3-weighted reduce each row's
+// sums over its four lanes and add them with one atomicAdd per row and
+// verdict.  Integer counts are exact in any order; the weighted partials
+// are integers below 2^24 (the caller's gate), so they are exact in any
+// order too.
+// The kernels allocate nothing and run on the caller's stream.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "wgmma_ring.cuh"
 
 namespace {
 
-constexpr int kSrcTile = 64;
-constexpr int kDstTile = 128;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = kSrcTile / kWarps;  // src rows per thread
-constexpr int kCols = kDstTile / 32;      // dst cols per thread
-constexpr int kChunk = 16;                // words per side staged per pass
+constexpr int kStage = 32;  // bytes of depth a stage: one k256 product
+constexpr int kWords = kAcc / 32;  // verdict mask words a thread
 
-// tier lattice codes (engine/encoding.py TIER_ACT_*, TIER_KEY_NONE)
+// tier lattice action codes (engine/encoding.py TIER_ACT_*)
 constexpr int kActNone = 0;
 constexpr int kActAllow = 1;
 constexpr int kActPass = 3;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int32_t kKeyNone = 1 << 30;
 
-__device__ __forceinline__ bool resolve_tier(bool np_allowed, bool has, int32_t anp,
-                                             int32_t banp) {
-  const int anp_act = anp < kKeyNone ? (anp & 3) : kActNone;
-  const int banp_act = banp < kKeyNone ? (banp & 3) : kActNone;
-  const bool below = has ? np_allowed : (banp_act == kActNone || banp_act == kActAllow);
-  return (anp_act == kActNone || anp_act == kActPass) ? below : anp_act == kActAllow;
+// Row pattern of a thread's cells: bits of its first row (r0) or its
+// second (r0 + 8) in every mask word.
+constexpr uint32_t kRow0 = 0x33333333u;
+constexpr uint32_t kRow8 = 0xCCCCCCCCu;
+
+// The epilogue's operands beside the loop's (pointers to device memory;
+// the tier ones null when untiered).  Fragment tables hold, per 256-column
+// block cb and lane class l = lane % 4, the four mask words j of the
+// thread's columns (int4: j = 0..3).
+struct Epi {
+  const int32_t* f_s;   // [ns_pad] src flags
+  const int4* fd;       // [2, nb, 4]: dst valid, then dst has, as fragments
+  const float* w;       // [nd_pad] dst weights (weighted)
+  float* rowsums;       // [q, ns_pad, 3] (weighted)
+  int nb;               // 256-column blocks: nd_pad / 256 rounded up
+  // tiered, per direction (0 = egress, 1 = ingress), over the walk's
+  // positions (tier_lattice), lp of them padded to a multiple of kPass:
+  const int32_t* rows[2];  // src-side position words: [ns_pad, lp / 32] egress
+                           // subjects, [q, ns_pad, lp / 32] ingress peers
+  const int4* frag[2];     // dst-side fragments: [q, nb, lp, 4] egress peers,
+                           // [nb, lp, 4] ingress subjects
+  const int32_t* key[2];   // [lp] the key of each position
+  const int32_t* real[2];  // [2] real ANP, then BANP positions
+  int lp[2];
+};
+
+// The `acc != 0` verdicts of a warpgroup's 64 x 256 tile as 128 bits a
+// thread, in verdict_bits' order: min(acc, 1) shifted into place and
+// added, which compiles to fewer instructions a cell than verdict_bits'
+// compare-select-or.
+// The popc sums are never negative.
+__device__ __forceinline__ void nonzero_bits(const int32_t (&acc)[kAcc],
+                                             uint32_t (&bits)[kWords]) {
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    uint32_t m = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) m += min((uint32_t)acc[32 * j + b], 1u) << b;
+    bits[j] = m;
+  }
 }
 
-// ---- the tier epilogue (K3) ----
+// The tier walk of one direction: the wrapper lists each direction's rows
+// with a real ANP key by non-decreasing key, then those with a real BANP
+// key the same way (positions 0 .. real[0] - 1 and real[0] .. real[0] +
+// real[1] - 1), and lays each row's dst-side bits out as fragments in that
+// order, kPass positions of a 256-column block contiguous, and its src-side
+// bits as position words per src row.  A consumer warpgroup stages kPass
+// positions at a time in its own shared memory (one round trip to device
+// memory a pass, every load of it in flight together), then walks them
+// from there.
+constexpr int kPass = 128;
 
-constexpr int kTierPass = 8;  // tier words per direction staged at a time (256 rows)
+struct TierStage {
+  int4 frag[kPass * 4];  // [position][lane class]: the dst-side mask words
+  int32_t key[kPass];    // the key of each position
+};
 
-// One pass of tier words and their keys in shared memory, with facts per
-// word computed once per block (tier_meta).  Direction index 0 = egress
-// (subject = src row, peer = dst col), 1 = ingress (subject = dst col,
-// peer = src row); key vector 0 = anp, 1 = banp.
 struct TierSmem {
-  int32_t se[kTierPass][kSrcTile];    // egress subjects by src row
-  int32_t pi[kTierPass][kSrcTile];    // ingress peers by src row
-  int32_t pe[kTierPass][kDstTile];    // egress peers by dst col
-  int32_t si[kTierPass][kDstTile];    // ingress subjects by dst col
-  int32_t key[2][2][32 * kTierPass];  // [direction][anp, banp][row of the pass]
-  uint32_t real[2][2][kTierPass];     // rows whose anp / banp key is real
-  uint32_t live[2][kTierPass];        // real rows held by a subject and a peer of the block
-  uint32_t sorted[2][kTierPass];      // bit v: key vector v non-decreasing over its real rows
-  int32_t lo[2][2][kTierPass];        // first and last real key of each vector (its
-  int32_t hi[2][2][kTierPass];        // least and greatest where it is sorted)
+  TierStage stage[2];  // one per consumer warpgroup
+  int32_t real[2][2];  // per direction: the walk's real ANP, then BANP positions
 };
 
-// Declared here, not in the kernel, so only the tiered instances hold it.
-__device__ __forceinline__ TierSmem& tier_smem() {
-  __shared__ TierSmem s;
-  return s;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-struct TierArgs {
-  const int32_t* se;  // block's first src row of t_se [ns_pad, wge]
-  const int32_t* pe;  // block's first dst col of t_pe[q] [wge, nd_pad]
-  const int32_t* si;  // block's first dst col of t_si [wgi, nd_pad]
-  const int32_t* pi;  // block's first src row of t_pi[q] [ns_pad, wgi]
-  const int32_t* keys_e;  // [2, 32 * wge]
-  const int32_t* keys_i;  // [2, 32 * wgi]
-  int wge, wgi, nd_pad;
+// Stage positions i0 .. i0 + n - 1 of direction kDir's walk for 256-column
+// block cb of port case q: their fragments and keys, with cp.async (the
+// caller waits and syncs the warpgroup before reading them).
+template <int kDir>
+__device__ __forceinline__ void stage_pass(const Epi& e, TierStage& ts, int q, int cb, int t,
+                                           int i0, int n) {
+  const int lp = e.lp[kDir];
+  const int4* frag =
+      e.frag[kDir] + (((size_t)(kDir == 0 ? q * e.nb : 0) + cb) * lp + i0) * 4;
+  for (int k = t; k < 4 * n; k += 128) cp_async16(&ts.frag[k], frag + k);
+  if (t < (n + 3) / 4) cp_async16(&ts.key[4 * t], e.key[kDir] + i0 + 4 * t);
+}
+
+// The lattice's masks over a walk: per tier the cells some position has
+// decided, and the cells decided into ANP allow / ANP deny / BANP deny.
+struct Lattice {
+  uint32_t dec[kWords], allow[kWords], deny[kWords], deny_b[kWords];
+  bool banp;  // past the ANP positions (dec then holds the BANP tier's)
 };
 
-// 4-byte copy global -> shared that does not wait for the load: the copies
-// of one stage_tier complete at cp_async_wait
-__device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Start copying the tier words [k0, k0 + kTierPass) of both directions and
-// their keys into shared memory (every thread takes part); they are there
-// for every thread after cp_async_wait and a barrier.
-__device__ __forceinline__ void stage_tier(TierSmem& ts, const TierArgs& t, int k0) {
-  const int tid = threadIdx.x;
-  const int ne = min(kTierPass, max(t.wge - k0, 0));
-  const int ni = min(kTierPass, max(t.wgi - k0, 0));
-  for (int idx = tid; idx < kSrcTile * ne; idx += kThreads) {
-    const int r = idx / ne, k = idx - r * ne;
-    cp_async4(&ts.se[k][r], t.se + (size_t)r * t.wge + k0 + k);
-  }
-  for (int idx = tid; idx < kSrcTile * ni; idx += kThreads) {
-    const int r = idx / ni, k = idx - r * ni;
-    cp_async4(&ts.pi[k][r], t.pi + (size_t)r * t.wgi + k0 + k);
-  }
-  for (int idx = tid; idx < kDstTile * ne; idx += kThreads) {
-    const int k = idx / kDstTile, c = idx - k * kDstTile;
-    cp_async4(&ts.pe[k][c], t.pe + (size_t)(k0 + k) * t.nd_pad + c);
-  }
-  for (int idx = tid; idx < kDstTile * ni; idx += kThreads) {
-    const int k = idx / kDstTile, c = idx - k * kDstTile;
-    cp_async4(&ts.si[k][c], t.si + (size_t)(k0 + k) * t.nd_pad + c);
-  }
-  for (int idx = tid; idx < 64 * ne; idx += kThreads) {
-    const int v = idx / (32 * ne), g = idx - v * 32 * ne;
-    cp_async4(&ts.key[0][v][g], t.keys_e + (size_t)v * 32 * t.wge + 32 * k0 + g);
-  }
-  for (int idx = tid; idx < 64 * ni; idx += kThreads) {
-    const int v = idx / (32 * ni), g = idx - v * 32 * ni;
-    cp_async4(&ts.key[1][v][g], t.keys_i + (size_t)v * 32 * t.wgi + 32 * k0 + g);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Per staged word (one warp each): the rows with a real key per key
-// vector, whether each vector's real keys are non-decreasing in bit order
-// (then the min over any set of rows is the key of its first row) with
-// its first and last real key, and the real rows that some subject and
-// some peer of the block hold (a row outside them matches no cell of the
-// block).  After the staged words are visible to every thread.
-__device__ __forceinline__ void tier_meta(TierSmem& ts, int ne, int ni) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int task = warp; task < ne + ni; task += kWarps) {
-    const int d = task < ne ? 0 : 1;
-    const int k = task < ne ? task : task - ne;
-    uint32_t real[2], sorted = 0;
+// The staged positions base .. base + 31 of a pass (bit b of w0 / w8: the
+// thread's rows r0 / r0 + 8 hold position base + b), the first `n` of them
+// in the walk; pos0 is the pass's first position.  Only the positions that
+// some row of the warp holds are visited, in order (warp-uniform).
+__device__ __forceinline__ void walk_word(const TierStage& ts, uint32_t w0, uint32_t w8, int base,
+                                          int n, int pos0, int real_a, int l, Lattice& z) {
+  uint32_t need = __reduce_or_sync(kFull, w0 | w8);
+  if (n < 32) need &= n > 0 ? (1u << n) - 1 : 0u;
+  while (need != 0) {
+    const int b = __ffs(need) - 1;
+    need &= need - 1;
+    const int i = base + b;
+    if (!z.banp && pos0 + i >= real_a) {
+      z.banp = true;
 #pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      const int32_t key = ts.key[d][v][32 * k + lane];
-      const bool is_real = key < kKeyNone;
-      real[v] = __ballot_sync(kFull, is_real);
-      // each real key against the nearest real key below it
-      const uint32_t below = real[v] & ((1u << lane) - 1);
-      const int32_t prev = __shfl_sync(kFull, key, below ? 31 - __clz(below) : lane);
-      sorted |= (uint32_t)__all_sync(kFull, !is_real || prev <= key) << v;
-      const int32_t lo = __shfl_sync(kFull, key, real[v] ? __ffs(real[v]) - 1 : 0);
-      const int32_t hi = __shfl_sync(kFull, key, real[v] ? 31 - __clz(real[v]) : 0);
-      if (lane == 0) {
-        ts.lo[d][v][k] = lo;
-        ts.hi[d][v][k] = hi;
+      for (int j = 0; j < kWords; ++j) z.dec[j] = 0;
+    }
+    const uint32_t rmask = (kRow0 & (0u - ((w0 >> b) & 1))) | (kRow8 & (0u - ((w8 >> b) & 1)));
+    const int4 c = ts.frag[4 * i + l];
+    const int act = ts.key[i] & 3;
+    const uint32_t cw[kWords] = {(uint32_t)c.x, (uint32_t)c.y, (uint32_t)c.z, (uint32_t)c.w};
+    if (!z.banp) {
+      const uint32_t am = act == kActAllow ? kFull : 0u;
+      const uint32_t dm = act != kActAllow && act != kActPass && act != kActNone ? kFull : 0u;
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) {
+        const uint32_t first = rmask & cw[j] & ~z.dec[j];
+        z.dec[j] |= rmask & cw[j];
+        z.allow[j] |= first & am;
+        z.deny[j] |= first & dm;
       }
-    }
-    const int32_t(*rows)[kSrcTile] = d == 0 ? ts.se : ts.pi;
-    const int32_t(*cols)[kDstTile] = d == 0 ? ts.pe : ts.si;
-    const uint32_t r_or = __reduce_or_sync(kFull, (uint32_t)(rows[k][lane] | rows[k][lane + 32]));
-    const uint32_t c_or = __reduce_or_sync(
-        kFull, (uint32_t)(cols[k][lane] | cols[k][lane + 32] | cols[k][lane + 64] |
-                          cols[k][lane + 96]));
-    if (lane == 0) {
-      ts.real[d][0][k] = real[0];
-      ts.real[d][1][k] = real[1];
-      ts.live[d][k] = r_or & c_or & (real[0] | real[1]);
-      ts.sorted[d][k] = sorted;
-    }
-  }
-}
-
-// True when each key vector of direction d is non-decreasing over its
-// real rows across the n staged words, in word then bit order: then the
-// first matching row of a cell holds its min key.
-__device__ __forceinline__ bool keys_in_order(const TierSmem& ts, int d, int n) {
-  bool ok = true;
-  int32_t top[2] = {INT32_MIN, INT32_MIN};
-  for (int k = 0; k < n; ++k) {
+    } else {
+      const uint32_t bm = act != kActNone && act != kActAllow ? kFull : 0u;
 #pragma unroll
-    for (int v = 0; v < 2; ++v) {
-      if (ts.real[d][v][k] == 0) continue;
-      ok = ok && (ts.sorted[d][k] >> v & 1) && ts.lo[d][v][k] >= top[v];
-      top[v] = ts.hi[d][v][k];
-    }
-  }
-  return ok;
-}
-
-// Direction kDir of the thread's 32 cells (bit r * kCols + c) when its
-// keys are in order (keys_in_order): each live row, in order, decides the
-// cells it matches that no earlier row of its tier has decided — the
-// lattice bit-parallel over the cells, with no per-cell min.  `np` holds
-// the NetworkPolicy verdicts, `has` the cells whose subject some target
-// selects; returns the lattice's verdicts.
-template <int kDir>
-__device__ __forceinline__ uint32_t tier_in_order(const TierSmem& ts, int n, int r0, int lane,
-                                                  uint32_t np, uint32_t has) {
-  uint32_t dec_a = 0, allow_a = 0, deny_a = 0, dec_b = 0, deny_b = 0;
-  for (int k = 0; k < n; ++k) {
-    const uint32_t live = ts.live[kDir][k];
-    if (live == 0) continue;
-    // lane g: the thread's src rows that hold row g, as nibbles of cells
-    uint32_t rows_of = 0;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const uint32_t w = (uint32_t)(kDir == 0 ? ts.se[k][r0 + r] : ts.pi[k][r0 + r]);
-      rows_of |= ((w >> lane) & 1u) * (((1u << kCols) - 1) << (kCols * r));
-    }
-    uint32_t col_w[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      col_w[c] = (uint32_t)(kDir == 0 ? ts.pe[k][lane + 32 * c] : ts.si[k][lane + 32 * c]);
-    }
-    const uint32_t ra = ts.real[kDir][0][k], rb = ts.real[kDir][1][k];
-    for (uint32_t m = live; m; m &= m - 1) {
-      const int g = __ffs(m) - 1;
-      const uint32_t rows = __shfl_sync(kFull, rows_of, g);
-      if (rows == 0) continue;  // the same for the whole warp
-      uint32_t cols = 0;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) cols |= ((col_w[c] >> g) & 1u) * (0x11111111u << c);
-      const uint32_t hit = rows & cols;
-      if (ra >> g & 1) {
-        const uint32_t first = hit & ~dec_a;
-        const int act = ts.key[kDir][0][32 * k + g] & 3;
-        dec_a |= hit;
-        if (act == kActAllow) {
-          allow_a |= first;
-        } else if (act != kActPass && act != kActNone) {
-          deny_a |= first;
-        }
-      }
-      if (rb >> g & 1) {
-        const uint32_t first = hit & ~dec_b;
-        const int act = ts.key[kDir][1][32 * k + g] & 3;
-        dec_b |= hit;
-        if (act != kActNone && act != kActAllow) deny_b |= first;
+      for (int j = 0; j < kWords; ++j) {
+        const uint32_t first = rmask & cw[j] & ~z.dec[j];
+        z.dec[j] |= rmask & cw[j];
+        z.deny_b[j] |= first & bm;
       }
     }
   }
-  // resolve_tier on every cell at once: an ANP Allow / Deny decides; else
-  // the NetworkPolicy verdict where a target selects the subject, else
-  // the BANP verdict (allow unless its first matching row denies)
-  return allow_a | (~(allow_a | deny_a) & ((has & np) | (~has & ~deny_b)));
 }
 
-// Bit k set: staged word k of direction d has a live row.
-__device__ __forceinline__ uint32_t live_words(const TierSmem& ts, int d, int n) {
-  uint32_t m = 0;
-  for (int k = 0; k < n; ++k) m |= (uint32_t)(ts.live[d][k] != 0) << k;
-  return m;
-}
-
-// min of keys[b] over the set bits b of m; sorted: the keys are
-// non-decreasing over the bits that m can hold, so the first bit's key
-__device__ __forceinline__ int32_t min_key(uint32_t m, const int32_t* keys, bool sorted) {
-  if (m == 0) return kKeyNone;
-  if (sorted) return keys[__ffs(m) - 1];
-  int32_t best = kKeyNone;
-  while (m) {
-    best = min(best, keys[__ffs(m) - 1]);
-    m &= m - 1;
-  }
-  return best;
-}
-
-// Fold the staged words in `words` into the min keys of src row `row`
-// (shared by the warp) and this lane's kCols dst cols, direction kDir.
+// Direction kDir of the thread's cells through the tier lattice: each
+// position of the walk, in order, decides the cells it matches that no
+// earlier position of its tier decided, as 32-bit masks over the thread's
+// 128 cells (the first match holds the min key).  `np` holds the
+// NetworkPolicy verdicts, `has` the cells whose subject some target
+// selects; np becomes the lattice's.  Every thread of the warpgroup calls
+// it (named barrier 1 + wg, as the flush); `staged`: the caller has staged
+// the first pass already.
 template <int kDir>
-__device__ __forceinline__ void tier_accumulate(const TierSmem& ts, uint32_t words, int row,
-                                                int lane, int32_t (&anp)[kCols],
-                                                int32_t (&banp)[kCols]) {
-  for (; words; words &= words - 1) {
-    const int k = __ffs(words) - 1;
-    const uint32_t rbits = (uint32_t)(kDir == 0 ? ts.se[k][row] : ts.pi[k][row]) & ts.live[kDir][k];
-    if (rbits == 0) continue;  // the same for the whole warp
-    const uint32_t ra = ts.real[kDir][0][k], rb = ts.real[kDir][1][k];
-    const uint32_t sorted = ts.sorted[kDir][k];
-    const int32_t* ka = &ts.key[kDir][0][32 * k];
-    const int32_t* kb = &ts.key[kDir][1][32 * k];
+__device__ __forceinline__ void tier_lattice(const Epi& e, TierStage& ts, int real_a, int n_all,
+                                             int q, int r0, int ns_pad, int cb, int t, int wg,
+                                             bool staged, const uint32_t (&has)[kWords],
+                                             uint32_t (&np)[kWords]) {
+  const int wq = e.lp[kDir] / kPass, l = t & 3;
+  const int4* rows = reinterpret_cast<const int4*>(e.rows[kDir]) +
+                     (kDir == 1 ? (size_t)q * ns_pad * wq : 0);
+  const int4* row0 = r0 < ns_pad ? rows + (size_t)r0 * wq : nullptr;
+  const int4* row8 = r0 + 8 < ns_pad ? rows + (size_t)(r0 + 8) * wq : nullptr;
+  Lattice z;
+  z.banp = false;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const uint32_t m =
-          rbits & (uint32_t)(kDir == 0 ? ts.pe[k][lane + 32 * c] : ts.si[k][lane + 32 * c]);
-      anp[c] = min(anp[c], min_key(m & ra, ka, sorted & 1));
-      banp[c] = min(banp[c], min_key(m & rb, kb, sorted & 2));
+  for (int j = 0; j < kWords; ++j) z.dec[j] = z.allow[j] = z.deny[j] = z.deny_b[j] = 0;
+  for (int i0 = 0; i0 < n_all; i0 += kPass) {
+    const int n = min(kPass, n_all - i0);
+    if (!staged || i0 > 0) {
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the stage is read
+      stage_pass<kDir>(e, ts, q, cb, t, i0, n);
     }
+    const int4 s0 = row0 ? __ldg(row0 + i0 / kPass) : make_int4(0, 0, 0, 0);
+    const int4 s8 = row8 ? __ldg(row8 + i0 / kPass) : make_int4(0, 0, 0, 0);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");  // the stage is written
+    walk_word(ts, (uint32_t)s0.x, (uint32_t)s8.x, 0, n, i0, real_a, l, z);
+    walk_word(ts, (uint32_t)s0.y, (uint32_t)s8.y, 32, n - 32, i0, real_a, l, z);
+    walk_word(ts, (uint32_t)s0.z, (uint32_t)s8.z, 64, n - 64, i0, real_a, l, z);
+    walk_word(ts, (uint32_t)s0.w, (uint32_t)s8.w, 96, n - 96, i0, real_a, l, z);
+  }
+  // the lattice on every cell at once: an ANP Allow / Deny decides; else
+  // the NetworkPolicy verdict where a target selects the subject, else the
+  // BANP verdict (allow unless its first matching row denies)
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    np[j] = z.allow[j] |
+            (~(z.allow[j] | z.deny[j]) & ((has[j] & np[j]) | (~has[j] & ~z.deny_b[j])));
   }
 }
 
-// A cell that no real row matches (both keys kKeyNone) keeps its
-// NetworkPolicy bit: resolve_tier would return !has || np_allowed, which
-// is that bit already.
-__device__ __forceinline__ uint32_t resolve_bits(uint32_t bits, int bit, bool has, int32_t anp,
-                                                 int32_t banp) {
-  if (anp == kKeyNone && banp == kKeyNone) return bits;
-  const uint32_t v = resolve_tier((bits >> bit) & 1u, has, anp, banp);
-  return (bits & ~(1u << bit)) | (v << bit);
-}
-
-// Direction kDir of the thread's 32 cells, any key order: per src row,
-// each cell's min keys over the words in `words`, then the lattice where
-// a real row matched (`has`: the cells whose subject some target selects).
-template <int kDir>
-__device__ __forceinline__ uint32_t tier_per_cell(const TierSmem& ts, uint32_t words, int r0,
-                                                  int lane, uint32_t bits, uint32_t has) {
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    int32_t anp[kCols], banp[kCols];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) anp[c] = banp[c] = kKeyNone;
-    tier_accumulate<kDir>(ts, words, r0 + r, lane, anp, banp);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int bit = r * kCols + c;
-      bits = resolve_bits(bits, bit, has >> bit & 1, anp[c], banp[c]);
-    }
-  }
-  return bits;
-}
-
+// The item's verdicts of this thread's cells (egress nz bits parked in
+// held, ingress nz bits in nz_i) into its counts (plain: held.counts) or the
+// row sums (weighted: atomics).
 template <bool kWeighted, bool kTiered>
-__global__ void __launch_bounds__(kThreads)
-packed_counts_kernel(const int32_t* __restrict__ a_e,  // [ns_pad, we + 1]
-                     const int32_t* __restrict__ b_e,  // [q, we, nd_pad]
-                     const int32_t* __restrict__ b_i,  // [q, ns_pad, wi]
-                     const int32_t* __restrict__ a_i,  // [wi + 1, nd_pad]
-                     const float* __restrict__ w,      // [nd_pad] (K2)
-                     int32_t* __restrict__ counts,     // [q, ns_pad / bs, 3] (K1)
-                     float* __restrict__ rowsums,      // [q, ns_pad, 3] (K2)
-                     const int32_t* __restrict__ t_se,  // [ns_pad, wge] egress subjects (K3)
-                     const int32_t* __restrict__ t_pe,  // [q, wge, nd_pad] egress peers
-                     const int32_t* __restrict__ t_si,  // [wgi, nd_pad] ingress subjects
-                     const int32_t* __restrict__ t_pi,  // [q, ns_pad, wgi] ingress peers
-                     const int32_t* __restrict__ keys_e,  // [2, 32 * wge] anp, banp
-                     const int32_t* __restrict__ keys_i,  // [2, 32 * wgi]
-                     int ns_pad, int nd_pad, int we, int wi, int wge, int wgi, int bs) {
-  __shared__ int32_t s_ae[kChunk][kSrcTile];  // egress tmatch (tier: subject) words by src row
-  __shared__ int32_t s_bi[kChunk][kSrcTile];  // ingress tallow (tier: peer) words by src row
-  __shared__ int32_t s_be[kChunk][kDstTile];  // egress tallow (tier: peer) words by dst col
-  __shared__ int32_t s_ai[kChunk][kDstTile];  // ingress tmatch (tier: subject) words by dst col
-  __shared__ int32_t s_fs[kSrcTile];          // src flags words
-  __shared__ int32_t s_fd[kDstTile];          // dst flags words
-
-  const int q = blockIdx.z;
-  const int row0 = blockIdx.y * kSrcTile;
-  const int col0 = blockIdx.x * kDstTile;
-  const int tid = threadIdx.x;
-
-  const int32_t* ae_t = a_e + (size_t)row0 * (we + 1);
-  const int32_t* bi_t = b_i + ((size_t)q * ns_pad + row0) * wi;
-  const int32_t* be_q = b_e + (size_t)q * we * nd_pad + col0;
-  const int32_t* ai_t = a_i + col0;
-  if (tid < kSrcTile) s_fs[tid] = ae_t[(size_t)tid * (we + 1) + we];
-  if (tid < kDstTile) s_fd[tid] = ai_t[(size_t)wi * nd_pad + tid];
-
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int r0 = warp * kRows;  // this thread's rows r0 .. r0 + kRows - 1
-                                // and columns lane + 32 * c
-
-  // tiered: the block's tier operands (built where used, so nothing of
-  // them stays live across the main loop)
-  auto tier_args = [&]() {
-    return TierArgs{t_se + (size_t)row0 * wge, t_pe + (size_t)q * wge * nd_pad + col0,
-                    t_si + col0, t_pi + ((size_t)q * ns_pad + row0) * wgi,
-                    keys_e, keys_i, wge, wgi, nd_pad};
-  };
-  // when both directions' tier words fit one pass, their copies into
-  // shared memory start here, once, and land while the main loop runs
+__device__ __forceinline__ void epilogue(const Params& p, const Epi& e, const Item& x, int wg,
+                                         int ct, const uint32_t (&nz_i)[kWords], Held& held,
+                                         TierSmem* tsm) {
+  const int t = ct & 127, lane = t & 31, warp = t >> 5, l = lane & 3;
+  const int r0 = x.row0 + 64 * wg + 16 * warp + (lane >> 2);
+  const int cb = x.col0 / kN;
+  int ae = 0, ne = 0, ai = 0, ni = 0;
   if constexpr (kTiered) {
-    if (wge <= kTierPass && wgi <= kTierPass) stage_tier(tier_smem(), tier_args(), 0);
-  }
-
-  int32_t acc_e[kRows][kCols];
-  int32_t acc_i[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      acc_e[r][c] = 0;
-      acc_i[r][c] = 0;
+    // the first pass of the first walked direction, its loads in flight
+    // with the flags' (the stage is free: the warpgroup has left the last
+    // item's walk)
+    ae = tsm->real[0][0];
+    ne = ae + tsm->real[0][1];
+    ai = tsm->real[1][0];
+    ni = ai + tsm->real[1][1];
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (ne > 0) {
+      stage_pass<0>(e, tsm->stage[wg], x.q, cb, t, 0, min(kPass, ne));
+    } else if (ni > 0) {
+      stage_pass<1>(e, tsm->stage[wg], x.q, cb, t, 0, min(kPass, ni));
     }
   }
-
-  const int depth = we > wi ? we : wi;
-  for (int k0 = 0; k0 < depth; k0 += kChunk) {
-    const int ne = min(kChunk, max(we - k0, 0));  // egress words this pass
-    const int ni = min(kChunk, max(wi - k0, 0));  // ingress words this pass
-    if (k0 > 0) __syncthreads();  // every read of the previous chunk is done
-    for (int idx = tid; idx < kSrcTile * ne; idx += kThreads) {
-      const int r = idx / ne, k = idx - r * ne;
-      s_ae[k][r] = ae_t[(size_t)r * (we + 1) + k0 + k];
-    }
-    for (int idx = tid; idx < kSrcTile * ni; idx += kThreads) {
-      const int r = idx / ni, k = idx - r * ni;
-      s_bi[k][r] = bi_t[(size_t)r * wi + k0 + k];
-    }
-    for (int idx = tid; idx < kDstTile * ne; idx += kThreads) {
-      const int k = idx / kDstTile, c = idx - k * kDstTile;
-      s_be[k][c] = be_q[(size_t)(k0 + k) * nd_pad + c];
-    }
-    for (int idx = tid; idx < kDstTile * ni; idx += kThreads) {
-      const int k = idx / kDstTile, c = idx - k * kDstTile;
-      s_ai[k][c] = ai_t[(size_t)(k0 + k) * nd_pad + c];
-    }
-    __syncthreads();
-
-    for (int k = 0; k < ne; ++k) {
-      int32_t bd[kCols];
+  const int f0 = r0 < p.ns_pad ? __ldg(e.f_s + r0) : 0;
+  const int f8 = r0 + 8 < p.ns_pad ? __ldg(e.f_s + r0 + 8) : 0;
+  const uint32_t has_s = ((f0 & 1) ? kRow0 : 0u) | ((f8 & 1) ? kRow8 : 0u);
+  const int4 vd4 = __ldg(e.fd + (size_t)cb * 4 + l);
+  const int4 hd4 = __ldg(e.fd + ((size_t)e.nb + cb) * 4 + l);
+  const uint32_t has_d[kWords] = {(uint32_t)hd4.x, (uint32_t)hd4.y, (uint32_t)hd4.z,
+                                  (uint32_t)hd4.w};
+  uint32_t eg[kWords], in[kWords];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) bd[c] = s_be[k][lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int32_t as = s_ae[k][r0 + r];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc_e[r][c] |= as & bd[c];
-      }
-    }
-    for (int k = 0; k < ni; ++k) {
-      int32_t ad[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) ad[c] = s_ai[k][lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int32_t bs_ = s_bi[k][r0 + r];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc_i[r][c] |= bs_ & ad[c];
-      }
-    }
+  for (int j = 0; j < kWords; ++j) {
+    eg[j] = held.eg_bits[j][ct] | ~has_s;
+    in[j] = nz_i[j] | ~has_d[j];
   }
-
-  int32_t flags_s[kRows];
-  int32_t flags_d[kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) flags_s[r] = s_fs[r0 + r];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) flags_d[c] = s_fd[lane + 32 * c];
-
-  // tiered: the verdicts of the thread's 32 cells as one mask per
-  // direction (bit r * kCols + c), which frees the accumulators for the
-  // tier epilogue; untiered, the epilogue reads the accumulators
-  uint32_t eg_bits = 0, in_bits = 0;
-  auto verdicts = [&](int r, int c, bool& eg, bool& in) {
-    if constexpr (kTiered) {
-      eg = (eg_bits >> (r * kCols + c)) & 1u;
-      in = (in_bits >> (r * kCols + c)) & 1u;
-    } else {
-      eg = !(flags_s[r] & 1) || acc_e[r][c] != 0;
-      in = !(flags_d[c] & 1) || acc_i[r][c] != 0;
-    }
-  };
-
-  // tiered: per thread, masks over its cells of the src rows / dst cols
-  // with a target (has) and of the valid ones
-  uint32_t has_s = 0, has_d = 0, valid_s = 0, valid_d = 0;
   if constexpr (kTiered) {
-    uint32_t nz_e = 0, nz_i = 0;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      has_s |= (flags_s[r] & 1) ? 0xFu << (kCols * r) : 0u;
-      valid_s |= (flags_s[r] & 2) ? 0xFu << (kCols * r) : 0u;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        nz_e |= (uint32_t)(acc_e[r][c] != 0) << (r * kCols + c);
-        nz_i |= (uint32_t)(acc_i[r][c] != 0) << (r * kCols + c);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      has_d |= (flags_d[c] & 1) ? 0x11111111u << c : 0u;
-      valid_d |= (flags_d[c] & 2) ? 0x11111111u << c : 0u;
-    }
-    eg_bits = nz_e | ~has_s;
-    in_bits = nz_i | ~has_d;
-
-    TierSmem& ts = tier_smem();
-    if (wge <= kTierPass && wgi <= kTierPass) {
-      cp_async_wait();
-      __syncthreads();
-      tier_meta(ts, wge, wgi);
-      __syncthreads();
-      // the words (copied while the main loop ran) and their facts are
-      // in place: a direction with no live word in the block is skipped
-      // whole, one whose keys are in order takes the bit-parallel
-      // lattice, any other the per-cell min; no barrier in either
-      const uint32_t lw_e = live_words(ts, 0, wge), lw_i = live_words(ts, 1, wgi);
-      if (lw_e) {
-        eg_bits = keys_in_order(ts, 0, wge) ? tier_in_order<0>(ts, wge, r0, lane, eg_bits, has_s)
-                                            : tier_per_cell<0>(ts, lw_e, r0, lane, eg_bits, has_s);
-      }
-      if (lw_i) {
-        in_bits = keys_in_order(ts, 1, wgi) ? tier_in_order<1>(ts, wgi, r0, lane, in_bits, has_d)
-                                            : tier_per_cell<1>(ts, lw_i, r0, lane, in_bits, has_d);
-      }
-    } else {
-      // past one pass: each src row walks every pass, staging it again
-      // (any row count launches); not unrolled, since it stages and syncs
-      const int tdepth = wge > wgi ? wge : wgi;
-      for (int r = 0; r < kRows; ++r) {
-        int32_t anp_e[kCols], banp_e[kCols], anp_i[kCols], banp_i[kCols];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) anp_e[c] = banp_e[c] = anp_i[c] = banp_i[c] = kKeyNone;
-        for (int k0 = 0; k0 < tdepth; k0 += kTierPass) {
-          __syncthreads();  // every read of the previous words is done
-          stage_tier(ts, tier_args(), k0);
-          cp_async_wait();
-          __syncthreads();
-          const int ne = min(kTierPass, max(wge - k0, 0));
-          const int ni = min(kTierPass, max(wgi - k0, 0));
-          tier_meta(ts, ne, ni);
-          __syncthreads();
-          tier_accumulate<0>(ts, live_words(ts, 0, ne), r0 + r, lane, anp_e, banp_e);
-          tier_accumulate<1>(ts, live_words(ts, 1, ni), r0 + r, lane, anp_i, banp_i);
-        }
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          const int bit = r * kCols + c;
-          eg_bits = resolve_bits(eg_bits, bit, has_s >> bit & 1, anp_e[c], banp_e[c]);
-          in_bits = resolve_bits(in_bits, bit, has_d >> bit & 1, anp_i[c], banp_i[c]);
-        }
-      }
+    // a direction whose walk holds no real position is skipped whole (the
+    // benchmark lattice's egress rows are all pads)
+    TierStage& ts = tsm->stage[wg];
+    const uint32_t has_e[kWords] = {has_s, has_s, has_s, has_s};
+    if (ne > 0) tier_lattice<0>(e, ts, ae, ne, x.q, r0, p.ns_pad, cb, t, wg, true, has_e, eg);
+    if (ni > 0) {
+      tier_lattice<1>(e, ts, ai, ni, x.q, r0, p.ns_pad, cb, t, wg, ne == 0, has_d, in);
     }
   }
-
   if constexpr (!kWeighted) {
+    const uint32_t valid_s = ((f0 & 2) ? kRow0 : 0u) | ((f8 & 2) ? kRow8 : 0u);
+    const uint32_t valid_d[kWords] = {(uint32_t)vd4.x, (uint32_t)vd4.y, (uint32_t)vd4.z,
+                                      (uint32_t)vd4.w};
     int c_in = 0, c_eg = 0, c_co = 0;
-    if constexpr (kTiered) {
-      const uint32_t valid = valid_s & valid_d;
-      c_in = __popc(in_bits & valid);
-      c_eg = __popc(eg_bits & valid);
-      c_co = __popc(in_bits & eg_bits & valid);
-    } else {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
+    for (int j = 0; j < kWords; ++j) {
+      const uint32_t valid = valid_s & valid_d[j];
+      c_in += __popc(in[j] & valid);
+      c_eg += __popc(eg[j] & valid);
+      c_co += __popc(in[j] & eg[j] & valid);
+    }
+    held.counts[0][ct] += c_in;
+    held.counts[1][ct] += c_eg;
+    held.counts[2][ct] += c_co;
+  } else {
+    // row h (r0 + 8 h) of the thread: cells b = 4 m + 2 h + e of word j,
+    // col 64 j + 8 m + 2 l + e; its four lanes hold the row's 256 cols
+    float s[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          bool eg, in;
-          verdicts(r, c, eg, in);
-          const bool valid = (flags_s[r] & 2) && (flags_d[c] & 2);
-          c_in += valid && in;
-          c_eg += valid && eg;
-          c_co += valid && in && eg;
+    for (int j = 0; j < kWords; ++j) {
+      const uint32_t co = in[j] & eg[j];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int col = x.col0 + 64 * j + 8 * m + 2 * l;
+        const float2 wd = col < p.nd_pad ? __ldg(reinterpret_cast<const float2*>(e.w + col))
+                                         : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int b = 4 * m + 2 * h;
+          s[h][0] += ((in[j] >> b) & 1 ? wd.x : 0.f) + ((in[j] >> (b + 1)) & 1 ? wd.y : 0.f);
+          s[h][1] += ((eg[j] >> b) & 1 ? wd.x : 0.f) + ((eg[j] >> (b + 1)) & 1 ? wd.y : 0.f);
+          s[h][2] += ((co >> b) & 1 ? wd.x : 0.f) + ((co >> (b + 1)) & 1 ? wd.y : 0.f);
         }
       }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      c_in += __shfl_down_sync(0xffffffffu, c_in, off);
-      c_eg += __shfl_down_sync(0xffffffffu, c_eg, off);
-      c_co += __shfl_down_sync(0xffffffffu, c_co, off);
-    }
-    __shared__ int32_t red[3][kWarps];
-    if (lane == 0) {
-      red[0][warp] = c_in;
-      red[1][warp] = c_eg;
-      red[2][warp] = c_co;
-    }
-    __syncthreads();
-    if (tid < 3) {
-      int32_t total = 0;
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int i = 0; i < kWarps; ++i) total += red[tid][i];
-      if (total != 0) {
-        atomicAdd(&counts[((size_t)q * (ns_pad / bs) + row0 / bs) * 3 + tid], total);
+      for (int v = 0; v < 3; ++v) {
+        s[h][v] += __shfl_xor_sync(kFull, s[h][v], 1);
+        s[h][v] += __shfl_xor_sync(kFull, s[h][v], 2);
       }
-    }
-  } else {
-    float wd[kCols];
+      const int r = r0 + 8 * h;
+      if (l == 0 && r < p.ns_pad) {
+        float* out = e.rowsums + ((size_t)x.q * p.ns_pad + r) * 3;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) wd[c] = w[col0 + lane + 32 * c];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float s_in = 0.f, s_eg = 0.f, s_co = 0.f;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        bool eg, in;
-        verdicts(r, c, eg, in);
-        s_in += in ? wd[c] : 0.f;
-        s_eg += eg ? wd[c] : 0.f;
-        s_co += (in && eg) ? wd[c] : 0.f;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s_in += __shfl_down_sync(0xffffffffu, s_in, off);
-        s_eg += __shfl_down_sync(0xffffffffu, s_eg, off);
-        s_co += __shfl_down_sync(0xffffffffu, s_co, off);
-      }
-      if (lane == 0) {
-        float* out = rowsums + ((size_t)q * ns_pad + row0 + r0 + r) * 3;
-        if (s_in != 0.f) atomicAdd(out + 0, s_in);
-        if (s_eg != 0.f) atomicAdd(out + 1, s_eg);
-        if (s_co != 0.f) atomicAdd(out + 2, s_co);
+        for (int v = 0; v < 3; ++v) {
+          if (s[h][v] != 0.f) atomicAdd(out + v, s[h][v]);
+        }
       }
     }
   }
 }
 
-struct Args {
-  const void *a_e, *b_e, *b_i, *a_i, *w;
-  void* out;
-  const void *t_se, *t_pe, *t_si, *t_pi, *keys_e, *keys_i;
-  int q, ns_pad, nd_pad, we, wi, wge, wgi, bs;
-};
+template <bool kWeighted, bool kTiered>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    packed_counts_kernel(const __grid_constant__ CUtensorMap tm_ae,
+                         const __grid_constant__ CUtensorMap tm_be,
+                         const __grid_constant__ CUtensorMap tm_bi,
+                         const __grid_constant__ CUtensorMap tm_ai, const Params p,
+                         const Epi e) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+  __shared__ Held held;
+  __shared__ std::conditional_t<kTiered, TierSmem, int> tier_smem;
+  TierSmem* tsm = nullptr;
+  if constexpr (kTiered) {
+    tsm = &tier_smem;
+    if (threadIdx.x < 4) {
+      // a select, not an index into the parameter (which would copy it to
+      // local memory)
+      const int32_t* real = threadIdx.x < 2 ? e.real[0] : e.real[1];
+      tsm->real[threadIdx.x >> 1][threadIdx.x & 1] = __ldg(real + (threadIdx.x & 1));
+    }
+  }
+  uint8_t* smem = block_setup<kStage>(smem_raw, full, empty, held, !kWeighted);
+
+  const int wg = threadIdx.x / 128;
+  Ring ring{0, 0};
+  if (wg == 2) {
+    // producer: one thread issues every load, for every item of the block
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      for (int it = blockIdx.x; it < p.items; it += gridDim.x) {
+        const Item x = item_at(p, it);
+        produce<false, false, kStage>(p, x, smem, full, empty, ring, &tm_ae, &tm_be);
+        produce<false, true, kStage>(p, x, smem, full, empty, ring, &tm_bi, &tm_ai);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  int32_t acc[kAcc];
+  uint32_t bits[kWords];
+  const int ct = threadIdx.x;
+  for (int it = blockIdx.x; it < p.items; it += gridDim.x) {
+    contract<false, false, kStage, true>(p, item_at(p, opaque(it)), smem, full, empty, ring, wg,
+                                         acc);
+    nonzero_bits(acc, bits);
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) held.eg_bits[j][ct] = bits[j];
+    contract<false, true, kStage, true>(p, item_at(p, opaque(it)), smem, full, empty, ring, wg,
+                                        acc);
+    nonzero_bits(acc, bits);
+    const Item x = item_at(p, opaque(it));
+    epilogue<kWeighted, kTiered>(p, e, x, wg, opaque(ct), bits, held, tsm);
+    if constexpr (!kWeighted) {
+      // flush when the block's next item falls in another segment for this
+      // warpgroup, or there is none (at the end of the body: with a flush
+      // before the products ptxas spills the accumulators, C7512)
+      const int seg = segment(p, x, wg);
+      const int next = opaque(it) + gridDim.x;
+      const bool last = next >= p.items;
+      if (last || segment(p, item_at(p, next), wg) != seg) flush(p, seg, wg, ct, held, last);
+    }
+  }
+}
 
 template <bool kWeighted, bool kTiered>
-int launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.nd_pad / kDstTile, a.ns_pad / kSrcTile, a.q);
-  auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
-  packed_counts_kernel<kWeighted, kTiered><<<grid, kThreads, 0, stream>>>(
-      i32(a.a_e), i32(a.b_e), i32(a.b_i), i32(a.a_i), static_cast<const float*>(a.w),
-      kWeighted ? nullptr : static_cast<int32_t*>(a.out),
-      kWeighted ? static_cast<float*>(a.out) : nullptr, i32(a.t_se), i32(a.t_pe),
-      i32(a.t_si), i32(a.t_pi), i32(a.keys_e), i32(a.keys_i), a.ns_pad, a.nd_pad, a.we,
-      a.wi, a.wge, a.wgi, a.bs);
+int launch(const void* a_e, const void* b_e, const void* b_i, const void* a_i, int q, int de,
+           int di, const Params& p, const Epi& e, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  if (!encode_maps<kStage>(maps, a_e, b_e, b_i, a_i, q, de, di, p)) return kErrTensorMap;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(packed_counts_kernel<kWeighted, kTiered>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  int grid = 0;
+  const cudaError_t err = persistent_grid(p.items, &grid);
+  if (err != cudaSuccess) return (int)err;
+  packed_counts_kernel<kWeighted, kTiered>
+      <<<grid, kBlockThreads, kSmem, stream>>>(maps[0], maps[1], maps[2], maps[3], p, e);
   return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) {
+  return ptr != nullptr && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
 }  // namespace
 
-// Registers, static shared memory and local (spill) bytes per thread of
-// each instance: which = weighted + 2 * tiered (0 = K1, 1 = K2, 2 =
-// K3-plain, 3 = K3-weighted).  Returns 0 or a cudaError_t code.
+// Registers, static and dynamic shared memory and local (spill) bytes per
+// thread of each instance: which = weighted + 2 * tiered (0 = K1, 1 = K2,
+// 2 = K3-plain, 3 = K3-weighted).  Returns 0 or a cudaError_t code.
 extern "C" int cyclonus_packed_kernel_attrs(int which, int* regs, int* smem_static,
-                                            int* local_bytes) {
+                                            int* smem_dynamic, int* local_bytes) {
   cudaFuncAttributes attr;
   cudaError_t err;
   switch (which) {
@@ -698,40 +490,87 @@ extern "C" int cyclonus_packed_kernel_attrs(int which, int* regs, int* smem_stat
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;
   *smem_static = (int)attr.sharedSizeBytes;
+  *smem_dynamic = kSmem;
   *local_bytes = (int)attr.localSizeBytes;
   return 0;
 }
 
 // Launch K1 (weighted == 0) or K2 (weighted != 0) on `stream`, tiered (K3)
-// when t_se is not null: then all six tier pointers must be set and wge,
-// wgi >= 1.  `out` must be zero-filled by the caller.  Returns 0 or a
-// cudaError_t code.
+// when t_rows_e is not null.  Operands (int32 unless said, contiguous):
+// a_e [ns_pad, de], b_e [q, nd_pad, de], b_i [q, ns_pad, di], a_i [nd_pad,
+// di] packed words, de and di multiples of 8; f_s [ns_pad] and f_d_frag
+// [2, nb, 16] (nb = nd_pad / 256 rounded up); w [nd_pad] float32
+// (weighted); out [q, ns_pad / bs, 3] int32 or [q, ns_pad, 3] float32,
+// zero-filled by the caller.  Tiered (tier_lattice), all of, over lpe and
+// lpi walk positions (multiples of 128): rows_e [ns_pad, lpe / 32], rows_i
+// [q, ns_pad, lpi / 32], frag_e [q, nb, lpe, 16], frag_i [nb, lpi, 16],
+// key_e [lpe], key_i [lpi], real_e and real_i [2].  bs a multiple of 64
+// that divides ns_pad, nd_pad a multiple of 128; the four contraction
+// operands, the fragment tables, the position words and keys 16-byte
+// aligned.
+// Returns 0, a cudaError_t code or -1 (a tensor map could not be encoded).
 extern "C" int cyclonus_packed_counts(const void* a_e, const void* b_e, const void* b_i,
-                                      const void* a_i, const void* w, void* out,
-                                      const void* t_se, const void* t_pe, const void* t_si,
-                                      const void* t_pi, const void* keys_e,
-                                      const void* keys_i, int q, int ns_pad, int nd_pad,
-                                      int we, int wi, int wge, int wgi, int bs, int weighted,
-                                      void* stream) {
-  const bool tiered = t_se != nullptr;
-  if (q < 1 || q > 65535 || we < 1 || wi < 1 || bs < kSrcTile || bs % kSrcTile != 0 ||
-      ns_pad < 1 || ns_pad % bs != 0 || ns_pad / kSrcTile > 65535 || nd_pad < 1 ||
-      nd_pad % kDstTile != 0 || (weighted && w == nullptr)) {
+                                      const void* a_i, const void* f_s, const void* f_d_frag,
+                                      const void* w, void* out, const void* rows_e,
+                                      const void* rows_i, const void* frag_e,
+                                      const void* frag_i, const void* key_e, const void* key_i,
+                                      const void* real_e, const void* real_i, int q, int ns_pad,
+                                      int nd_pad, int de, int di, int lpe, int lpi, int bs,
+                                      int weighted, void* stream) {
+  const bool tiered = rows_e != nullptr;
+  if (q < 1 || q > 65535 || de < 8 || di < 8 || de % 8 != 0 || di % 8 != 0 || bs < 64 ||
+      bs % 64 != 0 || ns_pad < 1 || ns_pad % bs != 0 || ns_pad >= (1 << 30) || nd_pad < 1 ||
+      nd_pad % 128 != 0 || nd_pad >= (1 << 30) || f_s == nullptr || !aligned16(f_d_frag) ||
+      out == nullptr || (weighted && w == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  if (tiered && (t_pe == nullptr || t_si == nullptr || t_pi == nullptr ||
-                 keys_e == nullptr || keys_i == nullptr || wge < 1 || wgi < 1)) {
+  if (tiered && (!aligned16(rows_e) || !aligned16(rows_i) || !aligned16(frag_e) ||
+                 !aligned16(frag_i) || !aligned16(key_e) || !aligned16(key_i) ||
+                 real_e == nullptr || real_i == nullptr || lpe < kPass || lpe % kPass != 0 ||
+                 lpi < kPass || lpi % kPass != 0)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a{a_e,  b_e,    b_i,    a_i,    w,  out, t_se, t_pe, t_si, t_pi, keys_e,
-               keys_i, q,    ns_pad, nd_pad, we, wi,  wge,  wgi,  bs};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* operands[4] = {a_e, b_e, b_i, a_i};
+  for (const void* ptr : operands) {
+    if (!aligned16(ptr)) return (int)cudaErrorInvalidValue;
+  }
+  Params p{};
+  p.counts = weighted ? nullptr : static_cast<int32_t*>(out);
+  // one tile per axis; each direction one chunk of its whole depth, in bytes
+  if (!init_params(p, q, 1, 1, ns_pad, nd_pad, bs, 4 * de, 4 * di, 4 * de, 4 * di, 0, 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto i32 = [](const void* ptr) { return static_cast<const int32_t*>(ptr); };
+  auto v4 = [](const void* ptr) { return static_cast<const int4*>(ptr); };
+  Epi e{};
+  e.f_s = i32(f_s);
+  e.fd = v4(f_d_frag);
+  e.w = static_cast<const float*>(w);
+  e.rowsums = weighted ? static_cast<float*>(out) : nullptr;
+  e.nb = (nd_pad + kN - 1) / kN;
   if (tiered) {
-    return weighted ? launch<true, true>(a, s) : launch<false, true>(a, s);
+    e.rows[0] = i32(rows_e);
+    e.rows[1] = i32(rows_i);
+    e.frag[0] = v4(frag_e);
+    e.frag[1] = v4(frag_i);
+    e.key[0] = i32(key_e);
+    e.key[1] = i32(key_i);
+    e.real[0] = i32(real_e);
+    e.real[1] = i32(real_i);
+    e.lp[0] = lpe;
+    e.lp[1] = lpi;
   }
-  return weighted ? launch<true, false>(a, s) : launch<false, false>(a, s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dbe = 4 * de, dbi = 4 * di;  // row pitches in bytes
+  if (tiered) {
+    return weighted ? launch<true, true>(a_e, b_e, b_i, a_i, q, dbe, dbi, p, e, s)
+                    : launch<false, true>(a_e, b_e, b_i, a_i, q, dbe, dbi, p, e, s);
+  }
+  return weighted ? launch<true, false>(a_e, b_e, b_i, a_i, q, dbe, dbi, p, e, s)
+                  : launch<false, false>(a_e, b_e, b_i, a_i, q, dbe, dbi, p, e, s);
 }
 
 extern "C" const char* cyclonus_cuda_error_string(int err) {
+  if (err == kErrTensorMap) return "cuTensorMapEncodeTiled failed or is unavailable";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

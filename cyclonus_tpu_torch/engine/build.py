@@ -5,8 +5,8 @@ sm_90a into a shared library with a plain C interface, loaded with
 ctypes (no PyTorch headers: a build takes seconds, not minutes).  The
 library lands in build/torch_kernels/ at the repository root (git
 ignores it; CYCLONUS_TORCH_BUILD_DIR overrides), named by a digest of
-its source and flags, so an edited source rebuilds and an unchanged one
-is reused.
+its source, the headers under csrc/ and the flags, so an edited source or
+header rebuilds and an unchanged one is reused.
 
 Nothing here runs at import time; the first launch builds.
 """
@@ -55,6 +55,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (_CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{digest}.so"
 

@@ -33,28 +33,41 @@ and the epilogue is either
 verdict_counts_packed is the wrapper: a CPU tensor goes through the plain
 PyTorch version (verdict_counts_packed_plain), a CUDA tensor through the
 hand-written kernel in csrc/packed_counts.cu, and nothing else.  Both
-share one operand layout (_packed_operands):
+share one operand layout (_packed_operands), the contraction operands
+K-major (words innermost), each row zero-padded to De = We or Di = Wi
+rounded up to a multiple of STEP_WORDS (8 words, 32 bytes: one step of
+the kernel's single-bit product; zero words change no AND, OR or popc):
 
-  a_e [Ns', We+1] int32  src rows: egress tmatch words, then the flags word
-  b_e [Q, We, Nd'] int32 egress tallow words by dst column
-  b_i [Q, Ns', Wi] int32 src rows: ingress tallow words
-  a_i [Wi+1, Nd'] int32  ingress tmatch words by dst column, then flags
-  w   [Nd'] float32      dst weights (weighted epilogue only)
+  a_e [Ns', De] int32     src rows: egress tmatch words
+  b_e [Q, Nd', De] int32  dst rows: egress tallow words
+  b_i [Q, Ns', Di] int32  src rows: ingress tallow words
+  a_i [Nd', Di] int32     dst rows: ingress tmatch words
+  f_s [Ns'] int32         src flags: bit 0 = has_target, bit 1 = valid
+  f_d_frag [2, nb, 4, 4] int32  dst valid, then dst has, as _fragments
+                          lays dst bits out (nb = 256-column blocks)
+  w   [Nd'] float32       dst weights (weighted epilogue only)
 
-and, tiered, the tier rows packed 32 per word the same way (Wg =
-packed_words(G) per direction), each matrix laid out like the contraction
-operand of the same side:
+where _fragments puts a dst-indexed bit vector in the bit order of the
+kernel's accumulators, 16 words per 256 columns (_unfragments is its
+inverse).  Tiered, each direction's tier rows are listed as one walk
+(_walk): the rows with a real ANP key by non-decreasing key, then those
+with a real BANP key the same way, then the rest; Lp positions, 2 G
+padded to a multiple of PASS.  The tier bits are laid out by position:
 
-  subj_e  [Ns', Wge] int32     egress subjects by src row
-  peerq_e [Q, Wge, Nd'] int32  egress peers by dst column
-  subj_i  [Wgi, Nd'] int32     ingress subjects by dst column
-  peerq_i [Q, Ns', Wgi] int32  ingress peers by src row
-  keys_e / keys_i [2, 32 * Wg] int32  anp then banp keys, TIER_KEY_NONE
-                                      past the real rows
+  rows_e [Ns', Lp / 32] int32     egress subjects by src row, position words
+  rows_i [Q, Ns', Lp / 32] int32  ingress peers by src row
+  frag_e [Q, nb, Lp, 4, 4] int32  egress peers as dst fragments
+  frag_i [nb, Lp, 4, 4] int32     ingress subjects as dst fragments
+  key_e / key_i [Lp] int32        the key of each position, TIER_KEY_NONE
+                                  past the real ones
+  real_e / real_i [2] int32       real ANP, then BANP positions
 
-Flags words: bit 0 = has_target, bit 1 = valid.  Invalid pod columns are
-masked out of every packed operand, so a pad pod contributes nothing to
-either contraction.
+The kernel walks the positions in order, the first that matches a cell
+deciding it within its tier; the plain version takes each cell's min key
+over the same positions.  Both read exactly this layout.
+
+Invalid pod columns are masked out of every packed operand, so a pad pod
+contributes nothing to either contraction.
 """
 
 from __future__ import annotations
@@ -74,10 +87,27 @@ from .kernel import pack_bool_words_torch, resolve_tier_lattice
 PACKED_BS = 512
 PACKED_BD = 512
 
-#: the CUDA kernel's block tile (src rows x dst columns); bs and bd must
-#: be multiples of these on the card
+#: the CUDA kernel's granularity: bs must be a multiple of CUDA_SRC_TILE
+#: (one consumer warpgroup's rows) and bd of CUDA_DST_TILE on the card
 CUDA_SRC_TILE = 64
 CUDA_DST_TILE = 128
+#: words per step of the kernel's single-bit product (256 bits, 32 bytes);
+#: each contraction row is zero-padded to a multiple of it
+STEP_WORDS = 8
+#: dst columns of one work item of the kernel, and of one block of a
+#: fragment table
+FRAG_COLS = 256
+#: tier walk positions the kernel stages at a time; each direction's walk
+#: is padded to a multiple of it
+PASS = 128
+
+#: the kernel instance each wrapper launches (csrc/packed_counts.cu)
+INSTANCES = {
+    "packed_counts": "packed_counts_kernel<false, false>",
+    "packed_rowsums": "packed_counts_kernel<true, false>",
+    "packed_counts_tiered": "packed_counts_kernel<false, true>",
+    "packed_rowsums_tiered": "packed_counts_kernel<true, true>",
+}
 
 #: launches of each kernel, counted by the wrapper where it launches
 LAUNCHES: Dict[str, int] = {
@@ -102,12 +132,53 @@ def _pad(a, dim, size):
     return torch.nn.functional.pad(a, widths).contiguous()
 
 
-def _tier_keys(t: Dict, words: int) -> torch.Tensor:
-    """[2, 32 * words] int32: anp then banp keys, TIER_KEY_NONE past the
-    real rows (so every bit of the packed rows has a key)."""
-    keys = torch.stack([t["anp_key"], t["banp_key"]]).to(torch.int32)
-    pad = 32 * words - keys.shape[1]
-    return torch.nn.functional.pad(keys, [0, pad], value=TIER_KEY_NONE).contiguous()
+def _fragments(bits: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """[..., N] bits (bool or 0/1) of the dst columns -> [..., nb, 4, 4]
+    int32, nb = ceil(n / FRAG_COLS) (n = N by default, at least N): per
+    block of FRAG_COLS columns and
+    lane class l (lane % 4), the kernel thread's four mask words j.  Bit
+    4 m + 2 h + e of word j is column 64 j + 8 m + 2 l + e of the block,
+    for both of the thread's rows h (the wgmma m64n256 accumulator layout);
+    columns past N are 0."""
+    *lead, cols = bits.shape
+    nb = -(-max(cols, n or 0) // FRAG_COLS)
+    b = _pad(bits.to(torch.int32), len(lead), nb * FRAG_COLS)
+    b = b.reshape(*lead, nb, 4, 8, 4, 2)  # [..., nb, j, m, l, e]
+    shift = (4 * torch.arange(8, device=b.device).view(8, 1, 1)
+             + torch.arange(2, device=b.device).view(1, 1, 2)).to(torch.int32)
+    # distinct bits, so the sum is their OR; bits 4 m + e end at bit 29
+    words = (b << shift).sum(dim=(-3, -1), dtype=torch.int32)  # [..., nb, j, l]
+    # both rows (bit 31 rides the int32 sign)
+    return (words | (words << 2)).transpose(-1, -2).contiguous()  # [..., nb, l, j]
+
+
+def _unfragments(frag: torch.Tensor, n: int) -> torch.Tensor:
+    """The inverse of _fragments: [..., nb, 4, 4] int32 -> [..., n] bool,
+    each column's bit read from the thread's first row h = 0."""
+    *lead, nb, _, _ = frag.shape
+    shift = (4 * torch.arange(8, device=frag.device).view(8, 1)
+             + torch.arange(2, device=frag.device).view(1, 2)).to(torch.int32)
+    b = (frag[..., None, None] >> shift) & 1  # [..., nb, l, j, m, e]
+    k = len(lead)
+    b = b.permute(*range(k), k, k + 2, k + 3, k + 1, k + 4)  # [..., nb, j, m, l, e]
+    return (b.reshape(*lead, nb * FRAG_COLS) != 0)[..., :n]
+
+
+def _walk(anp_key: torch.Tensor, banp_key: torch.Tensor):
+    """(rows [2 G] int64, key [2 G] int32, real [2] int32): one direction's
+    tier walk over its G rows: the rows with a real ANP key by
+    non-decreasing key, then those with a real BANP key the same way,
+    then the rest (key TIER_KEY_NONE), and the number of real ANP and
+    BANP positions.  Within a tier the first position that matches a cell
+    holds the cell's min key, whatever the order of the rows themselves."""
+    keys = torch.stack([anp_key, banp_key]).to(torch.int64)  # [2, G]
+    g = keys.shape[1]
+    real = keys < TIER_KEY_NONE
+    tier = torch.arange(2, device=keys.device).view(2, 1)
+    order = torch.where(real, keys + (tier << 31), 1 << 33).flatten()
+    _, idx = torch.sort(order, stable=True)
+    key = torch.where(order[idx] < 1 << 33, keys.flatten()[idx], TIER_KEY_NONE)
+    return idx % max(g, 1), key.to(torch.int32), real.sum(dim=1).to(torch.int32)
 
 
 def _tier_operands(tier: Dict, vs, vd, ns_pad: int, nd_pad: int) -> Dict[str, torch.Tensor]:
@@ -115,19 +186,25 @@ def _tier_operands(tier: Dict, vs, vd, ns_pad: int, nd_pad: int) -> Dict[str, to
     the contraction operands, so a pad pod matches no tier row.
     Egress subjects are src pods and peers dst pods; ingress the other
     way round."""
-    te, ti = tier["egress"], tier["ingress"]
-    subj_e = pack_bool_words_torch(te["subj"] & vs)  # [Wge, Ns]
-    peerq_e = pack_bool_words_torch(te["peerq"] & vd[:, :, None])  # [Wge, Nd, Q]
-    subj_i = pack_bool_words_torch(ti["subj"] & vd)  # [Wgi, Nd]
-    peerq_i = pack_bool_words_torch(ti["peerq"] & vs[:, :, None])  # [Wgi, Ns, Q]
-    return {
-        "subj_e": _pad(subj_e.T, 0, ns_pad),
-        "peerq_e": _pad(peerq_e.permute(2, 0, 1), 2, nd_pad),
-        "subj_i": _pad(subj_i, 1, nd_pad),
-        "peerq_i": _pad(peerq_i.permute(2, 1, 0), 1, ns_pad),
-        "keys_e": _tier_keys(te, subj_e.shape[0]),
-        "keys_i": _tier_keys(ti, subj_i.shape[0]),
-    }
+    out = {}
+    for d, side in (("e", tier["egress"]), ("i", tier["ingress"])):
+        rows, key, real = _walk(side["anp_key"], side["banp_key"])
+        lp = _round_up(rows.numel(), PASS)
+        rows = _pad(rows, 0, lp)
+        pos = (torch.arange(lp, device=rows.device) < key.numel())[:, None]
+        subj, peer = side["subj"][rows] & pos, side["peerq"][rows] & pos[:, :, None]
+        if d == "e":
+            src = pack_bool_words_torch(subj & vs).T  # [Lp / 32, Ns] -> [Ns, Lp / 32]
+            dst = (peer & vd[:, :, None]).permute(2, 0, 1)  # [Q, Lp, Nd]
+        else:
+            src = pack_bool_words_torch(peer & vs[:, :, None]).permute(2, 1, 0)  # [Q, Ns, Lp / 32]
+            dst = subj & vd  # [Lp, Nd]
+        out["rows_" + d] = _pad(src, src.dim() - 2, ns_pad)
+        # [..., Lp, nb, 4, 4] -> [..., nb, Lp, 4, 4]: a block's positions contiguous
+        out["frag_" + d] = _fragments(dst, nd_pad).transpose(-4, -3).contiguous()
+        out["key_" + d] = torch.nn.functional.pad(key, [0, lp - key.numel()], value=TIER_KEY_NONE)
+        out["real_" + d] = real
+    return out
 
 
 def _packed_operands(
@@ -135,11 +212,14 @@ def _packed_operands(
     valid_src, valid_dst, tier, w_dst, bs, bd,
 ) -> Dict[str, Optional[torch.Tensor]]:
     """The kernel operand layout (module docstring), padded: src axis to
-    a multiple of `bs`, dst axis to a multiple of `bd`."""
+    a multiple of `bs`, dst axis to a multiple of `bd`, word axes to a
+    multiple of STEP_WORDS."""
     we, ns = tmatch_e_pk.shape
     wi, nd = tmatch_i_pk.shape
     ns_pad = _round_up(ns, bs)
     nd_pad = _round_up(nd, bd)
+    de = _round_up(we, STEP_WORDS)
+    di = _round_up(wi, STEP_WORDS)
     if bs * nd_pad >= 2**31:
         raise ValueError(
             f"dst axis {nd_pad} too large for int32 tile counts at bs={bs}"
@@ -151,19 +231,22 @@ def _packed_operands(
     tm_i = torch.where(vd, tmatch_i_pk, zero)  # [Wi, Nd]
     tl_e = torch.where(vd[:, :, None], tallow_e_pk, zero)  # [We, Nd, Q]
     tl_i = torch.where(vs[:, :, None], tallow_i_pk, zero)  # [Wi, Ns, Q]
-    flags_s = has_e.to(torch.int32) + 2 * valid_src.to(torch.int32)
-    flags_d = has_i.to(torch.int32) + 2 * valid_dst.to(torch.int32)
-
-    a_e = _pad(torch.cat([tm_e.T, flags_s[:, None]], dim=1), 0, ns_pad)
-    b_e = _pad(tl_e.permute(2, 0, 1), 2, nd_pad)
-    b_i = _pad(tl_i.permute(2, 1, 0), 1, ns_pad)
-    a_i = _pad(torch.cat([tm_i, flags_d[None, :]], dim=0), 1, nd_pad)
+    f_s = _pad(has_e.to(torch.int32) + 2 * valid_src.to(torch.int32), 0, ns_pad)
     w = None
     if w_dst is not None:
-        w = torch.zeros((nd_pad,), dtype=torch.float32, device=a_e.device)
+        w = torch.zeros((nd_pad,), dtype=torch.float32, device=f_s.device)
         w[: w_dst.shape[0]] = w_dst.to(torch.float32)
     t = None if tier is None else _tier_operands(tier, vs, vd, ns_pad, nd_pad)
-    return {"a_e": a_e, "b_e": b_e, "b_i": b_i, "a_i": a_i, "w": w, "tier": t}
+    return {
+        "a_e": _pad(_pad(tm_e.T, 1, de), 0, ns_pad),
+        "b_e": _pad(_pad(tl_e.permute(2, 1, 0), 2, de), 1, nd_pad),
+        "b_i": _pad(_pad(tl_i.permute(2, 1, 0), 2, di), 1, ns_pad),
+        "a_i": _pad(_pad(tm_i.T, 1, di), 0, nd_pad),
+        "f_s": f_s,
+        "f_d_frag": _fragments(torch.stack([valid_dst, has_i]), nd_pad),
+        "w": w,
+        "tier": t,
+    }
 
 
 def _resolve(tmatch_e_pk, tmatch_i_pk, n_pods, valid_src, valid_dst, bs, bd):
@@ -207,18 +290,31 @@ def _min_keys(match_word, keys: torch.Tensor, live, shape, device):
     return amin, bmin
 
 
+def _position_keys(key: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
+    """[2, Lp] int32: per walk position its anp key (ANP positions) and
+    its banp key (BANP positions), TIER_KEY_NONE elsewhere."""
+    n_anp, n_real = int(real[0]), int(real.sum())
+    i = torch.arange(key.shape[0], device=key.device)
+    none = torch.full_like(key, TIER_KEY_NONE)
+    return torch.stack([torch.where(i < n_anp, key, none),
+                        torch.where((i >= n_anp) & (i < n_real), key, none)])
+
+
 def _counts_plain(ops: Dict, bs: int) -> torch.Tensor:
     a_e, b_e, b_i, a_i, w = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"], ops["w"]
     t = ops["tier"]
-    if t is not None:
-        live_e = _live_rows(t["keys_e"])
-        live_i = _live_rows(t["keys_i"])
-    q, we, nd_pad = b_e.shape
+    q, nd_pad, de = b_e.shape
     ns_pad = a_e.shape[0]
-    wi = b_i.shape[2]
-    flags_d = a_i[wi]
-    has_d = (flags_d & 1) != 0
-    valid_d = (flags_d & 2) != 0
+    di = a_i.shape[1]
+    valid_d, has_d = _unfragments(ops["f_d_frag"], nd_pad)
+    if t is not None:
+        # per direction: the position keys and the dst side as position
+        # words [.., Lp / 32, Nd'] (egress peers per q, ingress subjects)
+        keys_e = _position_keys(t["key_e"], t["real_e"])
+        keys_i = _position_keys(t["key_i"], t["real_i"])
+        live_e, live_i = _live_rows(keys_e), _live_rows(keys_i)
+        dst_e = pack_bool_words_torch(_unfragments(t["frag_e"].transpose(1, 2), nd_pad), dim=1)
+        dst_i = pack_bool_words_torch(_unfragments(t["frag_i"].transpose(0, 1), nd_pad))
     weighted = w is not None
     if weighted:
         out = torch.zeros((q, ns_pad, 3), dtype=torch.float32, device=a_e.device)
@@ -229,24 +325,24 @@ def _counts_plain(ops: Dict, bs: int) -> torch.Tensor:
             rows = slice(i * bs, (i + 1) * bs)
             acc_e = torch.zeros((bs, nd_pad), dtype=torch.int32, device=a_e.device)
             acc_i = torch.zeros_like(acc_e)
-            for k in range(we):
-                acc_e |= a_e[rows, k, None] & b_e[qi, k][None, :]
-            for k in range(wi):
-                acc_i |= b_i[qi, rows, k, None] & a_i[k][None, :]
-            flags_s = a_e[rows, we]
+            for k in range(de):
+                acc_e |= a_e[rows, k, None] & b_e[qi, :, k][None, :]
+            for k in range(di):
+                acc_i |= b_i[qi, rows, k, None] & a_i[:, k][None, :]
+            flags_s = ops["f_s"][rows]
             has_s = (flags_s & 1) != 0
             egress = (~has_s)[:, None] | (acc_e != 0)
             ingress = (~has_d)[None, :] | (acc_i != 0)
             if t is not None:
                 shape, dev = acc_e.shape, a_e.device
                 anp, banp = _min_keys(
-                    lambda k: t["subj_e"][rows, k, None] & t["peerq_e"][qi, k][None, :],
-                    t["keys_e"], live_e, shape, dev,
+                    lambda k: t["rows_e"][rows, k, None] & dst_e[qi, k][None, :],
+                    keys_e, live_e, shape, dev,
                 )
                 egress = resolve_tier_lattice(egress, has_s[:, None], anp, banp)
                 anp, banp = _min_keys(
-                    lambda k: t["peerq_i"][qi, rows, k, None] & t["subj_i"][k][None, :],
-                    t["keys_i"], live_i, shape, dev,
+                    lambda k: t["rows_i"][qi, rows, k, None] & dst_i[k][None, :],
+                    keys_i, live_i, shape, dev,
                 )
                 ingress = resolve_tier_lattice(ingress, has_d[None, :], anp, banp)
             combined = egress & ingress
@@ -299,13 +395,13 @@ def _library():
         from .build import load
 
         lib = load("packed_counts")
-        lib.cyclonus_packed_counts.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
+        lib.cyclonus_packed_counts.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p
         ]
         lib.cyclonus_packed_counts.restype = ctypes.c_int
         lib.cyclonus_packed_kernel_attrs.argtypes = [ctypes.c_int] + [
             ctypes.POINTER(ctypes.c_int)
-        ] * 3
+        ] * 4
         lib.cyclonus_packed_kernel_attrs.restype = ctypes.c_int
         lib.cyclonus_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cyclonus_cuda_error_string.restype = ctypes.c_char_p
@@ -313,37 +409,47 @@ def _library():
     return _lib
 
 
-def kernel_attrs() -> Dict[str, Dict[str, int]]:
-    """Per kernel instance (LAUNCHES keys): registers per thread, static
-    and dynamic shared memory (none) and local (spill) bytes per thread,
-    as the loaded library reports them."""
+def kernel_attrs() -> Dict[str, Dict]:
+    """Per kernel instance (LAUNCHES keys): the instance, registers per
+    thread, static and dynamic shared memory and local (spill) bytes per
+    thread, as the loaded library reports them."""
     lib = _library()
     out = {}
-    for which, name in enumerate(("packed_counts", "packed_rowsums", "packed_counts_tiered",
-                                  "packed_rowsums_tiered")):
-        vals = [ctypes.c_int() for _ in range(3)]
+    for which, name in enumerate(INSTANCES):
+        vals = [ctypes.c_int() for _ in range(4)]
         err = lib.cyclonus_packed_kernel_attrs(which, *[ctypes.byref(v) for v in vals])
         if err != 0:
             msg = lib.cyclonus_cuda_error_string(err).decode()
             raise RuntimeError(f"{name} attributes failed: {msg} ({err})")
-        regs, smem, local = (v.value for v in vals)
-        out[name] = {"regs": regs, "smem_static": smem, "smem_dynamic": 0, "local_bytes": local}
+        regs, smem, dyn, local = (v.value for v in vals)
+        out[name] = {"instance": INSTANCES[name], "regs": regs, "smem_static": smem,
+                     "smem_dynamic": dyn, "local_bytes": local}
     return out
+
+
+def _check(name: str, a, dev, shape, dtype=torch.int32) -> None:
+    if (a.device != dev or a.dtype != dtype or not a.is_contiguous()
+            or tuple(a.shape) != tuple(shape)):
+        raise ValueError(f"{name}: want a contiguous {dtype} {tuple(shape)} tensor on {dev}")
 
 
 def _counts_cuda(ops: Dict, bs: int) -> torch.Tensor:
     a_e, b_e, b_i, a_i, w = ops["a_e"], ops["b_e"], ops["b_i"], ops["a_i"], ops["w"]
     dev = a_e.device
-    for name, t in (("a_e", a_e), ("b_e", b_e), ("b_i", b_i), ("a_i", a_i)):
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name}: want a contiguous int32 tensor on {dev}")
-    q, we, nd_pad = b_e.shape
+    q, nd_pad, de = b_e.shape
     ns_pad = a_e.shape[0]
-    wi = b_i.shape[2]
-    if a_e.shape[1] != we + 1 or tuple(b_i.shape) != (q, ns_pad, wi) or tuple(
-        a_i.shape
-    ) != (wi + 1, nd_pad):
-        raise ValueError("packed operands disagree in shape")
+    di = a_i.shape[1]
+    nb = -(-nd_pad // FRAG_COLS)
+    want = {
+        "a_e": (ns_pad, de), "b_e": (q, nd_pad, de), "b_i": (q, ns_pad, di),
+        "a_i": (nd_pad, di), "f_s": (ns_pad,), "f_d_frag": (2, nb, 4, 4),
+    }
+    for name, shape in want.items():
+        _check(name, ops[name], dev, shape)
+    if de % STEP_WORDS or di % STEP_WORDS:
+        raise ValueError(
+            f"word axes must be padded to a multiple of {STEP_WORDS} (De={de}, Di={di})"
+        )
     if bs % CUDA_SRC_TILE or ns_pad % bs or nd_pad % CUDA_DST_TILE:
         raise ValueError(
             f"the CUDA kernel needs bs % {CUDA_SRC_TILE} == 0 and a dst axis "
@@ -351,33 +457,32 @@ def _counts_cuda(ops: Dict, bs: int) -> torch.Tensor:
         )
     weighted = w is not None
     if weighted:
-        if w.device != dev or w.dtype != torch.float32 or w.shape != (nd_pad,):
-            raise ValueError(f"w: want a float32 [{nd_pad}] tensor on {dev}")
+        _check("w", w, dev, (nd_pad,), torch.float32)
         out = torch.zeros((q, ns_pad, 3), dtype=torch.float32, device=dev)
     else:
         out = torch.zeros((q, ns_pad // bs, 3), dtype=torch.int32, device=dev)
     t = ops["tier"]
-    tier_ptrs = [None] * 6
-    wge = wgi = 0
+    tier_ptrs = [None] * 8
+    lpe = lpi = 0
     if t is not None:
-        wge, wgi = t["subj_e"].shape[1], t["subj_i"].shape[0]
-        want = {
-            "subj_e": (ns_pad, wge), "peerq_e": (q, wge, nd_pad),
-            "subj_i": (wgi, nd_pad), "peerq_i": (q, ns_pad, wgi),
-            "keys_e": (2, 32 * wge), "keys_i": (2, 32 * wgi),
+        lpe, lpi = t["key_e"].shape[0], t["key_i"].shape[0]
+        tier_want = {
+            "rows_e": (ns_pad, lpe // 32), "rows_i": (q, ns_pad, lpi // 32),
+            "frag_e": (q, nb, lpe, 4, 4), "frag_i": (nb, lpi, 4, 4),
+            "key_e": (lpe,), "key_i": (lpi,), "real_e": (2,), "real_i": (2,),
         }
-        for name, shape in want.items():
-            a = t[name]
-            if (a.device != dev or a.dtype != torch.int32 or not a.is_contiguous()
-                    or tuple(a.shape) != shape):
-                raise ValueError(f"tier {name}: want a contiguous int32 {shape} tensor on {dev}")
-        tier_ptrs = [t[name].data_ptr() for name in want]
+        for name, shape in tier_want.items():
+            _check(f"tier {name}", t[name], dev, shape)
+        if lpe % PASS or lpi % PASS:
+            raise ValueError(f"tier walks must be padded to a multiple of {PASS} positions")
+        tier_ptrs = [t[name].data_ptr() for name in tier_want]
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.cyclonus_packed_counts(
             a_e.data_ptr(), b_e.data_ptr(), b_i.data_ptr(), a_i.data_ptr(),
+            ops["f_s"].data_ptr(), ops["f_d_frag"].data_ptr(),
             w.data_ptr() if weighted else None, out.data_ptr(), *tier_ptrs,
-            q, ns_pad, nd_pad, we, wi, wge, wgi, bs, int(weighted),
+            q, ns_pad, nd_pad, de, di, lpe, lpi, bs, int(weighted),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
