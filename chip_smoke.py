@@ -55,25 +55,42 @@ Phases, each raising on failure:
                 K5, with the slab forced through K6, the class route and
                 the tiered routes through the tile loop; every leg's
                 counts equal the packed plan's, each dense kernel
-                launched and no packed one.  Times: encode, precompute,
-                kernel (median of 5 CUDA-event runs), plain version, the
-                kernel's bound, end-to-end cells/s; per kernel also its
-                registers, shared memory and spill bytes.
+                launched and no packed one; and the slab "auto" mode,
+                whose autotune must time K6 against K4 once and whose
+                winner a second engine must adopt from the persisted
+                cache with no search.  Each kernel leg then runs as
+                bench.py runs it: after the first (fused) call, a second
+                (split: the operands pinned on the card) and 5 more (the
+                steady state: each launches only its kernel, runs no
+                precompute and adds one hit to the engine's counters;
+                the K5 leg, past the reference's 2 GiB gate, must stay
+                fused), then counts_pipelined_eval_s (10 launches, one
+                readback), then a fresh engine under
+                CYCLONUS_PRE_CACHE=0; every count equal to the first
+                call's.  Times: encode, first call, second call, steady
+                state (min of 5, host clock, as bench.py), pipelined,
+                PRE_CACHE=0, precompute, kernel (median of 5 CUDA-event
+                runs), plain version, the kernel's bound, cells/s; per
+                kernel also its registers, shared memory and spill
+                bytes.
 
 Every comparison is exact.  Prints a JSON line of the main path's
-end-to-end numbers, a JSON line of per-kernel numbers, then as its last
-line {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
-when there is no CUDA device or any phase fails.  The port's CPU paths
-are covered by tests/test_torch_*.py.
+end-to-end numbers (per route and dense-plan leg), a JSON line of
+per-kernel numbers, then as its last line {"ok": true, "device": {...}}.
+Exits non-zero, with no result line, when there is no CUDA device or any
+phase fails.  The port's CPU paths are covered by tests/test_torch_*.py.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 #: peak 32-bit integer instructions/s of one H100 SXM at 700 W, derived
@@ -817,26 +834,150 @@ def drive_main_path(policy, pods, namespaces, cases, device, tiers=None):
     return eng_a, eng_b, counts_a, launches, first_a, first_b
 
 
-def route_numbers(eng_a, eng_b, cases, first_a, first_b, label):
-    """Warm end-to-end times, device busy shares and precompute times of
-    both routes; returns (routes dict, class precompute inputs, dense
-    precompute)."""
+def launch_counts():
+    """Every kernel's launch count, both modules."""
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+
+    return {**dk.LAUNCHES, **pk.LAUNCHES}
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Environment variables set for the block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def steady_figures(eng, cases, first_s, want, label, expect, kernel=None, make=None,
+                   steady_reps=5):
+    """The figures of one counts leg after its first call (first_s
+    seconds, counts `want`), every count held equal to the first call's:
+    the second call; the steady state as bench.py takes it, the min of
+    `steady_reps` calls after those two (host clock, the counts' readback
+    included); counts_pipelined_eval_s with 10 launches; the device busy
+    share of 3 calls; and, with `make` (a builder of the leg's engine), a
+    fresh engine under CYCLONUS_PRE_CACHE=0: its first call and min of 5.
+
+    `expect` says what the engine's counters must show: "steady" (the
+    second call splits and pins; each later call adds one hit, runs no
+    precompute and launches `kernel` once and nothing else), "autotune"
+    (the same, with the first steady-state call running the slab autotune
+    once; `kernel` is then its winner's), "declined" (the reference's byte
+    gate keeps the key off the cache: every call fused, nothing pinned,
+    no pipelined figure) or None (a route with no cache)."""
+    from cyclonus_tpu_torch.engine import api as port_api
+
+    cells = len(cases) * eng.n_pods ** 2
+
+    def call(engine=eng):
+        t0 = time.perf_counter()
+        got = engine.evaluate_grid_counts(cases)
+        dt = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError(f"{label}: counts {got} != the first call's {want}")
+        return dt
+
+    def ran_since(before):
+        return {k: v - before[k] for k, v in launch_counts().items()}
+
+    cached = expect in ("steady", "autotune")
+    out = {"encode_s": eng.encode_s, "first_call_s": first_s}
+    before = launch_counts()
+    out["second_call_s"] = call()
+    st = eng.pre_cache_stats()
+    if cached:
+        if st["mode"] != "split" or not st["pinned"] or sum(ran_since(before).values()) != 1:
+            raise AssertionError(f"{label}: the second call did not split and pin: {st}")
+        out["pinned_bytes_split"] = st["pinned_bytes"]
+    elif expect == "declined":
+        est = eng._pre_bytes_estimate(len(cases))
+        if st["mode"] != "fused" or st["pinned"] or est <= port_api._PRE_CACHE_MAX_BYTES:
+            raise AssertionError(f"{label}: the key was not declined (estimate {est}): {st}")
+        out["estimate_bytes"] = est
+    if expect == "autotune":
+        out["autotune_call_s"] = call()
+        st = eng.pre_cache_stats()
+        if st["mode"] != "steady" or st["autotune_searches"] != 1 or st["autotune"]["source"] != "search":
+            raise AssertionError(f"{label}: the autotune did not search once: {st}")
+        out["autotune"] = st["autotune"]
+        kernel = "dense_counts_slab" if st["slab_choice"] else "dense_counts_1chunk"
+        out["kernel"] = kernel
+    times = []
+    for _ in range(steady_reps):
+        before, st0 = launch_counts(), eng.pre_cache_stats()
+        times.append(call())
+        st1 = eng.pre_cache_stats()
+        if cached:
+            ran = ran_since(before)
+            if (st1["mode"] != "steady" or st1["hits"] != st0["hits"] + 1
+                    or st1["precomputes"] != st0["precomputes"]
+                    or ran != {k: int(k == kernel) for k in ran}):
+                raise AssertionError(f"{label}: a steady-state call ran {ran}, "
+                                     f"counters {st0} -> {st1}")
+        elif expect == "declined" and (st1["mode"] != "fused" or st1["pinned"]):
+            raise AssertionError(f"{label}: a declined key was pinned: {st1}")
+    out["steady_s"] = min(times)
+    out["steady_all_s"] = times
+    out["cells_per_s"] = cells / out["steady_s"]
+    if cached:
+        st = eng.pre_cache_stats()
+        out["pinned_bytes"] = st["pinned_bytes"]
+        out["slab_ops_bytes"] = st["slab_ops_bytes"]
+        if st["autotune_searches"] != (expect == "autotune"):
+            raise AssertionError(f"{label}: autotune searches {st['autotune_searches']}")
+    piped = eng.counts_pipelined_eval_s(cases, reps=10)
+    if (piped is None) != (expect == "declined" or (expect is None and eng.pod_classes() is None)):
+        raise AssertionError(f"{label}: pipelined figure {piped} at expect={expect}")
+    if piped is not None:
+        if piped[1] != want:
+            raise AssertionError(f"{label}: pipelined counts {piped[1]} != {want}")
+        out["pipelined_s"] = piped[0]
+    share, top = device_time_profile(lambda: eng.evaluate_grid_counts(cases))
+    out["device_busy_share"] = share
+    if make is not None:
+        with env(CYCLONUS_PRE_CACHE="0"):
+            off = make()
+            t0 = time.perf_counter()
+            if off.evaluate_grid_counts(cases) != want:
+                raise AssertionError(f"{label}, PRE_CACHE=0: counts differ")
+            off_first = time.perf_counter() - t0
+            off_times = [call(off) for _ in range(5)]
+            st = off.pre_cache_stats()
+            if st["hits"] or st["pinned"] or st["precomputes"] != 6:
+                raise AssertionError(f"{label}, PRE_CACHE=0: the cache engaged: {st}")
+            out["pre_cache_off"] = {"encode_s": off.encode_s, "first_call_s": off_first,
+                                    "steady_s": min(off_times), "steady_all_s": off_times}
+            del off
+    figures = {k: out[k] for k in ("first_call_s", "second_call_s", "steady_s") if k in out}
+    log(f"{label}: {json.dumps(figures)}, pipelined "
+        f"{out.get('pipelined_s', 'none')} s, PRE_CACHE=0 min of 5 "
+        f"{out['pre_cache_off']['steady_s'] if make else 'not run'} s, device busy "
+        f"{'not measured' if share is None else f'{share:.4f}'}; top kernels ms/call: {top}")
+    return out
+
+
+def route_numbers(eng_a, eng_b, cases, first_a, first_b, counts, label, make_b, kernel_b):
+    """Both routes' figures (steady_figures; the class route has no
+    cache) and their precompute times; returns (routes dict, class
+    precompute inputs, dense precompute)."""
     import torch
 
     from cyclonus_tpu_torch.engine.tiled import _precompute
 
-    e2e_a = time_ms(lambda: eng_a.evaluate_grid_counts(cases), reps=3, warm=0) / 1e3
-    e2e_b = time_ms(lambda: eng_b.evaluate_grid_counts(cases), reps=3, warm=0) / 1e3
-    busy = {}
-    for route, eng in (("class", eng_a), ("dense", eng_b)):
-        share, top = device_time_profile(lambda e=eng: e.evaluate_grid_counts(cases))
-        busy[route] = share
-        if share is None:
-            log(f"{label}: device busy share, {route} route: not measured (no device time traced)")
-        else:
-            log(f"{label}: device busy share, {route} route: {share:.4f}; "
-                f"top kernels ms/call: {top}")
-
+    routes = {
+        "class": steady_figures(eng_a, cases, first_a, counts, f"{label}, class route", None),
+        "dense": steady_figures(eng_b, cases, first_b, counts, f"{label}, dense route",
+                                "steady", kernel=kernel_b, make=make_b),
+    }
     tens_b = eng_b._dense_counts_tensors(cases)
     pre_b = _precompute(tens_b, True)
     pre_ms_b = time_ms(lambda: _precompute(tens_b, True), reps=3, warm=0)
@@ -844,16 +985,8 @@ def route_numbers(eng_a, eng_b, cases, first_a, first_b, label):
     pre_a = _precompute(tens_a, True)
     pre_ms_a = time_ms(lambda: _precompute(tens_a, True), reps=3, warm=0)
     torch.cuda.synchronize()
-    cells = len(cases) * eng_a.n_pods ** 2
-    routes = {
-        "class": {"encode_s": eng_a.encode_s, "first_call_s": first_a, "warm_s": e2e_a,
-                  "precompute_ms": pre_ms_a, "pod_axis": int(tens_a["pod_ns_id"].shape[0])},
-        "dense": {"encode_s": eng_b.encode_s, "first_call_s": first_b, "warm_s": e2e_b,
-                  "precompute_ms": pre_ms_b, "pod_axis": int(tens_b["pod_ns_id"].shape[0])},
-    }
-    for route, r in routes.items():
-        r["cells_per_s"] = cells / r["warm_s"]
-        r["device_busy_share"] = busy[route]
+    routes["class"].update(precompute_ms=pre_ms_a, pod_axis=int(tens_a["pod_ns_id"].shape[0]))
+    routes["dense"].update(precompute_ms=pre_ms_b, pod_axis=int(tens_b["pod_ns_id"].shape[0]))
     return routes, (tens_a, pre_a), pre_b
 
 
@@ -981,14 +1114,20 @@ def dense_record(name, eng, cases, launches):
 
 
 #: the dense dtype plan's legs (pack=False): (name, tiered, engine options,
-#: the kernel the leg's first call must launch, or None for the tile loop)
+#: the kernel the leg's first call must launch, or None for the tile loop,
+#: what its steady state must show: steady_figures' `expect`).  K4 and K5
+#: are pinned to slab "0": under "auto" on the card their engines would
+#: plan the slab and, at K4's first steady-state call, autotune it
 DENSE_LEGS = [
-    ("dense", False, {"class_compress": "0"}, "dense_counts_1chunk"),
-    ("chunked", False, {"class_compress": "0", "compact": False}, "dense_counts_chunked"),
-    ("slab", False, {"class_compress": "0", "slab": "1"}, "dense_counts_slab"),
-    ("class", False, {}, None),
-    ("dense", True, {"class_compress": "0"}, None),
-    ("class", True, {}, None),
+    ("dense", False, {"class_compress": "0", "slab": "0"}, "dense_counts_1chunk", "steady"),
+    ("chunked", False, {"class_compress": "0", "compact": False, "slab": "0"},
+     "dense_counts_chunked", "declined"),
+    ("slab", False, {"class_compress": "0", "slab": "1"}, "dense_counts_slab", "steady"),
+    ("slab auto", False, {"class_compress": "0", "slab": "auto"}, "dense_counts_1chunk",
+     "autotune"),
+    ("class", False, {}, None, None),
+    ("dense", True, {"class_compress": "0"}, None, None),
+    ("class", True, {}, None, None),
 ]
 
 
@@ -996,12 +1135,16 @@ def phase_dense_plan(device, policy, pods, namespaces, cases, want_plain, want_t
     """The dense dtype plan's main path (pack=False) on the headline
     cluster, once, with every launch count zeroed just before and read
     just after: the dense route through K4, K5 (compaction off) and K6
-    (slab forced), the class route through the tile loop's row sums, and
-    the tiered dense and class routes through the tile loop.  Each leg's
-    counts must equal the packed plan's (want_plain / want_tiered); each
-    dense kernel must have launched, and no packed kernel.  Then per leg:
-    encode, first call, warm end to end, device busy share; per kernel:
-    the record against its plain version."""
+    (slab forced), the slab "auto" mode (its first call through K4), the
+    class route through the tile loop's row sums, and the tiered dense
+    and class routes through the tile loop.  Each leg's counts must equal
+    the packed plan's (want_plain / want_tiered); each dense kernel must
+    have launched, and no packed one.  Then per leg its figures
+    (steady_figures: the split call, the steady state, the pipelined
+    figure, PRE_CACHE=0; the tiered dense tile loop, 4.5 s a call with no
+    cache, one warm call), the slab autotune's record and a second "auto"
+    engine that must adopt its persisted winner with no search; per
+    kernel the record against its plain version."""
     import torch
 
     from cyclonus_tpu_torch.engine import TorchPolicyEngine
@@ -1010,14 +1153,18 @@ def phase_dense_plan(device, policy, pods, namespaces, cases, want_plain, want_t
     from cyclonus_tpu_torch.synthetic import bench_tiers
 
     tiers = bench_tiers()
+
+    def make(tiered, kw):
+        return TorchPolicyEngine(policy, pods, namespaces, device=device, pack=False,
+                                 tiers=tiers if tiered else None, **kw)
+
     engines = {}
     pk.reset_launches()
     dk.reset_launches()
-    for name, tiered, kw, kernel in DENSE_LEGS:
+    for name, tiered, kw, kernel, expect in DENSE_LEGS:
         key = f"{'tiered ' if tiered else ''}{name}"
         before = dict(dk.LAUNCHES)
-        eng = TorchPolicyEngine(policy, pods, namespaces, device=device, pack=False,
-                                tiers=tiers if tiered else None, **kw)
+        eng = make(tiered, kw)
         t0 = time.perf_counter()
         counts = eng.evaluate_grid_counts(cases)
         first = time.perf_counter() - t0
@@ -1029,7 +1176,7 @@ def phase_dense_plan(device, policy, pods, namespaces, cases, want_plain, want_t
             raise AssertionError(f"dense plan, {key}: launches {ran}, want {kernel}")
         if (eng.pod_classes() is not None) != (name == "class"):
             raise AssertionError(f"dense plan, {key}: class state does not match the leg")
-        engines[key] = (eng, kernel, first)
+        engines[key] = (eng, tiered, kw, kernel, expect, first)
     launches = {**dict(dk.LAUNCHES), **dict(pk.LAUNCHES)}
     log(f"dense plan launches: {launches}")
     if any(pk.LAUNCHES.values()):
@@ -1039,18 +1186,28 @@ def phase_dense_plan(device, policy, pods, namespaces, cases, want_plain, want_t
 
     cells = len(cases) * len(pods) ** 2
     legs, records = {}, []
-    for key, (eng, kernel, first) in engines.items():
-        reps = 1 if key == "tiered dense" else 3  # the tile loop over 98 dense tiles
-        warm_s = time_ms(lambda e=eng: e.evaluate_grid_counts(cases), reps=reps, warm=0) / 1e3
-        share, top = device_time_profile(lambda e=eng: e.evaluate_grid_counts(cases), reps=reps)
-        legs[key] = {"kernel": kernel or "tile loop", "encode_s": eng.encode_s,
-                     "first_call_s": first, "warm_s": warm_s, "cells_per_s": cells / warm_s,
-                     "device_busy_share": share}
-        log(f"dense plan, {key}: warm {warm_s * 1e3:.2f} ms, device busy "
-            f"{'not measured' if share is None else f'{share:.4f}'}; top kernels ms/call: {top}")
-        if kernel is not None:
-            if kernel == "dense_counts_slab":
-                legs[key]["slab_w"] = eng._slab_plan()["w"]
+    for key, (eng, tiered, kw, kernel, expect, first) in engines.items():
+        want = want_tiered if tiered else want_plain
+        label = f"dense plan, {key}"
+        if key == "tiered dense":
+            # the tile loop over 98 dense tiles: no cache, one warm call
+            warm_s = time_ms(lambda e=eng: e.evaluate_grid_counts(cases), reps=1, warm=0) / 1e3
+            share, top = device_time_profile(lambda e=eng: e.evaluate_grid_counts(cases), reps=1)
+            leg = {"encode_s": eng.encode_s, "first_call_s": first, "warm_s": warm_s,
+                   "cells_per_s": cells / warm_s, "device_busy_share": share}
+            log(f"{label}: warm {warm_s * 1e3:.2f} ms, device busy "
+                f"{'not measured' if share is None else f'{share:.4f}'}; top kernels ms/call: {top}")
+        else:
+            leg = steady_figures(
+                eng, cases, first, want, label, expect, kernel=kernel,
+                make=(lambda t=tiered, k=kw: make(t, k)) if expect is not None else None,
+            )
+        legs[key] = {"kernel": kernel or "tile loop", **leg}
+        if kernel == "dense_counts_slab":
+            legs[key]["slab_w"] = eng._slab_plan()["w"]
+        if expect == "autotune":
+            legs[key]["adopted"] = adopt_check(make(tiered, kw), cases, want, leg, label)
+        elif kernel is not None:
             records.append(dense_record(kernel, eng, cases, launches[kernel]))
         del eng
         engines[key] = None
@@ -1058,10 +1215,30 @@ def phase_dense_plan(device, policy, pods, namespaces, cases, want_plain, want_t
     return records, {"legs": legs, "launches": launches}
 
 
+def adopt_check(eng, cases, want, leg, label):
+    """A second slab "auto" engine of the same cluster, on the cache file
+    the first one's search wrote: its first steady-state call must adopt
+    the persisted winner with no search, and every count must equal."""
+    times = []
+    for mode in ("fused", "split", "steady", "steady"):
+        t0 = time.perf_counter()
+        got = eng.evaluate_grid_counts(cases)
+        times.append(time.perf_counter() - t0)
+        st = eng.pre_cache_stats()
+        if got != want or st["mode"] != mode:
+            raise AssertionError(f"{label}, adopting: {got} in mode {st['mode']}, want {mode}")
+    if st["autotune_searches"] != 0 or st["autotune"]["source"] != "cache" or (
+            st["autotune"]["winner"] != leg["autotune"]["winner"]):
+        raise AssertionError(f"{label}: the second engine did not adopt the winner: {st}")
+    log(f"{label}: a second engine adopted {json.dumps(st['autotune']['winner'])} with no "
+        f"search (calls {[round(t, 4) for t in times]} s)")
+    return {"winner": st["autotune"]["winner"], "calls_s": times}
+
+
 def phase_main_path(device):
     import torch
 
-    from cyclonus_tpu_torch.engine import PortCase
+    from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine
     from cyclonus_tpu_torch.engine.tiled import class_rowsums_plan
     from cyclonus_tpu_torch.matcher import build_network_policies
     from cyclonus_tpu_torch.synthetic import bench_tiers, build_synthetic
@@ -1089,7 +1266,10 @@ def phase_main_path(device):
             f"{int(eng_a._class_state['ctensors']['pod_ns_id'].shape[0])}"
             + (f"; tiers {json.dumps(eng_a.tier_stats())}" if tiers else ""))
         routes, (tens_a, pre_a), pre_b = route_numbers(
-            eng_a, eng_b, cases, first_a, first_b, key
+            eng_a, eng_b, cases, first_a, first_b, counts, key,
+            lambda tiers=tiers: TorchPolicyEngine(policy, pods, namespaces, device=device,
+                                                  class_compress="0", tiers=tiers),
+            "packed_counts" + suffix,
         )
         # each kernel against its plain version on the main path's own inputs
         w = torch.from_numpy(class_rowsums_plan(tens_a, pc.n_classes, pc.class_size)[0]).to(device)
@@ -1147,7 +1327,13 @@ def main() -> int:
     phase_kernels(device)
     phase_dense_kernels(device)
     phase_truth_tables(device)
-    records = phase_main_path(device)
+    # the steady-state settings of the run, and the slab autotune's winners
+    # in a file of its own, gone with the run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp, env(
+        CYCLONUS_PRE_CACHE="1", CYCLONUS_AUTOTUNE="auto",
+        CYCLONUS_AUTOTUNE_CACHE=os.path.join(tmp, "autotune.json"),
+    ):
+        records = phase_main_path(device)
     log(card_info())
     log(json.dumps({"kernels": records}))
     log(json.dumps({

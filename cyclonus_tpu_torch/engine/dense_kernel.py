@@ -212,6 +212,12 @@ def _nz_maps(ops: Dict):
     return tuple(out)
 
 
+def with_nz_maps(ops: Dict) -> Dict:
+    """dense_operands with K5's nz maps under "nz" when the operands take
+    K5, so a pinned operand dict holds everything a launch reads."""
+    return ops if single_chunk(ops) else {**ops, "nz": _nz_maps(ops)}
+
+
 def _dot_dtype(device: torch.device) -> torch.dtype:
     """Float type of the plain contractions: float32 on the CPU (where
     bf16 products are slow), bf16 on the card.  Both are exact for the
@@ -352,13 +358,16 @@ def _counts_cuda(ops: Dict, nz=None) -> torch.Tensor:
 
 def counts_from_ops(ops: Dict, plain: bool = False) -> torch.Tensor:
     """[Q, Ns'/bs, 3] int32 partials from dense_operands: K4 when both
-    directions fit one chunk, else K5 with its nz maps.  A CPU tensor (or
-    plain=True) takes the plain version; a CUDA tensor the kernel."""
+    directions fit one chunk, else K5 with its nz maps (those under "nz",
+    with_nz_maps, or built now).  A CPU tensor (or plain=True) takes the
+    plain version; a CUDA tensor the kernel."""
     kind = ops["a_e"].device.type
     if plain or kind == "cpu":
         return _counts_plain(ops)
     if kind == "cuda":
-        return _counts_cuda(ops, None if single_chunk(ops) else _nz_maps(ops))
+        if single_chunk(ops):
+            return _counts_cuda(ops)
+        return _counts_cuda(ops, ops["nz"] if "nz" in ops else _nz_maps(ops))
     raise ValueError(f"no dense counts kernel for device {ops['a_e'].device}")
 
 

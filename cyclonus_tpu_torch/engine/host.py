@@ -575,12 +575,15 @@ def _np_leaves(tree):
 
 
 def _slab_mode(slab: Optional[str] = None) -> str:
-    """The slab-kernel mode, `slab` or else CYCLONUS_PALLAS_SLAB: "1"
-    forces the slab kernel (K6) on the dense route of the dense dtype
-    plan; "0" and "auto" (the default) leave it off; anything else
-    raises.  (The reference's
-    auto plans only on its TPU, where it times both kernels before it
-    picks one; the port has no autotune, so auto never engages.)"""
+    """The slab-kernel mode, `slab` or else CYCLONUS_PALLAS_SLAB, for the
+    dense route of the dense dtype plan: "1" forces the slab kernel (K6);
+    "auto" (the default) plans it on a CUDA device with the precompute
+    cache on and lets the engine's autotune time K6 against K4/K5 at the
+    first steady-state call and keep the faster (never on the CPU, as the
+    reference's auto plans on its TPU only); "0" turns it off; anything
+    else raises.  Of the reference's autotune the port leaves out the
+    bounded candidate thread and its fallback to the default kernel, a
+    guard for a wedged remote TPU compile: a failing K6 raises."""
     if slab is None:
         slab = os.environ.get("CYCLONUS_PALLAS_SLAB", "auto")
     slab = str(slab).lower()

@@ -30,13 +30,15 @@ and the epilogue is either
     class sizes of the class-compressed route) -> [Q, Ns', 3] float32,
     exact integers below 2^24.
 
-verdict_counts_packed is the wrapper: a CPU tensor goes through the plain
-PyTorch version (verdict_counts_packed_plain), a CUDA tensor through the
-hand-written kernel in csrc/packed_counts.cu, and nothing else.  Both
-share one operand layout (_packed_operands), the contraction operands
-K-major (words innermost), each row zero-padded to De = We or Di = Wi
-rounded up to a multiple of STEP_WORDS (8 words, 32 bytes: one step of
-the kernel's single-bit product; zero words change no AND, OR or popc):
+verdict_counts_packed is the wrapper: packed_operands builds the operand
+dict, counts_from_packed_ops launches on it, a CPU tensor going through
+the plain PyTorch version (verdict_counts_packed_plain), a CUDA tensor
+through the hand-written kernel in csrc/packed_counts.cu, and nothing
+else.  Both share one operand layout (_packed_operands), the
+contraction operands K-major (words innermost), each row zero-padded to
+De = We or Di = Wi rounded up to a multiple of STEP_WORDS (8 words, 32
+bytes: one step of the kernel's single-bit product; zero words change no
+AND, OR or popc):
 
   a_e [Ns', De] int32     src rows: egress tmatch words
   b_e [Q, Nd', De] int32  dst rows: egress tallow words
@@ -376,14 +378,11 @@ def verdict_counts_packed_plain(
     rows, with the word-axis AND/OR broadcast over each tile and, tiered,
     a loop over the live tier rows.  Returns the kernel's exact output
     (module docstring)."""
-    valid_src, valid_dst, bs, bd = _resolve(
-        tmatch_e_pk, tmatch_i_pk, n_pods, valid_src, valid_dst, bs, bd
-    )
-    ops = _packed_operands(
+    ops = packed_operands(
         tmatch_e_pk, has_e, tallow_e_pk, tmatch_i_pk, has_i, tallow_i_pk,
-        valid_src, valid_dst, tier, w_dst, bs, bd,
+        n_pods, valid_src, valid_dst, tier, w_dst, bs, bd,
     )
-    return _counts_plain(ops, bs)
+    return counts_from_packed_ops(ops, plain=True)
 
 
 _lib = None
@@ -518,6 +517,20 @@ def verdict_counts_packed(
     rows.  Rectangular: per-side validity masks (default: the first
     n_pods rows of each side).  CPU tensors take the plain version; CUDA
     tensors launch the kernel, or raise."""
+    return counts_from_packed_ops(packed_operands(
+        tmatch_e_pk, has_e, tallow_e_pk, tmatch_i_pk, has_i, tallow_i_pk,
+        n_pods, valid_src, valid_dst, tier, w_dst, bs, bd,
+    ))
+
+
+def packed_operands(
+    tmatch_e_pk, has_e, tallow_e_pk, tmatch_i_pk, has_i, tallow_i_pk,
+    n_pods=None, valid_src=None, valid_dst=None, tier=None, w_dst=None, bs=None, bd=None,
+) -> Dict:
+    """Everything one launch of the kernel reads: the operand layout of
+    the module docstring (verdict_counts_packed's arguments, resolved
+    alike) and the src tile height under "bs".  The engine pins this dict
+    to repeat a counts call without its precompute."""
     valid_src, valid_dst, bs, bd = _resolve(
         tmatch_e_pk, tmatch_i_pk, n_pods, valid_src, valid_dst, bs, bd
     )
@@ -525,12 +538,20 @@ def verdict_counts_packed(
         tmatch_e_pk, has_e, tallow_e_pk, tmatch_i_pk, has_i, tallow_i_pk,
         valid_src, valid_dst, tier, w_dst, bs, bd,
     )
-    kind = tmatch_e_pk.device.type
-    if kind == "cpu":
-        return _counts_plain(ops, bs)
+    ops["bs"] = bs
+    return ops
+
+
+def counts_from_packed_ops(ops: Dict, plain: bool = False) -> torch.Tensor:
+    """The kernel's output (verdict_counts_packed) from packed_operands: a
+    CPU tensor (or plain=True) takes the plain version, a CUDA tensor
+    launches the kernel, or raises."""
+    kind = ops["a_e"].device.type
+    if plain or kind == "cpu":
+        return _counts_plain(ops, ops["bs"])
     if kind == "cuda":
-        return _counts_cuda(ops, bs)
-    raise ValueError(f"no packed counts kernel for device {tmatch_e_pk.device}")
+        return _counts_cuda(ops, ops["bs"])
+    raise ValueError(f"no packed counts kernel for device {ops['a_e'].device}")
 
 
 def sum_partials(partials, q: int, n_pods: int) -> Dict[str, int]:
