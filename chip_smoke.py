@@ -864,7 +864,7 @@ def steady_figures(eng, cases, first_s, want, label, expect, kernel=None, make=N
     the second call; the steady state as bench.py takes it, the min of
     `steady_reps` calls after those two (host clock, the counts' readback
     included); counts_pipelined_eval_s with 10 launches; the device busy
-    share of 3 calls; and, with `make` (a builder of the leg's engine), a
+    share of 3 calls; and, with `make` (a function that builds the leg's engine), a
     fresh engine under CYCLONUS_PRE_CACHE=0: its first call and min of 5.
 
     `expect` says what the engine's counters must show: "steady" (the

@@ -77,13 +77,7 @@ from .encoding import (
     packed_words,
 )
 from .kernel import evaluate_grid_kernel, gather_class_grids, grid_stats_kernel
-from .packed_kernel import (
-    counts_from_packed_ops,
-    packed_operands,
-    sum_partials,
-    verdict_counts_packed,
-    verdict_counts_packed_plain,
-)
+from .packed_kernel import counts_from_packed_ops, packed_operands, sum_partials
 from .tiled import (
     _class_rowsums_kernel,
     _precompute,
@@ -113,12 +107,6 @@ def _tensor_bytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     return 0
-
-
-def _readback(out: torch.Tensor):
-    """The result on the host: the barrier after the launches before it
-    on the device's stream."""
-    return out.cpu()
 
 
 @dataclass(frozen=True)
@@ -758,22 +746,13 @@ class TorchPolicyEngine:
         kernel (K1/K3; K6 when `slab`, else K4/K5).  plain=True runs each
         kernel's plain version."""
         pre = self._dense_pre(cases)
-        if self._pack:
-            e, ig = pre["egress"], pre["ingress"]
-            fn = verdict_counts_packed_plain if plain else verdict_counts_packed
-            return fn(
-                e["tmatch_pk"], e["has_target"], e["tallow_pk"],
-                ig["tmatch_pk"], ig["has_target"], ig["tallow_pk"],
-                n_pods=self.n_pods,
-                tier=packed_tier(pre),
-            )
         if slab:
             plan = self._slab_plan()
             ops = dense_kernel.slab_operands(
                 *self._dense_args(pre), plan["egress"], plan["ingress"], self.n_pods, w=plan["w"]
             )
             return dense_kernel.verdict_counts_slab_from_ops(ops, plain=plain)
-        return dense_kernel.verdict_counts(*self._dense_args(pre), n_pods=self.n_pods, plain=plain)
+        return self._launch(self._kernel_operands(pre), plain)
 
     def _kernel_operands(self, pre: Dict) -> Dict:
         """Everything one launch of the default kernel reads: the packed
@@ -789,23 +768,23 @@ class TorchPolicyEngine:
         valid = torch.arange(args[0].shape[1], device=args[0].device) < self.n_pods
         return dense_kernel.with_nz_maps(dense_kernel.dense_operands(*args, valid, valid))
 
-    def _launch(self, ops: Dict) -> torch.Tensor:
+    def _launch(self, ops: Dict, plain: bool = False) -> torch.Tensor:
         """The default kernel (K1/K3, or K4/K5) on its operands."""
         if self._pack:
-            return counts_from_packed_ops(ops)
-        return dense_kernel.counts_from_ops(ops)
+            return counts_from_packed_ops(ops, plain)
+        return dense_kernel.counts_from_ops(ops, plain)
 
     def _counts_split(self, cases, key, slab_ok: bool, slab: bool) -> torch.Tensor:
         """The split call: one precompute; pinned, what the steady state
         reads — the default kernel's operands, or the precompute when the
-        slab kernel is chosen, and both while the autotune may still
-        choose it — unless those bytes pass the cap, which declines the
-        key; then the default kernel on its operands, as the reference's
-        split call runs its default program."""
+        slab kernel is chosen, and both while a slab plan fits and the
+        choice is open — unless those bytes pass the cap, which declines
+        the key; then the default kernel on its operands, as the
+        reference's split call runs its default program."""
         pre = self._dense_pre(cases)
         ops = self._kernel_operands(pre)
-        tune = slab_ok and self._slab_choice is None and self._autotune_enabled()
-        pin = {"ops": None if slab else ops, "pre": pre if slab or tune else None}
+        open_choice = slab_ok and self._slab_choice is None
+        pin = {"ops": None if slab else ops, "pre": pre if slab or open_choice else None}
         if _tensor_bytes(pin) <= _PRE_CACHE_MAX_BYTES:
             self._pre_cache = (key, pin)  # evicts any other set
             self._slab_ops_cache = None
@@ -878,14 +857,14 @@ class TorchPolicyEngine:
         ended by reading back its last output (the stream runs them in
         order), the best round kept."""
         out = dispatch()
-        _readback(out)
+        out.cpu()  # the readback is the barrier: the stream runs launches in order
         reps = max(1, int(os.environ.get("CYCLONUS_AUTOTUNE_REPS", "4")))
         rounds = max(1, int(os.environ.get("CYCLONUS_AUTOTUNE_ROUNDS", "3")))
         times = []
         for _ in range(rounds):
             t0 = time.perf_counter()
             outs = [dispatch() for _ in range(reps)]
-            _readback(outs[-1])
+            outs[-1].cpu()
             times.append((time.perf_counter() - t0) / reps)
         return min(times), times, out
 
@@ -965,10 +944,10 @@ class TorchPolicyEngine:
         key, _slab_ok, slab = self._steady_state_args(cases)
         if self._pre_cache is None or self._pre_cache[0] != key:
             return None
-        _readback(self._dispatch_steady(key, slab))  # warm
+        self._dispatch_steady(key, slab).cpu()  # warm
         t0 = time.perf_counter()
         outs = [self._dispatch_steady(key, slab) for _ in range(reps)]
-        partials = _readback(outs[-1])
+        partials = outs[-1].cpu()
         dt = (time.perf_counter() - t0) / reps
         return dt, sum_partials(partials, len(cases), self.n_pods)
 
@@ -985,10 +964,10 @@ class TorchPolicyEngine:
             run = lambda: class_rowsums(tensors, w)  # noqa: E731
         else:
             run = lambda: _class_rowsums_kernel(tensors, w, block, n_tiles, False)  # noqa: E731
-        _readback(run())  # warm
+        run().cpu()  # warm
         t0 = time.perf_counter()
         outs = [run() for _ in range(reps)]
-        rs = _readback(outs[-1]).numpy()
+        rs = outs[-1].cpu().numpy()
         dt = (time.perf_counter() - t0) / reps
         return dt, class_counts_finish(rs, pc.class_size, pc.n_classes, len(cases), self.n_pods)
 

@@ -444,7 +444,7 @@ class _Spy:
 
     def __init__(self, monkeypatch):
         self.calls = []
-        for mod, name in ((dk, "verdict_counts"), (dk, "verdict_counts_slab_from_ops"),
+        for mod, name in ((dk, "counts_from_ops"), (dk, "verdict_counts_slab_from_ops"),
                           (tiled, "evaluate_grid_counts"), (tiled, "_class_rowsums_kernel"),
                           (tiled, "class_rowsums")):
             fn = getattr(mod, name)
@@ -460,8 +460,8 @@ class _Spy:
 # (seed, extra pods, engine options, the route's call): every counts
 # route of the dense plan
 ROUTES = [
-    (0, 4, {"class_compress": "0"}, "verdict_counts"),
-    (1, 7, {"class_compress": "0", "compact": False}, "verdict_counts"),
+    (0, 4, {"class_compress": "0"}, "counts_from_ops"),
+    (1, 7, {"class_compress": "0", "compact": False}, "counts_from_ops"),
     (2, 13, {"class_compress": "1"}, "_class_rowsums_kernel"),
     (5, 13, {"class_compress": "0", "slab": "1"}, "verdict_counts_slab_from_ops"),
 ]
@@ -481,7 +481,7 @@ class TestEnginePackOff:
             monkeypatch.setenv("CYCLONUS_PALLAS_SLAB", "1")
         ref = _ref_engine(monkeypatch, policies, pods, namespaces, **ref_kw)
         want = ref.evaluate_grid_counts(REF_CASES, backend="xla")
-        if route == "verdict_counts":
+        if route == "counts_from_ops":
             assert ref.evaluate_grid_counts(REF_CASES, backend="pallas") == want
         port = TorchPolicyEngine(port_policy(policies), pods, namespaces, device="cpu",
                                  pack=False, **kw)

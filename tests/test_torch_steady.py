@@ -261,12 +261,12 @@ class TestSteadyCounts:
         assert torch.equal(pk.counts_from_packed_ops(ops, plain=True), want)
 
 
-def _to_autotune(monkeypatch, seed=35, extra=10, port_kw=None):
+def _to_autotune(monkeypatch, seed=35, extra=10, port_kw=None, autotune="1"):
     """A dense engine with a slab plan whose choice is left open, so the
     split call pins for the autotune and the first steady-state call
     runs it (the slab "auto" mode plans on a CUDA device only)."""
     _tiny_slab(monkeypatch)
-    monkeypatch.setenv("CYCLONUS_AUTOTUNE", "1")
+    monkeypatch.setenv("CYCLONUS_AUTOTUNE", autotune)
     monkeypatch.setenv("CYCLONUS_AUTOTUNE_REPS", "1")
     monkeypatch.setenv("CYCLONUS_AUTOTUNE_ROUNDS", "2")
     _ref, port = _engines(monkeypatch, "dense", seed, extra, slab="1", **(port_kw or {}))
@@ -321,6 +321,20 @@ class TestAutotune:
         assert port._slab_choice is chose and len(calls) == 2
         assert (port._slab_ops_cache is not None) == chose
         assert port.evaluate_grid_counts(cases) == first
+
+    def test_enabled_after_the_split(self, monkeypatch):
+        """While the choice is open the pin keeps the precompute: with the
+        autotune off the steady state runs the default kernel, and turned
+        on later it still searches from the pin."""
+        port, cases, first = _to_autotune(monkeypatch, autotune="0")
+        assert port.evaluate_grid_counts(cases) == first
+        st = port.pre_cache_stats()
+        assert st["mode"] == "steady" and st["autotune_searches"] == 0
+        assert port._slab_choice is None and port._slab_ops_cache is None
+        monkeypatch.setenv("CYCLONUS_AUTOTUNE", "1")
+        assert port.evaluate_grid_counts(cases) == first
+        assert port.pre_cache_stats()["autotune_searches"] == 1
+        assert port._slab_choice in (True, False)
 
     def test_failing_candidate_raises(self, monkeypatch):
         """A slab kernel that fails fails the call: no fallback, no choice."""
