@@ -38,7 +38,22 @@ Phases, each raising on failure:
                 modes against the tiered oracle (grids and counts; K3 must
                 have launched on the packed plan, K4 on every dense-plan
                 example engine);
-  5. main path — the benchmark's synthetic cluster (100,000 pods x 10,000
+  5. probe    — the probe layer on the card, which runs no CUDA kernel of
+                its own (evaluate_grid is plain torch): (a) the `probe`
+                CLI (`--mock --perfect-cni`, the simple-example policies,
+                x, y, z x a, b, c, ports 80 and 81, TCP, UDP, SCTP) with
+                zero differing cells, its report equal to the oracle
+                engine's; (b) the full conformance run (`generate --mock
+                --perfect-cni --exclude none`): 216 journaled cases, all
+                passed, every simulated probe on the cuda engine on the
+                card; (c) an all-available probe of 10 namespaces x 30
+                pods (540,000 jobs) under fixed policies, whose table
+                must equal the CPU engine's cell for cell and, on a seeded
+                sample of 2,000 jobs, the oracle's.  Prints a
+                {"probe": ...} line: per run the seconds in total and for
+                the job fan-out, engine build, grid, scatter and table,
+                the cases run and passed and the cells compared;
+  6. main path — the benchmark's synthetic cluster (100,000 pods x 10,000
                 policies, seed 20260729, port cases TCP 80 and named UDP
                 81) through the default engine (class-compressed route,
                 weighted kernel) and with class_compress="0" (dense route,
@@ -74,9 +89,10 @@ Phases, each raising on failure:
                 kernel also its registers, shared memory and spill
                 bytes.
 
-Every comparison is exact.  Prints a JSON line of the main path's
-end-to-end numbers (per route and dense-plan leg), a JSON line of
-per-kernel numbers, then as its last line {"ok": true, "device": {...}}.
+Every comparison is exact.  Prints a JSON line of the probe phase, a
+JSON line of the main path's end-to-end numbers (per route and
+dense-plan leg), a JSON line of per-kernel numbers, then as its last line
+{"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  The port's CPU paths are covered by tests/test_torch_*.py.
 """
@@ -630,6 +646,211 @@ def phase_truth_tables(device) -> None:
             n_tiered += fc.tiers is not None
     log(f"truth tables: 16 fuzz seeds x 2 class modes x both dtype plans ({n_tiered} "
         f"tiered settings), {cells} cells and all counts equal to the tiered oracle")
+
+
+#: the large probe's cluster: namespaces x pods, 540,000 all-available
+#: jobs over ports 80 and 81 and TCP, UDP, SCTP (6 containers a pod)
+PROBE_NAMESPACES = ["x", "y", "z"] + [f"n{i}" for i in range(3, 10)]
+PROBE_PODS = ["a", "b", "c"] + [f"p{i}" for i in range(3, 30)]
+#: jobs of the large probe held against the scalar oracle
+PROBE_ORACLE_SAMPLE = 2000
+SIMPLE_EXAMPLE = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "examples", "networkpolicies", "simple-example"
+)
+
+
+@contextlib.contextmanager
+def probe_recorder():
+    """Every probe that Runner.run_probe_for_config runs while active, as
+    the runner recorded it: the job runner's kind, the seconds split, and
+    for the simulated runner its engine and device."""
+    from cyclonus_tpu_torch.probe import runner as pr
+
+    records = []
+    original = pr.Runner.run_probe_for_config
+
+    def recorded(self, probe_config, resources):
+        table = original(self, probe_config, resources)
+        jr = self.job_runner
+        rec = {"kind": type(jr).__name__, **self.seconds}
+        if isinstance(jr, pr.SimulatedJobRunner):
+            rec.update(engine=jr.engine, device=str(jr.device), **jr.seconds)
+        records.append(rec)
+        return table
+
+    pr.Runner.run_probe_for_config = recorded
+    try:
+        yield records
+    finally:
+        pr.Runner.run_probe_for_config = original
+
+
+def probe_split(records, wall_s, engine="cuda"):
+    """The seconds of a run's simulated probes by stage, summed, and a
+    check that each ran on `engine` (on the card for "cuda")."""
+    sim = [r for r in records if r["kind"] == "SimulatedJobRunner"]
+    kube = [r for r in records if r["kind"] == "KubeJobRunner"]
+    bad = [r for r in sim if r["engine"] != engine or (engine == "cuda") != r["device"].startswith("cuda")]
+    if not sim or bad:
+        raise AssertionError(f"probes not on the {engine} engine: {bad or 'none ran'}")
+
+    def total(rs, key):
+        return sum(r.get(key, 0.0) for r in rs)
+
+    return {
+        "seconds": wall_s,
+        "simulated_probes": len(sim),
+        "device": sim[0]["device"],
+        "jobs_s": total(sim, "jobs"),
+        "build_s": total(sim, "build"),
+        "grid_s": total(sim, "grid"),
+        "scatter_s": total(sim, "scatter"),
+        "table_s": total(sim, "table"),
+        "kube_probe_s": total(kube, "jobs") + total(kube, "run") + total(kube, "table"),
+    }
+
+
+def run_cli(argv, engine="cuda"):
+    """(exit code, stdout, stage split) of one in-process CLI run."""
+    import io
+
+    from cyclonus_tpu_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with probe_recorder() as records, contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    split = probe_split(records, time.perf_counter() - t0, engine)
+    return rc, out.getvalue(), split
+
+
+def comparison_counts(text):
+    """(wrong, ignored, correct) summed over the report's step lines."""
+    import re
+
+    rows = re.findall(r"^(\d+) wrong, (\d+) ignored, (\d+) correct$", text, re.M)
+    return tuple(sum(int(r[i]) for r in rows) for i in range(3)), len(rows)
+
+
+def table_cells(table):
+    """{(from, to): {job key: (ingress, egress, combined)}} of a Table."""
+    return {
+        (fr, to): {k: (r.ingress, r.egress, r.combined) for k, r in table.get(fr, to).job_results.items()}
+        for fr, to in table.wrapped.keys()
+    }
+
+
+def large_probe_policies():
+    """The large probe's fixed policy set: the simple-example fixture
+    (namespace y) and one example policy in each of the ten namespaces,
+    selecting the probe pods by their {pod: name} labels."""
+    from cyclonus_tpu_torch.kube import examples as ex
+    from cyclonus_tpu_torch.kube.yaml_io import load_policies_from_path
+
+    return load_policies_from_path(SIMPLE_EXAMPLE) + [
+        ex.allow_from_to("x", {"pod": "a"}, {"pod": "b"}),
+        ex.allow_all_within_namespace("y"),
+        ex.allow_nothing_to_anything("z"),
+        ex.allow_from_namespace_to("n3", {"ns": "x"}, {"pod": "c"}),
+        ex.allow_specific_port_to("n4", {"pod": "p5"}, {"pod": "a"}, 81),
+        ex.allow_no_egress_from_labels("n5", {"pod": "b"}),
+        ex.allow_egress_on_port("n6", {"pod": "p7"}, 80),
+        ex.allow_no_egress_from_namespace("n7"),
+        ex.allow_egress_to_all_namespaces_on_port("n8", {"pod": "a"}, 81),
+        ex.allow_from_different_namespace_with_labels_to("n9", {"pod": "c"}, {"ns": "y"}, {"pod": "p9"}),
+        ex.accidental_or("x", {"pod": "c"}, {"ns": "y"}, {"pod": "a"}),
+    ]
+
+
+def phase_probe(device) -> None:
+    """The probe layer on the card: the probe CLI, the full conformance
+    run, and the large probe against the CPU engine and the oracle."""
+    from cyclonus_tpu_torch.kube import MockKubernetes
+    from cyclonus_tpu_torch.matcher import build_network_policies
+    from cyclonus_tpu_torch.probe import ProbeConfig, Resources, SimulatedJobRunner, new_simulated_runner
+    from cyclonus_tpu_torch.probe import runner as pr
+
+    if pr.DEFAULT_ENGINE != "cuda":
+        raise AssertionError(f"default simulated engine {pr.DEFAULT_ENGINE!r}")
+    out = {"card": card_info()}
+
+    # (a) the probe CLI at its defaults, then the same on the oracle engine
+    argv = ["probe", "--mock", "--perfect-cni", "--noisy", "--policy-path", SIMPLE_EXAMPLE]
+    rc, text, split = run_cli(argv)
+    oracle_rc, oracle_text, _ = run_cli(argv + ["--engine", "oracle"], engine="oracle")
+    (wrong, ignored, correct), steps = comparison_counts(text)
+    if rc != 0 or oracle_rc != 0 or wrong or not correct:
+        raise AssertionError(f"probe CLI: rc {rc}/{oracle_rc}, {wrong} wrong, {correct} correct")
+    if text != oracle_text:
+        raise AssertionError("probe CLI: the cuda engine's report differs from the oracle's")
+    out["cli_probe"] = {**split, "steps": steps, "cells_compared": wrong + ignored + correct,
+                        "differing_cells": wrong}
+    log(f"probe CLI: {correct} cells equal to the perfect CNI, report equal to the oracle's, "
+        f"{split['seconds']:.2f} s")
+
+    # (b) the full conformance run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-journal-") as tmp:
+        journal = os.path.join(tmp, "journal.jsonl")
+        rc, text, split = run_cli(
+            ["generate", "--mock", "--perfect-cni", "--exclude", "none", "--journal", journal]
+        )
+        with open(journal) as f:
+            entries = [json.loads(line) for line in f if line.strip()]
+    (wrong, ignored, correct), steps = comparison_counts(text)
+    passed = sum(e["passed"] for e in entries)
+    if rc != 0 or len(entries) != 216 or passed != 216 or wrong:
+        raise AssertionError(f"conformance: rc {rc}, {passed}/{len(entries)} passed, {wrong} wrong cells")
+    if split["simulated_probes"] != sum(e["step_count"] for e in entries):
+        raise AssertionError(f"conformance: {split['simulated_probes']} simulated probes for "
+                             f"{sum(e['step_count'] for e in entries)} steps")
+    out["conformance"] = {**split, "cases_run": len(entries), "cases_passed": passed,
+                          "steps": steps, "cells_compared": wrong + ignored + correct}
+    log(f"conformance: {passed}/{len(entries)} cases passed on the cuda engine, "
+        f"{split['seconds']:.2f} s")
+
+    # (c) the large all-available probe: card, CPU engine, oracle sample
+    policy = build_network_policies(True, large_probe_policies())
+    t0 = time.perf_counter()
+    resources = Resources.new_default(
+        MockKubernetes(1.0), PROBE_NAMESPACES, PROBE_PODS, [80, 81], ["TCP", "UDP", "SCTP"]
+    )
+    setup_s = time.perf_counter() - t0
+    cfg = ProbeConfig.all_available_config()
+    card = new_simulated_runner(policy)
+    t0 = time.perf_counter()
+    with probe_recorder() as records:
+        card_table = card.run_probe_for_config(cfg, resources)
+    card_split = probe_split(records, time.perf_counter() - t0)
+    n_jobs = (len(PROBE_NAMESPACES) * len(PROBE_PODS)) ** 2 * 6
+    cpu = new_simulated_runner(policy, device="cpu")
+    t0 = time.perf_counter()
+    cpu_table = cpu.run_probe_for_config(cfg, resources)
+    cpu_s = time.perf_counter() - t0
+    card_cells = table_cells(card_table)
+    n_cells = sum(len(v) for v in card_cells.values())
+    if n_cells != n_jobs:
+        raise AssertionError(f"large probe: {n_cells} cells for {n_jobs} jobs")
+    if card_cells != table_cells(cpu_table):
+        raise AssertionError("large probe: the card's table differs from the CPU engine's")
+    results = [r for fr, to in card_table.wrapped.keys() for r in card_table.get(fr, to).job_results.values()]
+    oracle = SimulatedJobRunner(policy, engine="oracle")
+    for r in random.Random(SEED).sample(results, PROBE_ORACLE_SAMPLE):
+        o = oracle.run_job(r.job)
+        if (r.ingress, r.egress, r.combined) != (o.ingress, o.egress, o.combined):
+            raise AssertionError(f"large probe: job {r.job.key()} differs from the oracle")
+    allowed = sum(r.combined == "allowed" for r in results)
+    share, top = device_time_profile(lambda: card.run_probe_for_config(cfg, resources), reps=1)
+    out["large"] = {
+        **card_split,
+        "pods": len(resources.pods), "jobs": n_jobs, "allowed": allowed,
+        "cluster_setup_s": setup_s, "cpu_engine_s": cpu_s, "cpu_engine_split": {**cpu.seconds, **cpu.job_runner.seconds},
+        "cells_compared": n_cells + PROBE_ORACLE_SAMPLE,
+        "device_busy_share": share, "device_top": top,
+    }
+    log(f"large probe: {n_jobs} jobs ({allowed} allowed) equal to the CPU engine and "
+        f"{PROBE_ORACLE_SAMPLE} to the oracle; card {card_split['seconds']:.2f} s, "
+        f"CPU engine {cpu_s:.2f} s, device busy {share}")
+    log(json.dumps({"probe": out}))
 
 
 def live_target_bits(tmatch_pk, has, valid):
@@ -1327,6 +1548,7 @@ def main() -> int:
     phase_kernels(device)
     phase_dense_kernels(device)
     phase_truth_tables(device)
+    phase_probe(device)
     # the steady-state settings of the run, and the slab autotune's winners
     # in a file of its own, gone with the run
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp, env(

@@ -400,6 +400,9 @@ class TorchPolicyEngine:
     def pod_keys(self) -> List[str]:
         return self._pod_keys
 
+    def pod_index(self) -> Dict[str, int]:
+        return {k: i for i, k in enumerate(self.pod_keys)}
+
     def tier_stats(self) -> Dict:
         """The precedence-tier summary: whether the lattice is active, the
         ANP object count, the flat rule-row count (real rows, both

@@ -1,0 +1,11 @@
+"""Container image default of the probe pods, env-overridable.
+
+The reference pins k8s.gcr.io/e2e-test-images/agnhost:2.28 (pod.go:13-16);
+k8s.gcr.io froze in 2023, registry.k8s.io serves the same artifacts.
+"""
+
+import os
+
+AGNHOST_IMAGE = os.environ.get(
+    "CYCLONUS_AGNHOST_IMAGE", "registry.k8s.io/e2e-test-images/agnhost:2.28"
+)

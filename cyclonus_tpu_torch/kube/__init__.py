@@ -43,6 +43,8 @@ from .yaml_io import (
     policy_to_dict,
     policies_to_yaml,
 )
+from .ikubernetes import IKubernetes, MockKubernetes, MockNamespace
+from .protocol import parse_protocol, qualified_service_address
 
 __all__ = [
     "IntOrString",
@@ -75,4 +77,9 @@ __all__ = [
     "parse_policy_dict",
     "policy_to_dict",
     "policies_to_yaml",
+    "IKubernetes",
+    "MockKubernetes",
+    "MockNamespace",
+    "parse_protocol",
+    "qualified_service_address",
 ]

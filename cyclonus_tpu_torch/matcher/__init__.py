@@ -49,6 +49,7 @@ from .simplify import (
     combine_pod_peer_matchers,
     combine_ip_peer_matchers,
 )
+from .explain import explain_table
 
 __all__ = [
     "Policy",
@@ -88,4 +89,5 @@ __all__ = [
     "subtract_port_matchers",
     "combine_pod_peer_matchers",
     "combine_ip_peer_matchers",
+    "explain_table",
 ]
