@@ -53,7 +53,27 @@ Phases, each raising on failure:
                 {"probe": ...} line: per run the seconds in total and for
                 the job fan-out, engine build, grid, scatter and table,
                 the cases run and passed and the cells compared;
-  6. main path — the benchmark's synthetic cluster (100,000 pods x 10,000
+  6. serve    — the verdict service (cyclonus_tpu_torch/serve) on the
+                card, with the kernel launch counts zeroed before it and
+                read after it: (a) bench.py's serve leg at its defaults
+                (1,024 pods, 128 policies, random.Random(123), 32
+                single-pod delta steps, every fifth a remove-then-add,
+                the others label changes, 8 queries a step, half TCP 80
+                and half named UDP 81), every apply incremental, no tensor
+                set uploaded by a patch (engine.api.TRANSFERS), then
+                verify_parity (grids against a fresh engine, 32 oracle
+                cells); the same again over the benchmark's ANP/BANP
+                tiers with one ANP delta more; (b) the headline cluster
+                (100,000 pods x 10,000 policies, seed 20260729): three
+                counts calls (fused, split, steady), the same delta
+                stream plus a namespace-label delta and a policy update
+                and create, a 4,096-query batch (throughput, device busy
+                share), then against a fresh engine of the post-delta
+                state: 4,096 pairs on both port cases, 256 of them
+                against the oracle, and the dense counts, whose first call
+                after the patch must run fused and launch K1 once.
+                Prints one {"serve": ...} line per size;
+  7. main path — the benchmark's synthetic cluster (100,000 pods x 10,000
                 policies, seed 20260729, port cases TCP 80 and named UDP
                 81) through the default engine (class-compressed route,
                 weighted kernel) and with class_compress="0" (dense route,
@@ -89,9 +109,10 @@ Phases, each raising on failure:
                 kernel also its registers, shared memory and spill
                 bytes.
 
-Every comparison is exact.  Prints a JSON line of the probe phase, a
-JSON line of the main path's end-to-end numbers (per route and
-dense-plan leg), a JSON line of per-kernel numbers, then as its last line
+Every comparison is exact.  Prints a JSON line of the probe phase, the
+serve lines, a JSON line of the main path's end-to-end numbers (per route and
+dense-plan leg), a JSON line of per-kernel numbers (with each kernel's
+launches on the serve path), then as its last line
 {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  The port's CPU paths are covered by tests/test_torch_*.py.
@@ -853,6 +874,303 @@ def phase_probe(device) -> None:
     log(json.dumps({"probe": out}))
 
 
+# --- the verdict service ----------------------------------------------------
+
+#: bench.py's serve leg at its defaults (bench.py:936-946): pods, policies,
+#: single-pod delta steps, queries a step, the seed
+SERVE_PODS, SERVE_POLICIES, SERVE_DELTAS, SERVE_QUERIES, SERVE_SEED = 1024, 128, 32, 8, 123
+#: the headline leg's query batch, its parity pairs and oracle sample
+SERVE_BATCH, SERVE_PAIRS, SERVE_ORACLE = 4096, 4096, 256
+
+
+def serve_queries(rng, keys, n):
+    """bench.py's query mix: half TCP 80, half the named UDP 81."""
+    from cyclonus_tpu_torch.worker.model import FlowQuery
+
+    out = []
+    for _ in range(n):
+        a, b = rng.choice(keys), rng.choice(keys)
+        if rng.random() < 0.5:
+            out.append(FlowQuery(src=a, dst=b, port=80, protocol="TCP", port_name="serve-80-tcp"))
+        else:
+            out.append(FlowQuery(src=a, dst=b, port=81, protocol="UDP", port_name="serve-81-udp"))
+    return out
+
+
+def serve_stream(svc, rng, label, steps=SERVE_DELTAS, q_per_step=SERVE_QUERIES, extra=()):
+    """bench.py's serve churn against a warm service: `steps` single-pod
+    delta batches (every fifth a remove-then-add of the same pod, the
+    others a label change) with `q_per_step` queries after each, then the
+    batches in `extra` ((kind, [deltas])).  Every apply must patch
+    (mode incremental or class_rebuild) and no whole tensor set may move
+    to the device.  Returns the figures of the stream."""
+    from cyclonus_tpu_torch.engine import api
+    from cyclonus_tpu_torch.worker.model import Delta
+
+    from cyclonus_tpu_torch.worker.model import FlowQuery
+
+    keys = list(svc.pods)
+    # warm: the device views' upload, then one patch
+    svc.query([FlowQuery(src=keys[0], dst=keys[1], port=80, protocol="TCP",
+                         port_name="serve-80-tcp")])
+    pod = svc.pods[keys[0]]
+    svc.apply([Delta(kind="pod_labels", namespace=pod[0], name=pod[1],
+                     labels={**pod[2], "tier": "tier1"})])
+    transfers0, bytes0 = dict(api.TRANSFERS), svc.patch_stats()["patch_bytes"]
+    applies, batch_s, n_queries = {}, [], 0
+
+    def apply(kind, deltas):
+        report = svc.apply(deltas)
+        if report["mode"] not in ("incremental", "class_rebuild"):
+            raise AssertionError(f"{label}: {kind} delta took mode {report['mode']!r}: {deltas}")
+        applies.setdefault(kind, []).append(report["seconds"])
+
+    for step in range(steps):
+        key = keys[rng.randrange(len(keys))]
+        ns, name = key.split("/", 1)
+        if step % 5 == 4:
+            pod = svc.pods[key]
+            apply("remove_add", [Delta(kind="pod_remove", namespace=ns, name=name),
+                                 Delta(kind="pod_add", namespace=ns, name=name,
+                                       labels=dict(pod[2]), ip=pod[3])])
+        else:
+            apply("labels", [Delta(kind="pod_labels", namespace=ns, name=name, labels={
+                "pod": f"p{rng.randrange(100)}", "app": f"app{rng.randrange(20)}",
+                "tier": f"tier{rng.randrange(5)}"})])
+        qs = serve_queries(rng, keys, q_per_step)
+        t0 = time.perf_counter()
+        verdicts = svc.query(qs)
+        batch_s.append(time.perf_counter() - t0)
+        if any(v.error for v in verdicts):
+            raise AssertionError(f"{label}: a query failed: {[v.error for v in verdicts if v.error]}")
+        n_queries += len(qs)
+    for kind, deltas in extra:
+        apply(kind, deltas)
+    if api.TRANSFERS != transfers0:
+        raise AssertionError(f"{label}: a patch uploaded a tensor set: {transfers0} -> {api.TRANSFERS}")
+    return {
+        "incremental_apply_s": {k: {"mean": statistics.mean(v), "max": max(v), "n": len(v)}
+                                for k, v in applies.items()},
+        "patch_bytes": svc.patch_stats()["patch_bytes"] - bytes0,
+        "headroom_saves": svc.patch_stats()["headroom_saves"],
+        "stream_queries": n_queries,
+        "stream_queries_per_sec": n_queries / sum(batch_s),
+        "stream_batch_p50_ms": 1e3 * statistics.median(batch_s),
+        "stream_batch_p99_ms": 1e3 * sorted(batch_s)[min(len(batch_s) - 1, int(0.99 * len(batch_s)))],
+        "transfers": {"before": transfers0, "after": dict(api.TRANSFERS)},
+        "applies": svc.state()["applies"],
+    }
+
+
+def serve_small(device, tiers):
+    """(a) bench.py's serve leg at its defaults, untiered or with the
+    benchmark's admin tiers layered over it (then one ANP delta more);
+    the differential gate verify_parity at the end."""
+    from cyclonus_tpu_torch.serve import VerdictService
+    from cyclonus_tpu_torch.synthetic import build_synthetic
+    from cyclonus_tpu_torch.tiers.model import (
+        AdminNetworkPolicy, TierRule, TierScope,
+    )
+    from cyclonus_tpu_torch.kube.netpol import LabelSelector
+    from cyclonus_tpu_torch.worker.model import Delta
+
+    label = "serve 1,024" + (" tiered" if tiers else "")
+    rng = random.Random(SERVE_SEED)
+    pods, namespaces, policies = build_synthetic(SERVE_PODS, SERVE_POLICIES, rng)
+    t0 = time.perf_counter()
+    svc = VerdictService(pods, namespaces, policies, device=device, tiers=tiers)
+    build_s = time.perf_counter() - t0
+    extra = ()
+    if tiers:
+        anp = AdminNetworkPolicy(
+            name="serve-deny-tier3", priority=7,
+            subject=TierScope(pod_selector=LabelSelector.make({"tier": "tier3"})),
+            ingress=[TierRule(action="Deny", peers=[TierScope(
+                pod_selector=LabelSelector.make({"app": "app4"}))])],
+        )
+        extra = [("anp", [Delta(kind="anp_upsert", name=anp.name, policy=anp.to_dict())])]
+    out = {"pods": SERVE_PODS, "policies": SERVE_POLICIES, "deltas": SERVE_DELTAS,
+           "tiers": svc.state()["tiers"], "build_s": build_s,
+           "full_rebuild_s": svc.state()["last_full_rebuild_s"]}
+    out.update(serve_stream(svc, rng, label, extra=extra))
+    t0 = time.perf_counter()
+    out["parity"] = svc.verify_parity(oracle_samples=32)
+    out["parity_s"] = time.perf_counter() - t0
+    return out
+
+
+def serve_headline(device):
+    """(b) the headline cluster: the same stream plus a namespace-label
+    delta and two policy deltas (an update and a create), a
+    4,096-query batch, and parity against a fresh engine (pairs, the
+    oracle, and the dense counts, whose kernel K1 must launch after the
+    patch)."""
+    import numpy as np
+
+    from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.engine.tiled import _precompute
+    from cyclonus_tpu_torch.kube.yaml_io import policy_to_dict
+    from cyclonus_tpu_torch.matcher.tiered import tiered_oracle_verdicts
+    from cyclonus_tpu_torch.oracle import traffic_for_cell
+    from cyclonus_tpu_torch.serve import VerdictService
+    from cyclonus_tpu_torch.synthetic import build_synthetic
+    from cyclonus_tpu_torch.worker.model import Delta
+
+    label = "serve 100,000"
+    rng = random.Random(SEED)
+    pods, namespaces, policies = build_synthetic(N_PODS, N_POLICIES, rng)
+    t0 = time.perf_counter()
+    svc = VerdictService(pods, namespaces, policies, device=device)
+    build_s = time.perf_counter() - t0
+    eng = svc.engine
+    cases = [PortCase(80, "serve-80-tcp", "TCP"), PortCase(81, "serve-81-udp", "UDP")]
+    # the steady state before the patch: fused, split, steady
+    modes, pre_counts, counts_s = [], None, []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pre_counts = eng.evaluate_grid_counts(cases)
+        counts_s.append(time.perf_counter() - t0)
+        modes.append(eng.pre_cache_stats()["mode"])
+    if modes != ["fused", "split", "steady"]:
+        raise AssertionError(f"{label}: counts modes before the patch {modes}")
+    pinned = eng.pre_cache_stats()["pinned_bytes"]
+
+    update = policy_to_dict(policies[0])
+    update["spec"]["podSelector"] = {"matchLabels": {"app": "app7"}}
+    create = {
+        "apiVersion": "networking.k8s.io/v1", "kind": "NetworkPolicy",
+        "metadata": {"name": "serve-new", "namespace": "ns1"},
+        "spec": {"podSelector": {"matchLabels": {"app": "app3"}}, "policyTypes": ["Ingress"],
+                 "ingress": [{"from": [{"podSelector": {"matchLabels": {"tier": "tier2"}}}],
+                              "ports": [{"protocol": "TCP", "port": 80}]}]},
+    }
+    ns0 = dict(namespaces["ns0"], team="team3")
+    extra = [
+        ("ns_labels", [Delta(kind="ns_labels", namespace="ns0", labels=ns0)]),
+        ("policy_update", [Delta(kind="policy_upsert", namespace=policies[0].namespace,
+                                 name=policies[0].name, policy=update)]),
+        ("policy_create", [Delta(kind="policy_upsert", namespace="ns1", name="serve-new",
+                                 policy=create)]),
+    ]
+    out = {"pods": N_PODS, "policies": N_POLICIES, "deltas": SERVE_DELTAS + 3,
+           "build_s": build_s, "full_rebuild_s": svc.state()["last_full_rebuild_s"],
+           "counts_s_before_patch": dict(zip(modes, counts_s)),
+           "pinned_bytes_before_patch": pinned}
+    out.update(serve_stream(svc, rng, label, extra=extra))
+    if svc.engine is not eng:
+        raise AssertionError(f"{label}: the service rebuilt its engine")
+
+    # throughput: one 4,096-query batch over both port cases, 5 times
+    keys = list(svc.pods)
+    batch = serve_queries(rng, keys, SERVE_BATCH)
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        verdicts = svc.query(batch)
+        times.append(time.perf_counter() - t0)
+    times = times[1:]
+    if any(v.error for v in verdicts):
+        raise AssertionError(f"{label}: a batch query failed")
+    share, top = device_time_profile(lambda: svc.query(batch), reps=3)
+    out.update({"batch_queries": SERVE_BATCH, "batch_s": times,
+                "queries_per_sec": SERVE_BATCH / statistics.median(times),
+                "batch_device_busy_share": share, "batch_device_top": top})
+
+    # parity against a fresh engine of the post-delta state
+    t0 = time.perf_counter()
+    pods_now = list(svc.pods.values())
+    fresh = TorchPolicyEngine(svc._policy, pods_now, svc.namespaces, device=device, compact=False)
+    out["fresh_build_s"] = time.perf_counter() - t0
+    pick = random.Random(SEED + 1)
+    pairs = [(pick.randrange(len(pods_now)), pick.randrange(len(pods_now)))
+             for _ in range(SERVE_PAIRS)]
+    key_of = [f"{p[0]}/{p[1]}" for p in pods_now]
+    inc_pairs = [(svc._pod_idx[key_of[s]], svc._pod_idx[key_of[d]]) for s, d in pairs]
+    got = eng.evaluate_pairs(cases, inc_pairs)
+    want = fresh.evaluate_pairs(cases, pairs)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label}: pairs differ from a fresh engine in "
+                             f"{int((got != want).sum())} cells")
+    for i in range(SERVE_ORACLE):
+        q = i % len(cases)
+        s, d = pairs[i]
+        o = tiered_oracle_verdicts(svc._policy, None,
+                                   traffic_for_cell(pods_now, svc.namespaces, cases[q], s, d))
+        if tuple(bool(x) for x in want[i, q]) != tuple(o):
+            raise AssertionError(f"{label}: pair {pairs[i]} case {cases[q]} differs from the oracle")
+    launched = pk.LAUNCHES["packed_counts"]
+    t0 = time.perf_counter()
+    counts = eng.evaluate_grid_counts(cases)
+    counts_s_after = time.perf_counter() - t0
+    mode_after = eng.pre_cache_stats()["mode"]
+    k1_after = pk.LAUNCHES["packed_counts"] - launched
+    # the serve path's own launches, read before the checks below launch more
+    out["launches"] = launch_counts()
+    if k1_after != 1 or mode_after != "fused":
+        raise AssertionError(f"{label}: post-patch counts call {mode_after}, K1 launched {k1_after}")
+    fresh_counts = fresh.evaluate_grid_counts(cases)
+    if counts != fresh_counts:
+        raise AssertionError(f"{label}: patched counts {counts} != fresh {fresh_counts}")
+    del fresh
+    # the same counts through the class route (K2 over the classes), and
+    # K1 against its plain version at the patched engine's own operands
+    t0 = time.perf_counter()
+    fresh_cls = TorchPolicyEngine(svc._policy, pods_now, svc.namespaces, device=device,
+                                  class_compress="1")
+    class_counts = fresh_cls.evaluate_grid_counts(cases)
+    if fresh_cls.pod_classes() is None or not fresh_cls._class_counts_eligible(len(cases)):
+        raise AssertionError(f"{label}: the fresh class engine did not take the class route")
+    if counts != class_counts:
+        raise AssertionError(f"{label}: patched counts {counts} != class route {class_counts}")
+    class_s = time.perf_counter() - t0
+    del fresh_cls
+    t0 = time.perf_counter()
+    pre = _precompute(eng._dense_counts_tensors(cases), True)
+    args, _tier, _got, err = check_packed(pre, eng.n_pods, None,
+                                          f"{label}: K1 at the patched engine's operands")
+    k1_plain = {"we": int(args[0].shape[0]), "wi": int(args[3].shape[0]),
+                "ns": int(args[0].shape[1]), "nd": int(args[3].shape[1]), "max_abs_err": err,
+                "check_s": time.perf_counter() - t0}
+    del pre, args
+    log(f"{label}: K1 equal to plain at the patched engine's operands {k1_plain} "
+        f"(tolerance: exact)")
+    out.update({"pairs_checked": SERVE_PAIRS * len(cases), "oracle_checked": SERVE_ORACLE,
+                "counts_before": pre_counts, "counts_after": counts,
+                "counts_equal_fresh": True, "counts_equal_class_route": True,
+                "class_route_check_s": class_s, "k1_vs_plain": k1_plain,
+                "counts_mode_after": mode_after, "counts_s_after_patch": counts_s_after,
+                "k1_launches_after_patch": k1_after})
+    return out
+
+
+def phase_serve(device):
+    """The verdict service on the card: (a) bench.py's serve leg, untiered
+    and tiered, (b) the headline cluster.  Returns the serve path's
+    kernel launches, counted from zero over the phase, and the headline
+    service's counts before its patch (the main path's untiered counts
+    must equal them)."""
+    import torch
+
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.synthetic import bench_tiers
+
+    pk.reset_launches()
+    dk.reset_launches()
+    for tiers in (None, bench_tiers()):
+        out = serve_small(device, tiers)
+        log(json.dumps({"serve": {"card": card_info(), "size": "bench", **out}}))
+    torch.cuda.empty_cache()
+    out = serve_headline(device)
+    launches = out["launches"]
+    log(json.dumps({"serve": {"card": card_info(), "size": "headline", **out}}))
+    if launches["packed_counts"] < 1:
+        raise AssertionError(f"serve: K1 never launched: {launches}")
+    torch.cuda.empty_cache()
+    return launches, out["counts_before"]
+
+
 def live_target_bits(tmatch_pk, has, valid):
     """Target bits of one direction of the packed plan that hold data, as
     `live_target_rows` counts K4's rows over the same targets: the bits of
@@ -957,9 +1275,10 @@ def tier_work(tier, valid_src, valid_dst):
     return row_cells, cells
 
 
-def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
-    """Hold the kernel against its plain version on the main path's
-    inputs (tiered when the precompute carries tiers) and time both."""
+def check_packed(pre, n_pods, w_dst, what):
+    """Hold the packed counts kernel against its plain version on a
+    precompute's packed operands (tiered when it carries tiers); returns
+    (kernel arguments, tier, kernel result, max abs error)."""
     import torch
 
     from cyclonus_tpu_torch.engine import packed_kernel as pk
@@ -975,8 +1294,17 @@ def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
     got = pk.verdict_counts_packed(*args, **kw)
     torch.cuda.synchronize()
     want = pk.verdict_counts_packed_plain(*args, **kw)
-    check_kernel(got, want, f"{name}, the main-path shapes")
-    max_abs_err = float((got.double() - want.double()).abs().max())
+    check_kernel(got, want, what)
+    return args, tier, got, float((got.double() - want.double()).abs().max())
+
+
+def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
+    """Hold the kernel against its plain version on the main path's
+    inputs (tiered when the precompute carries tiers) and time both."""
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+
+    args, tier, got, max_abs_err = check_packed(pre, n_pods, w_dst,
+                                                f"{name}, the main-path shapes")
     valid_src, valid_dst, bs, bd = pk._resolve(
         args[0], args[3], n_pods, None, None, None, None
     )
@@ -1526,7 +1854,7 @@ def phase_main_path(device):
     # the main path's end-to-end numbers in one line, next to the kernels
     # line at the end of the output
     log(json.dumps({"main_path": summary}))
-    return records
+    return records, plain
 
 
 def main() -> int:
@@ -1555,7 +1883,16 @@ def main() -> int:
         CYCLONUS_PRE_CACHE="1", CYCLONUS_AUTOTUNE="auto",
         CYCLONUS_AUTOTUNE_CACHE=os.path.join(tmp, "autotune.json"),
     ):
-        records = phase_main_path(device)
+        serve_launches, serve_counts = phase_serve(device)
+        records, main_counts = phase_main_path(device)
+    # the serve engine's counts of the headline cluster before its patch
+    # are the main path's untiered counts of the same cluster
+    if serve_counts != main_counts:
+        raise AssertionError(f"serve counts before the patch {serve_counts} != "
+                             f"main path {main_counts}")
+    log("serve counts before the patch equal the main path's untiered counts")
+    for r in records:
+        r["serve_launches"] = serve_launches.get(r["name"], 0)
     log(card_info())
     log(json.dumps({"kernels": records}))
     log(json.dumps({

@@ -44,14 +44,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_torch(a: np.ndarray, device) -> torch.Tensor:
-    """One numpy array as a torch tensor on `device` (uint32 -> int64)."""
+    """One numpy array as a torch tensor on `device` (uint32 -> int64).
+    Always a copy, on the CPU too: the tensor never shares memory with
+    the host array, so an edit of one is not an edit of the other."""
     a = np.asarray(a)
     dtype = _DTYPES.get(a.dtype)
     if dtype is None:
         raise TypeError(f"unsupported tensor dtype {a.dtype}")
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype, copy=True)
 
 
 def tensors_from_reference(np_tensors: Dict, device) -> Dict:

@@ -27,9 +27,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from .generate import setup_generate
     from .probe_cmd import setup_probe
+    from .serve_cmd import setup_serve
 
     setup_generate(sub)
     setup_probe(sub)
+    setup_serve(sub)
 
     version_cmd = sub.add_parser("version", help="print version information")
     version_cmd.set_defaults(func=_run_version)

@@ -12,6 +12,10 @@ the same two entry points:
                             fits the device budget, else the dense route
                             over ns-sorted pods.
 
+and, for point queries, evaluate_pairs (the verdicts of K (src, dst) pod
+pairs, no grid) and iter_grid_blocks (the grid streamed to the host in
+blocks of source rows).
+
 Two dtype plans, as in the reference (`pack`, CYCLONUS_PACK):
 
   * packed (the default): the counts kernels contract 32-per-word bitmaps
@@ -46,6 +50,13 @@ engine/autotune.py).  The reference runs its slab candidate in a bounded
 thread and falls back to the default kernel when it fails or hangs, a
 guard for a wedged remote TPU compile; here K6 lives in the library that
 K4/K5 come from, so a candidate that fails raises like any kernel.
+
+The verdict service (cyclonus_tpu_torch/serve) keeps an engine resident
+and patches its host tensors and the device views of them in place
+(`slab_headroom` reserves rule-slab rows for its policy patches);
+invalidate_after_patch then drops what was derived from the old values.
+TRANSFERS counts the uploads of a whole tensor set, so a caller can show
+that a patch moved no untouched leaf.
 
 The reference's packed tile autotune, AOT cache and plan recording are
 compile machinery that change no result; the port has one tile shape per
@@ -92,6 +103,12 @@ from .tiled import (
 #: (the reference's _PRE_CACHE_MAX_BYTES): past it, recomputing the
 #: precompute on every call beats holding it
 _PRE_CACHE_MAX_BYTES = 2 << 30
+
+#: uploads of a whole engine tensor set to the device, counted where the
+#: engine makes them: "tensors" the main set (the resident views, and the
+#: padded copy iter_grid_blocks streams from), "class_tensors" the class
+#: representatives' set
+TRANSFERS: Dict[str, int] = {"tensors": 0, "class_tensors": 0}
 
 
 def _pre_cache_enabled() -> bool:
@@ -201,7 +218,10 @@ class TorchPolicyEngine:
     turns it off.  `tiers` (a
     tiers.model.TierSet) layers AdminNetworkPolicy / BaselineAdmin-
     NetworkPolicy precedence tiers over the policies; absent or empty, the
-    tensor set is byte-identical to the tier-free engine's."""
+    tensor set is byte-identical to the tier-free engine's.
+    `slab_headroom` steps the rule-slab row buckets that many buckets up
+    (host._bucket_tensors): 0 for batch engines, CYCLONUS_SERVE_HEADROOM
+    for the verdict service's."""
 
     def __init__(
         self,
@@ -215,9 +235,11 @@ class TorchPolicyEngine:
         tiers=None,
         pack: Optional[bool] = None,
         slab: Optional[str] = None,
+        slab_headroom: int = 0,
     ):
         self.device = resolve_device(device)
         t0 = time.perf_counter()
+        self._slab_headroom = max(0, int(slab_headroom or 0))
         self.tiers = tiers if tiers else None
         if self.tiers is not None:
             self.tiers.validate()
@@ -242,17 +264,26 @@ class TorchPolicyEngine:
         )
         classes = None
         ctensors = None
+        # the rule-axis partition stats; None when compression is off
+        # (the service's policy patch compresses exactly when the build did)
+        self._partition_stats = None
         if mode != "0":
+            self._partition_stats = {}
             for direction in ("ingress", "egress"):
-                tensors[direction], _stats = compress_rule_axes(tensors[direction])
+                tensors[direction], self._partition_stats[direction] = compress_rule_axes(
+                    tensors[direction]
+                )
             classes = self._maybe_classify(tensors, selpod, mode)
             if classes is not None:
                 ctensors = host._bucket_tensors(
                     host._sort_targets_by_ns(
                         gather_class_pod_rows(tensors, classes.class_rep)
-                    )
+                    ),
+                    headroom=self._slab_headroom,
                 )
-        tensors = host._bucket_tensors(host._sort_targets_by_ns(tensors))
+        tensors = host._bucket_tensors(
+            host._sort_targets_by_ns(tensors), headroom=self._slab_headroom
+        )
         self._init_state(
             tensors,
             pod_keys=cluster.pod_keys,
@@ -323,6 +354,8 @@ class TorchPolicyEngine:
         self.device = resolve_device(device)
         self.encoding = None
         self.tiers = None  # a tiered dict carries its slabs under "tiers"
+        self._slab_headroom = 0
+        self._partition_stats = None
         self._init_state(
             tensors,
             pod_keys=list(pod_keys),
@@ -345,7 +378,9 @@ class TorchPolicyEngine:
         self, tensors, *, pod_keys, port_names, protocols, classes, ctensors, pack, slab
     ):
         self._tensors = tensors
-        self._pod_keys = list(pod_keys)
+        # the encoding's own list when built from one: the verdict
+        # service's pod patches edit it in place
+        self._pod_keys = pod_keys
         self._port_names = port_names
         self._protocols = protocols
         # the dtype plan: packed words (True) or dense int8 operands
@@ -384,6 +419,7 @@ class TorchPolicyEngine:
                 "ctensors": ctensors,
                 "device_tensors": None,
                 "class_of": None,
+                "ratio": n / max(classes.n_classes, 1),
                 # the device bytes the class route pins (class map +
                 # weights + the class tensor set), charged against the
                 # device budget exactly as the reference charges them
@@ -428,15 +464,38 @@ class TorchPolicyEngine:
         st = self._class_state
         return st["classes"] if st is not None else None
 
+    def class_compression_stats(self) -> Dict:
+        """The grid-compression summary: whether class state is on, pods,
+        classes, the pods-per-class ratio, the signature and device bytes,
+        and the rule-axis partition stats."""
+        st = self._class_state
+        if st is None:
+            return {"active": False, "pods": self.n_pods, "classes": None,
+                    "ratio": None, "partitions": self._partition_stats}
+        pc = st["classes"]
+        return {
+            "active": True,
+            "pods": self.n_pods,
+            "classes": pc.n_classes,
+            "ratio": round(st["ratio"], 4),
+            "signature_bytes": pc.signature_bytes,
+            "aux_bytes": st["aux_bytes"],
+            "partitions": self._partition_stats,
+        }
+
     def _dev(self) -> Dict:
+        """The device views of the host tensors: uploaded whole once,
+        then patched in place by the verdict service."""
         if self._device_tensors is None:
             self._device_tensors = carry.tensors_from_reference(self._tensors, self.device)
+            TRANSFERS["tensors"] += 1
         return self._device_tensors
 
     def _class_dev(self) -> Dict:
         st = self._class_state
         if st["device_tensors"] is None:
             st["device_tensors"] = carry.tensors_from_reference(st["ctensors"], self.device)
+            TRANSFERS["class_tensors"] += 1
         return st["device_tensors"]
 
     def _port_case_arrays(self, cases: Sequence[PortCase]):
@@ -505,6 +564,39 @@ class TorchPolicyEngine:
         )
         return GridVerdict(
             self.pod_keys, list(cases), out["ingress"], out["egress"], out["combined"]
+        )
+
+    # --- point queries and streamed blocks -------------------------------
+
+    def evaluate_pairs(
+        self, cases: Sequence[PortCase], pairs: Sequence[Tuple[int, int]]
+    ) -> np.ndarray:
+        """Point verdicts for (src_idx, dst_idx) pod pairs: [K, Q, 3] bool
+        (ingress, egress, combined), with no N x N grid anywhere
+        (tiled.evaluate_pairs_kernel over the device views)."""
+        self._check_ips()
+        if not cases or len(pairs) == 0:
+            return np.zeros((len(pairs), len(cases), 3), dtype=bool)
+        idx = torch.from_numpy(np.asarray(pairs, dtype=np.int64).reshape(-1, 2)).to(self.device)
+        out = tiled.evaluate_pairs_kernel(self._with_cases(self._dev(), cases), idx[:, 0], idx[:, 1])
+        return torch.stack([out["ingress"], out["egress"], out["combined"]], dim=2).cpu().numpy()
+
+    def iter_grid_blocks(self, cases: Sequence[PortCase], block: int = 1024):
+        """Stream verdict blocks of source rows to the host: yields
+        (start, ingress_rows, egress, combined), arrays [b, N, Q] bool
+        (tiled.iter_grid_blocks), for consumers that scan grids bigger
+        than host or device memory."""
+        self._check_ips()
+        n = self.n_pods
+        if not cases or n == 0:
+            return iter(())
+        return self._grid_blocks(cases, n, block)
+
+    def _grid_blocks(self, cases: Sequence[PortCase], n: int, block: int):
+        # tiled.iter_grid_blocks uploads a padded copy of the whole set
+        TRANSFERS["tensors"] += 1
+        yield from tiled.iter_grid_blocks(
+            self._with_host_cases(cases), n, block=block, pack=self._pack, device=self.device
         )
 
     # --- full-grid counts ------------------------------------------------
@@ -993,13 +1085,14 @@ class TorchPolicyEngine:
         }
 
     def invalidate_after_patch(self) -> None:
-        """Reset every value-derived device cache after the host tensors
-        are patched in place with their shapes unchanged: the pin, its
-        misses, the declined and last keys, the slab operands, the slab
-        choice, and the device tensor views, which rebuild from the
-        patched tensors at the next call.  The slab plan's window proof
-        is stale too, so the slab kernel stays off until the engine is
-        rebuilt, as on the reference."""
+        """Reset every cache derived from tensor values after the verdict
+        service patched the host tensors and their device views in place,
+        shapes unchanged: the pin, its misses, the declined and last keys,
+        the slab operands, the slab choice, the ns-order pod permutation
+        and the class map.  The device views themselves stay: the patch
+        wrote them.  The slab plan's window proof is stale too, so the
+        slab kernel stays off until the engine is rebuilt, as on the
+        reference."""
         self._pre_cache = None
         self._slab_ops_cache = None
         self._pre_cache_misses = 0
@@ -1008,9 +1101,7 @@ class TorchPolicyEngine:
         self._slab_choice = None
         self._slab_plan_state = None
         self._selpod_prebucket = None
-        self._device_tensors = None
         self._pod_perm = None
         self._pod_perm_host = None
         if self._class_state is not None:
-            self._class_state["device_tensors"] = None
             self._class_state["class_of"] = None

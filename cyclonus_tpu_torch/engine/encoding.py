@@ -891,6 +891,60 @@ class PodClasses:
     signature_bytes: int = 0
 
 
+def encode_pod_rows(
+    pods: Sequence[Tuple[str, str, Dict[str, str], str]],
+    vocab: _Vocab,
+    l_width: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Encode pod tuples against an EXISTING vocab into fixed-width rows:
+    (pod_ns_id [k], pod_kv [k, l_width], pod_key, pod_ip, pod_ip_valid).
+
+    The verdict service re-encodes only the touched pod rows: the vocab
+    grows monotonically (a label pair/key/namespace new to the cluster
+    gets a fresh id, which by construction equals no selector-referenced
+    id, so it matches nothing — exactly the fresh-rebuild semantics), and
+    existing pairs resolve to their original ids, so a patched row is
+    bit-compatible with the rows around it.  Raises ValueError when a pod
+    carries more labels than l_width — the caller's signal to fall back to
+    a full re-encode."""
+    k = len(pods)
+    ns_id = np.empty((k,), dtype=np.int32)
+    kv = np.full((k, max(l_width, 1)), -1, dtype=np.int32)
+    key = np.full((k, max(l_width, 1)), -1, dtype=np.int32)
+    for i, (ns, _name, labels, _ip) in enumerate(pods):
+        if len(labels) > l_width:
+            raise ValueError(
+                f"pod row needs {len(labels)} label slots, row width is "
+                f"{l_width} (full re-encode required)"
+            )
+        ns_id[i] = vocab.ns_id(ns)
+        # sorted(items) mirrors _encode_label_rows' within-row order
+        for j, (lk, lv) in enumerate(sorted(labels.items())):
+            kv[i, j] = vocab.kv_id(lk, lv)
+            key[i, j] = vocab.key_id(lk)
+    ip, ip_valid = _encode_pod_ips([p[3] for p in pods])
+    return ns_id, kv, key, ip, ip_valid
+
+
+def encode_ns_row(
+    labels: Dict[str, str], vocab: _Vocab, lns_width: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """One namespace-label row (ns_kv, ns_key) of width lns_width against
+    an existing vocab; ValueError when the labels don't fit (full
+    re-encode required)."""
+    if len(labels) > lns_width:
+        raise ValueError(
+            f"namespace row needs {len(labels)} label slots, row width is "
+            f"{lns_width} (full re-encode required)"
+        )
+    kv = np.full((max(lns_width, 1),), -1, dtype=np.int32)
+    key = np.full((max(lns_width, 1),), -1, dtype=np.int32)
+    for j, (lk, lv) in enumerate(sorted(labels.items())):
+        kv[j] = vocab.kv_id(lk, lv)
+        key[j] = vocab.key_id(lk)
+    return kv, key
+
+
 def encode_directions(
     policy: Policy, vocab: _Vocab, tiers=None
 ) -> Tuple[

@@ -3,7 +3,7 @@ encoder and the device.
 
 Copies of the reference engine's host passes (cyclonus_tpu/engine/api.py
 and the pod padding of engine/sharded.py), without the CIDR
-tuple-space stage and the serve path's slab headroom:
+tuple-space stage:
 
   * _build_tensors       — encoding -> tensor dict, incl. the host-evaluated
                            IPv6 / mixed-family ip-peer rows and the
@@ -11,7 +11,11 @@ tuple-space stage and the serve path's slab headroom:
   * _compact_dead_targets — drop targets no pod of the cluster matches
   * _sort_targets_by_ns  — targets in namespace order
   * _bucket_tensors      — pad every axis to its shape bucket with the
-                           inert fill of that array
+                           inert fill of that array, the rule-slab rows
+                           `headroom` buckets further for the verdict
+                           service's policy patches (_bucket_up /
+                           _bucket_down, _pad_axis and the _*_PADS
+                           tables serve those patches too)
 
 Everything here is numpy; the result is what carry.tensors_from_reference
 moves onto the device.
@@ -316,6 +320,29 @@ def _bucket_dim(n: int, lo: int = 4) -> int:
     return -(-n // 128) * 128
 
 
+def _bucket_up(n: int, steps: int) -> int:
+    """`n` (already a _bucket_dim bucket) stepped UP `steps` buckets: the
+    verdict service's slab headroom, so a policy patch that crosses the
+    natural bucket pads into the reservation instead of changing shapes."""
+    for _ in range(max(0, steps)):
+        n = _bucket_dim(n + 1)
+    return n
+
+
+def _bucket_down(n: int, steps: int) -> int:
+    """Inverse of _bucket_up on the bucket ladder (4..128 pow2, then
+    multiples of 128), floored at the smallest bucket: a slab's
+    zero-headroom bucket from its allocated size."""
+    for _ in range(max(0, steps)):
+        if n > 256:
+            n -= 128
+        elif n == 256:
+            n = 128
+        else:
+            n = max(4, n // 2)
+    return n
+
+
 def _bucket_pods(n: int) -> int:
     """Pod-axis bucket: pow2 up to 1024, then multiples of 1024."""
     n = max(n, 8)
@@ -429,13 +456,18 @@ def _pad_pod_arrays(tensors: Dict, n_pods: int, n_dev: int) -> Tuple[Dict, int]:
     return t, padded
 
 
-def _bucket_tensors(tensors: Dict) -> Dict:
+def _bucket_tensors(tensors: Dict, headroom: int = 0) -> Dict:
     """Pad every tensor dimension up to its shape bucket with the inert
     fill for that array.  Semantics are unchanged by construction: each
     pad value is the same inert encoding the encoder itself uses for
-    ragged padding."""
+    ragged padding.
+
+    `headroom` steps the rule-slab row buckets (selector table, target
+    and peer axes, tier rule rows) up that many extra buckets: the
+    verdict service's pre-reservation (CYCLONUS_SERVE_HEADROOM).  The
+    reserved rows are the same inert pads."""
     t = dict(tensors)
-    s = _bucket_dim(t["sel_req_kv"].shape[0])
+    s = _bucket_up(_bucket_dim(t["sel_req_kv"].shape[0]), headroom)
     for k in ("sel_req_kv", "sel_exp_op", "sel_exp_key"):
         fill = _SEL_PADS[k]
         t[k] = _pad_axis(
@@ -463,8 +495,8 @@ def _bucket_tensors(tensors: Dict) -> Dict:
         # the reference's dense counts kernel appends one pseudo-target
         # row: the target axis buckets to boundary - 1, kept here so the
         # two packages hold identical tensors
-        nt = _bucket_dim(d["target_ns"].shape[0] + 1) - 1
-        np_ = _bucket_dim(d["peer_kind"].shape[0])
+        nt = _bucket_up(_bucket_dim(d["target_ns"].shape[0] + 1), headroom) - 1
+        np_ = _bucket_up(_bucket_dim(d["peer_kind"].shape[0]), headroom)
         for k, fill in _DIRECTION_PADS.items():
             if k not in d:
                 continue
@@ -486,7 +518,7 @@ def _bucket_tensors(tensors: Dict) -> Dict:
         tiers = {}
         for direction in ("ingress", "egress"):
             d = dict(t["tiers"][direction])
-            g = _bucket_dim(d["action"].shape[0])
+            g = _bucket_up(_bucket_dim(d["action"].shape[0]), headroom)
             for k, fill in _TIER_PADS.items():
                 d[k] = _pad_axis(d[k], 0, g, fill)
             spec = {}

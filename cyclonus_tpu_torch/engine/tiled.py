@@ -1,7 +1,9 @@
 """Full-grid counts for grids too large to materialise (the reference's
 engine/tiled.py, cut to what the port's routes run): the per-direction
 precompute (both packings, with the precedence-tier arrays), the fused
-class-compressed counts route, and the tile loop.
+class-compressed counts route, the tile loop, the block stream
+(iter_grid_blocks) and the point verdicts of (src, dst) pairs
+(evaluate_pairs_kernel), which the verdict service's queries run on.
 
 The precompute resolves every pod against every target once per
 direction.  The verdict contraction over the target axis and the count
@@ -16,13 +18,14 @@ plan (CYCLONUS_PACK=0), which has no tiered kernel.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
 from .. import carry
 from . import host
+from .encoding import TIER_KEY_NONE
 from .kernel import (
     _bool_matmul,
     apply_host_ip,
@@ -32,9 +35,12 @@ from .kernel import (
     packed_any,
     port_spec_allows,
     resolve_tier_lattice,
+    selector_match,
     selector_tables,
     tier_direction_arrays,
     tier_first_match_keys,
+    tier_keys,
+    tier_scope_match,
 )
 from .packed_kernel import verdict_counts_packed
 
@@ -390,3 +396,113 @@ def _class_rowsums_kernel(
     return torch.cat(
         [_class_tile_rowsums(src, dst, w, i * block, block) for i in range(n_tiles)]
     )
+
+
+# --- streamed blocks and point pairs ----------------------------------------
+
+
+def iter_grid_blocks(
+    tensors: Dict, n_pods: int, block: int = 1024, *, pack: bool, device=None
+) -> Iterator[Tuple[int, np.ndarray, np.ndarray, np.ndarray]]:
+    """Stream verdict blocks to the host: yields (start, ingress_rows,
+    egress, combined) with arrays [b, N, Q] bool, pad rows and columns
+    stripped.  ingress_rows[b, d, q] is the ingress verdict for dst d <-
+    src (start+b), i.e. full-grid ingress[q, d, start+b].  `tensors` is
+    the engine's host (numpy) tensor dict with the port-case arrays; its
+    pod axis is padded to a multiple of `block` and moved to `device`
+    (carry.resolve_device: None is the CUDA device, or raises)."""
+    device = carry.resolve_device(device)
+    block = min(block, max(n_pods, 1))
+    tensors, n_tiles = _pad_pod_axis(tensors, n_pods, block)
+    src, dst = _split_pre(_precompute(carry.tensors_from_reference(tensors, device), pack))
+    # bucketing may have padded the pod axis past the last real tile:
+    # walk only the tiles with real rows
+    n_tiles = min(n_tiles, -(-n_pods // block))
+    for i in range(n_tiles):
+        start = i * block
+        ingress_rows, egress, combined = _tile_verdicts_split(src, dst, start, block)
+        b = min(block, n_pods - start)
+        yield (
+            start,
+            ingress_rows[:b, :n_pods].cpu().numpy(),
+            egress[:b, :n_pods].cpu().numpy(),
+            combined[:b, :n_pods].cpu().numpy(),
+        )
+
+
+def evaluate_pairs_kernel(
+    tensors: Dict, s_idx: torch.Tensor, d_idx: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """Point verdicts for K (src, dst) index pairs: {ingress, egress,
+    combined}, each [K, Q] bool.  O((S + T + P) * K): no N x N grid
+    anywhere.  Per direction the target-side pods are resolved against
+    the targets and the peer-side pods against the peers; the peer ->
+    target contraction is kernel._bool_matmul (bf16 on the card, float32
+    on the CPU: 0/1 operands, exact either way) and the per-pair target
+    contraction an AND-any over the target axis.  Host-evaluated ip-peer
+    rows are indexed by the original pod row; with tier slabs the
+    ANP -> NetworkPolicy -> BANP lattice runs per pair."""
+    sel = (
+        tensors["sel_req_kv"],
+        tensors["sel_exp_op"],
+        tensors["sel_exp_key"],
+        tensors["sel_exp_vals"],
+    )
+    selns = selector_match(*sel, tensors["ns_kv"], tensors["ns_key"])
+    q_args = (tensors["q_port"], tensors["q_name"], tensors["q_proto"])
+
+    def sub(idx):
+        rows = {k: tensors[k][idx] for k in host._POD_KEYS}
+        rows["selpod"] = selector_match(*sel, rows["pod_kv"], rows["pod_key"])
+        return rows
+
+    def direction_pair(direction, t_idx, p_idx):
+        """Verdict [K, Q] for target-side pods t_idx and peer-side pods
+        p_idx in `direction`."""
+        enc = tensors[direction]
+        t_sub, p_sub = sub(t_idx), sub(p_idx)
+        pre_t = direction_precompute(
+            enc, t_sub["selpod"], selns, t_sub["pod_ns_id"], t_sub["pod_ip"],
+            t_sub["pod_ip_valid"],
+        )
+        pre_p = direction_precompute(
+            enc, p_sub["selpod"], selns, p_sub["pod_ns_id"], p_sub["pod_ip"],
+            p_sub["pod_ip_valid"],
+        )
+        peer_match = pre_p["peer_match"]
+        if "host_ip_match" in enc:
+            peer_match = torch.where(
+                enc["host_ip_mask"][:, None], enc["host_ip_match"][:, p_idx], peer_match
+            )
+        pport = port_spec_allows(enc["port_spec"], *q_args)  # [P, Q]
+        n_p, k = peer_match.shape
+        q = pport.shape[1]
+        peer_allow = (peer_match[:, :, None] & pport[:, None, :]).reshape(n_p, k * q)
+        # tallow[t, k, q]: some peer of target t allows peer-side pod k
+        tallow = _bool_matmul(m_tp_onehot(enc), peer_allow).reshape(-1, k, q)
+        any_allow = (pre_t["tmatch"][:, :, None] & tallow).any(dim=0)  # [K, Q]
+        allowed = (~pre_t["has_target"][:, None]) | any_allow
+        if "tiers" in tensors:
+            tenc = tensors["tiers"][direction]
+            subj = tier_scope_match(
+                tenc["subj_ns_sel"], tenc["subj_pod_kind"], tenc["subj_pod_sel"],
+                t_sub["selpod"], selns, t_sub["pod_ns_id"],
+            )  # [G, K]
+            peer = tier_scope_match(
+                tenc["peer_ns_sel"], tenc["peer_pod_kind"], tenc["peer_pod_sel"],
+                p_sub["selpod"], selns, p_sub["pod_ns_id"],
+            )  # [G, K]
+            pport_t = port_spec_allows(tenc["port_spec"], *q_args)  # [G, Q]
+            match = (subj & peer)[:, :, None] & pport_t[:, None, :]  # [G, K, Q]
+            anp_key, banp_key = tier_keys(tenc)
+            none = torch.tensor(TIER_KEY_NONE, dtype=torch.int32, device=match.device)
+            anp_min = torch.where(match, anp_key[:, None, None], none).amin(dim=0)
+            banp_min = torch.where(match, banp_key[:, None, None], none).amin(dim=0)
+            allowed = resolve_tier_lattice(
+                allowed, pre_t["has_target"][:, None], anp_min, banp_min
+            )
+        return allowed
+
+    egress = direction_pair("egress", s_idx, d_idx)  # src is the target side
+    ingress = direction_pair("ingress", d_idx, s_idx)  # dst is the target side
+    return {"ingress": ingress, "egress": egress, "combined": ingress & egress}

@@ -300,4 +300,4 @@ class TestPortBoundaries:
             [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
         )
         assert out.returncode == 0, out.stderr
-        assert int(out.stdout.split()[-1]) >= 69
+        assert int(out.stdout.split()[-1]) >= 80
