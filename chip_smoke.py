@@ -53,7 +53,31 @@ Phases, each raising on failure:
                 {"probe": ...} line: per run the seconds in total and for
                 the job fan-out, engine build, grid, scatter and table,
                 the cases run and passed and the cells compared;
-  6. serve    — the verdict service (cyclonus_tpu_torch/serve) on the
+  6. cidr and analyze — each CIDR leg reading the kernel launch counts
+                just before its engines and just after its counts calls:
+                (a) bench.py's cidr leg at its defaults (1,024 pods, 512
+                distinct CIDRs, an IP pool of 64, random.Random(424242),
+                64 blocks a policy) with the TSS stage forced, (b) the acceptance shape of the reference's
+                stage, 100,000 distinct CIDRs (1,563 policies) over 4,096
+                pods and a pool of 4,096 IPs, on the default engine, which
+                must engage the stage with its LPM on the card.  On each:
+                the device LPM equal to its numpy twin, the class route's
+                counts (K2) equal to the pre-TSS bit path's and the
+                class_compress="0" engine's (K1), 256 evaluate_pairs cells
+                of the TSS and the dense engine against the oracle (run in
+                one spawned process a CPU core), and at
+                (b) K1 and K2 against their plain versions at the leg's
+                operands.  Then every `analyze` mode of the port on the
+                simple-example policies (diff against getting-started,
+                probe with --engine cuda), stdout on the card equal to
+                --device cpu byte for byte; the audit of the synthetic
+                cluster at 4,096 pods x 41 policies (no claim refuted;
+                firing components on the card, the int32 products and the
+                oracle checks on the host, each timed) and a self-diff with
+                one policy removed, whose cells must lie on that policy's
+                target.  Prints one {"cidr": ...} line a leg and one
+                {"analyze": ...} line;
+  7. serve    — the verdict service (cyclonus_tpu_torch/serve) on the
                 card, with the kernel launch counts zeroed before it and
                 read after it: (a) bench.py's serve leg at its defaults
                 (1,024 pods, 128 policies, random.Random(123), 32
@@ -73,7 +97,7 @@ Phases, each raising on failure:
                 against the oracle, and the dense counts, whose first call
                 after the patch must run fused and launch K1 once.
                 Prints one {"serve": ...} line per size;
-  7. main path — the benchmark's synthetic cluster (100,000 pods x 10,000
+  8. main path — the benchmark's synthetic cluster (100,000 pods x 10,000
                 policies, seed 20260729, port cases TCP 80 and named UDP
                 81) through the default engine (class-compressed route,
                 weighted kernel) and with class_compress="0" (dense route,
@@ -110,9 +134,10 @@ Phases, each raising on failure:
                 bytes.
 
 Every comparison is exact.  Prints a JSON line of the probe phase, the
-serve lines, a JSON line of the main path's end-to-end numbers (per route and
-dense-plan leg), a JSON line of per-kernel numbers (with each kernel's
-launches on the serve path), then as its last line
+cidr and analyze lines, the serve lines, a JSON line of the main path's
+end-to-end numbers (per route and dense-plan leg), a line of each
+phase's seconds, a JSON line of per-kernel numbers (with each kernel's
+launches on the serve path and on the CIDR legs), then as its last line
 {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  The port's CPU paths are covered by tests/test_torch_*.py.
@@ -1171,6 +1196,318 @@ def phase_serve(device):
     return launches, out["counts_before"]
 
 
+#: the CIDR legs: bench.py's cidr leg at its defaults (pods, distinct
+#: CIDRs, IP pool) and the acceptance shape of the reference's TSS stage
+#: over 4,096 pods, both from bench.py's seed
+CIDR_LEGS = (("bench", 1024, 512, 64), ("acceptance", 4096, 100_000, 4096))
+CIDR_SEED = 424242
+#: evaluate_pairs cells of each CIDR leg (on the TSS and the dense
+#: engine) held against the scalar oracle
+CIDR_ORACLE = 256
+#: the analyze leg's audit / self-diff cluster: the synthetic generator at
+#: 4,096 pods (2 x 4,096^2 cells, half the audit's cell cap) with one
+#: policy per 100 pods, which keeps the audit's int32 numpy products
+#: (rules x 4,096 x 8,192 multiply-adds each) to tens of seconds
+AUDIT_PODS, AUDIT_POLICIES = 4096, 41
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+
+
+_ORACLE = {}
+
+
+def _oracle_init(policy, pods, namespaces, cases):
+    """A pool worker's copy of the oracle's inputs, sent once."""
+    _ORACLE.update(policy=policy, pods=pods, namespaces=namespaces, cases=cases)
+
+
+def _oracle_cells(cells):
+    """The scalar oracle's (ingress, egress, combined) of each (q, src,
+    dst) cell, in a pool worker."""
+    from cyclonus_tpu_torch.analysis.oracle import oracle_verdicts
+    from cyclonus_tpu_torch.oracle import traffic_for_cell
+
+    o = _ORACLE
+    return [
+        oracle_verdicts(o["policy"], traffic_for_cell(o["pods"], o["namespaces"], o["cases"][q], s, d))
+        for q, s, d in cells
+    ]
+
+
+def pairs_vs_oracle(engines, policy, pods, namespaces, cases, n, rng, label):
+    """n evaluate_pairs cells (a random pair each, the port cases in
+    turn) of each engine against the scalar oracle, which scans every
+    ipBlock peer of a cell in Python (about 0.5 s a cell at 100,000
+    CIDRs): it runs in one spawned process a CPU core, and every process
+    ends with the call."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pairs = [(rng.randrange(len(pods)), rng.randrange(len(pods))) for _ in range(n)]
+    cells = [(i % len(cases), s, d) for i, (s, d) in enumerate(pairs)]
+    workers = max(1, min(8, os.cpu_count() or 1))
+    chunks = [cells[i::workers] for i in range(workers)]
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_oracle_init,
+                             initargs=(policy, pods, namespaces, cases)) as pool:
+        results = list(pool.map(_oracle_cells, chunks))
+    want = {}
+    for chunk, res in zip(chunks, results):
+        want.update(zip(chunk, res))
+    for eng in engines:
+        got = eng.evaluate_pairs(cases, pairs)
+        for i, cell in enumerate(cells):
+            if tuple(bool(x) for x in got[i, cell[0]]) != want[cell]:
+                raise AssertionError(f"{label}: pair {cell[1:]} case {cases[cell[0]]} "
+                                     "differs from the oracle")
+
+
+def min_s(fn, reps=5):
+    """Min host-clock seconds of `reps` calls of fn (each ends in a host
+    read, so the device has finished)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return min(times)
+
+
+def cidr_leg(device, leg, n_pods, distinct, pool, cases):
+    """One CIDR leg: the TSS engine (class route, K2) against the bit-path
+    engine and the class_compress="0" engine (K1), the device LPM against
+    its numpy twin, pairs against the oracle; at the acceptance shape also
+    K1 and K2 against their plain versions at the leg's operands."""
+    import numpy as np
+    import torch
+
+    from cyclonus_tpu_torch.engine import TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.engine.tiled import _precompute, class_rowsums_plan
+    from cyclonus_tpu_torch.matcher import build_network_policies
+    from cyclonus_tpu_torch.synthetic import cidr_cluster
+
+    label = f"cidr {leg}"
+    t0 = time.perf_counter()
+    pods, namespaces, policies = cidr_cluster(n_pods, distinct, pool, random.Random(CIDR_SEED))
+    policy = build_network_policies(True, policies)
+    out = {"leg": leg, "pods": n_pods, "requested_distinct": distinct, "ip_pool": pool,
+           "policies": len(policies), "generate_s": time.perf_counter() - t0}
+    # bench.py's leg forces both stages; the acceptance shape runs the
+    # defaults, which must engage them on their own
+    kw = {"class_compress": "1", "cidr_tss": "1"} if leg == "bench" else {}
+    launched = launch_counts()
+    t0 = time.perf_counter()
+    eng = TorchPolicyEngine(policy, pods, namespaces, device=device, **kw)
+    out["build_s"] = time.perf_counter() - t0
+    st = eng.cidr_stats()
+    out["cidr_stats"] = st
+    out["classes_tss"] = eng.class_compression_stats()["classes"]
+    if not st["active"] or eng.pod_classes() is None:
+        raise AssertionError(f"{label}: the TSS stage did not engage: {st}")
+    if not eng._class_counts_eligible(len(cases)):
+        raise AssertionError(f"{label}: the TSS engine did not take the class route")
+    if leg != "bench" and st["device"] is not True:
+        raise AssertionError(f"{label}: the LPM stage did not run on the device: {st}")
+    # the device LPM against its numpy twin on the same IPs
+    space = eng._class_state["cidr"]
+    t = eng._tensors
+    ip, valid = t["pod_ip"][:n_pods], t["pod_ip_valid"][:n_pods]
+    dev_sig = space.signature_device(ip, valid)
+    host_sig = space.signature_host(ip, valid)
+    if dev_sig.dtype != np.int32 or not np.array_equal(dev_sig, host_sig):
+        raise AssertionError(f"{label}: device LPM signature differs from the numpy twin")
+    out["lpm_device_s"] = min_s(lambda: space.signature_device(ip, valid))
+    out["lpm_host_s"] = min_s(lambda: space.signature_host(ip, valid), reps=1)
+    t0 = time.perf_counter()
+    counts = eng.evaluate_grid_counts(cases)
+    out["first_counts_s"] = time.perf_counter() - t0
+    out["steady_counts_s"] = min_s(lambda: eng.evaluate_grid_counts(cases))
+    k2 = launch_counts()["packed_rowsums"] - launched["packed_rowsums"]
+    if k2 < 1:
+        raise AssertionError(f"{label}: the class route did not launch K2")
+    # the pre-TSS bit path, and the dense route (K1)
+    t0 = time.perf_counter()
+    bit = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="1",
+                            cidr_tss="0")
+    out["build_bit_s"] = time.perf_counter() - t0
+    out["classes_bit"] = bit.class_compression_stats()["classes"]
+    if bit.cidr_stats()["active"]:
+        raise AssertionError(f"{label}: cidr_tss=0 engaged the TSS stage")
+    counts_bit = bit.evaluate_grid_counts(cases)
+    del bit
+    launched_k1 = launch_counts()["packed_counts"]
+    t0 = time.perf_counter()
+    dense = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="0")
+    out["build_dense_s"] = time.perf_counter() - t0
+    counts_dense = dense.evaluate_grid_counts(cases)
+    out["steady_dense_counts_s"] = min_s(lambda: dense.evaluate_grid_counts(cases))
+    if launch_counts()["packed_counts"] - launched_k1 < 1:
+        raise AssertionError(f"{label}: the dense route did not launch K1")
+    if not counts == counts_bit == counts_dense:
+        raise AssertionError(f"{label}: counts TSS {counts}, bit path {counts_bit}, "
+                             f"dense {counts_dense} differ")
+    if counts["cells"] != len(cases) * n_pods * n_pods:
+        raise AssertionError(f"{label}: implausible counts {counts}")
+    out["counts"] = counts
+    out["launches"] = {k: v - launched[k] for k, v in launch_counts().items()}
+    t0 = time.perf_counter()
+    pairs_vs_oracle((eng, dense), policy, pods, namespaces, cases, CIDR_ORACLE,
+                    random.Random(CIDR_SEED + 1), label)
+    out["oracle_cells"] = CIDR_ORACLE
+    out["oracle_s"] = time.perf_counter() - t0
+    if leg != "bench":
+        # K1 and K2 against their plain versions at this leg's operands
+        t0 = time.perf_counter()
+        pre = _precompute(dense._dense_counts_tensors(cases), True)
+        _a, _t, _g, err1 = check_packed(pre, n_pods, None, f"{label}: K1 at the leg's operands")
+        del pre
+        tens = eng._with_cases(eng._class_dev(), cases)
+        pc = eng.pod_classes()
+        w = torch.from_numpy(class_rowsums_plan(tens, pc.n_classes, pc.class_size)[0]).to(device)
+        pre = _precompute(tens, True)
+        _a, _t, _g, err2 = check_packed(pre, int(tens["pod_ns_id"].shape[0]), w,
+                                        f"{label}: K2 at the leg's operands")
+        del pre, tens
+        out["plain_checks"] = {"k1_max_abs_err": err1, "k2_max_abs_err": err2,
+                               "seconds": time.perf_counter() - t0}
+    del eng, dense
+    torch.cuda.empty_cache()
+    log(f"{label}: counts equal on the TSS class route (K2), the bit path and the "
+        f"dense route (K1): {json.dumps(counts)}")
+    return out
+
+
+def analyze_cli(argv):
+    """(exit code, stdout) of one in-process `analyze` run of the port."""
+    import io
+
+    from cyclonus_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["analyze"] + argv)
+    return rc, buf.getvalue()
+
+
+def analyze_leg(device):
+    """Every `analyze` mode on the card against --device cpu, byte for
+    byte; then the audit and a self-diff at AUDIT_PODS pods on the card."""
+    from cyclonus_tpu_torch.analysis import audit_policy_set, diff_policy_sets
+    from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine
+    from cyclonus_tpu_torch.kube.labels import is_labels_match_label_selector
+    from cyclonus_tpu_torch.matcher import build_network_policies
+    from cyclonus_tpu_torch.synthetic import build_synthetic
+
+    base = ["--policy-path", SIMPLE_EXAMPLE]
+    modes = [
+        ["--mode", "parse"],
+        ["--mode", "explain"],
+        ["--mode", "lint"],
+        ["--mode", "audit"],
+        ["--mode", "diff", "--policy-path2",
+         os.path.join(EXAMPLES, "networkpolicies", "getting-started")],
+        ["--mode", "query-target", "--target-pod-path", os.path.join(EXAMPLES, "targets.json")],
+        ["--mode", "query-traffic", "--traffic-path", os.path.join(EXAMPLES, "traffic.json")],
+        ["--mode", "probe", "--probe-path", os.path.join(EXAMPLES, "probe.json"),
+         "--engine", "cuda"],
+    ]
+    out = {"card": card_info(), "cli": []}
+    for argv in modes:
+        t0 = time.perf_counter()
+        rc, text = analyze_cli(base + argv)
+        card_s = time.perf_counter() - t0
+        rc_cpu, text_cpu = analyze_cli(base + argv + ["--device", "cpu"])
+        if rc != 0 or rc_cpu != 0 or text != text_cpu or not text:
+            raise AssertionError(f"analyze {argv[1]}: card output (rc {rc}, {len(text)} bytes) "
+                                 f"!= --device cpu (rc {rc_cpu}, {len(text_cpu)} bytes)")
+        out["cli"].append({"mode": argv[1], "bytes": len(text), "seconds": card_s})
+    log(f"analyze: {len(modes)} modes, stdout on the card equal to --device cpu")
+
+    pods, namespaces, policies = build_synthetic(AUDIT_PODS, AUDIT_POLICIES, random.Random(SEED))
+    policy = build_network_policies(True, policies)
+    cases = [PortCase(80, "serve-80-tcp", "TCP"), PortCase(81, "serve-81-udp", "UDP")]
+    t0 = time.perf_counter()
+    eng = TorchPolicyEngine(policy, pods, namespaces, device=device)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = audit_policy_set(policy, pods, namespaces, cases, engine=eng)
+    audit_s = time.perf_counter() - t0
+    kinds = {}
+    for f in report.findings:
+        kinds[f.kind] = kinds.get(f.kind, 0) + 1
+    if report.oracle_checked != len(report.findings):
+        raise AssertionError(f"audit: {report.oracle_checked} of {len(report.findings)} "
+                             "findings oracle-checked")
+    out["audit"] = {"pods": AUDIT_PODS, "policies": AUDIT_POLICIES, "cells": report.cells,
+                    "rules": report.n_rules, "findings": kinds,
+                    "oracle_checked": report.oracle_checked, "build_s": build_s,
+                    "seconds": audit_s, **{f"{k}_s": v for k, v in report.seconds.items()}}
+    del eng
+
+    # a self-diff with one policy removed: the first policy whose target
+    # (namespace, selector) no other policy shares and which selects pods
+    def target_of(p):
+        return (p.namespace, json.dumps(p.spec.pod_selector.to_dict(), sort_keys=True))
+
+    keys = [target_of(p) for p in policies]
+    pick = next(
+        i for i, p in enumerate(policies)
+        if keys.count(keys[i]) == 1 and any(
+            ns == p.namespace and is_labels_match_label_selector(labels, p.spec.pod_selector)
+            for ns, _n, labels, _ip in pods
+        )
+    )
+    removed = policies[pick]
+    policy_b = build_network_policies(True, policies[:pick] + policies[pick + 1:])
+    selected = {
+        f"{ns}/{name}" for ns, name, labels, _ip in pods
+        if ns == removed.namespace
+        and is_labels_match_label_selector(labels, removed.spec.pod_selector)
+    }
+    t0 = time.perf_counter()
+    diff = diff_policy_sets(policy, policy_b, pods, namespaces, cases, max_cells=4096,
+                            device=device)
+    diff_s = time.perf_counter() - t0
+    if diff.equivalent:
+        raise AssertionError(f"diff: removing {removed.namespace}/{removed.name} changed nothing")
+    types = removed.spec.policy_types
+    for c in diff.cells:
+        # an ingress change lies on the removed target's destinations,
+        # an egress change on its sources
+        ing = c.a[0] != c.b[0]
+        eg = c.a[1] != c.b[1]
+        if (ing and (c.dst not in selected or "Ingress" not in types)) or (
+            eg and (c.src not in selected or "Egress" not in types)
+        ) or not (ing or eg):
+            raise AssertionError(f"diff: cell {c} lies outside {removed.namespace}/{removed.name}")
+    bound = len(selected) * AUDIT_PODS * len(cases)
+    if diff.n_diff["ingress"] > bound or diff.n_diff["egress"] > bound:
+        raise AssertionError(f"diff: {diff.n_diff} exceeds the removed target's {bound} cells")
+    out["diff"] = {"removed": f"{removed.namespace}/{removed.name}", "selected_pods": len(selected),
+                   "n_diff": diff.n_diff, "cells_checked": len(diff.cells),
+                   "oracle_checked": diff.oracle_checked, "seconds": diff_s}
+    log(f"analyze: audit {json.dumps(kinds)} in {audit_s:.2f} s; self-diff localised to "
+        f"{removed.namespace}/{removed.name}: {json.dumps(diff.n_diff)}")
+    return out
+
+
+def phase_cidr_analyze(device):
+    """The CIDR legs and the analyze leg.  Returns the CIDR legs' kernel
+    launches: each leg reads the counts just before its engines and just
+    after its counts calls, before its plain-version checks launch more."""
+    from cyclonus_tpu_torch.engine import PortCase
+
+    cases = [PortCase(80, "serve-80-tcp", "TCP"), PortCase(81, "serve-81-udp", "UDP")]
+    launches = {}
+    for leg, n_pods, distinct, pool in CIDR_LEGS:
+        out = cidr_leg(device, leg, n_pods, distinct, pool, cases)
+        log(json.dumps({"cidr": {"card": card_info(), **out}}))
+        for k, v in out["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    log(json.dumps({"analyze": analyze_leg(device)}))
+    return launches
+
+
 def live_target_bits(tmatch_pk, has, valid):
     """Target bits of one direction of the packed plan that hold data, as
     `live_target_rows` counts K4's rows over the same targets: the bits of
@@ -1873,18 +2210,27 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = build.build(verbose=True)
     log(f"build: {json.dumps(secs)} (wall {time.perf_counter() - t0:.1f} s)")
-    phase_kernels(device)
-    phase_dense_kernels(device)
-    phase_truth_tables(device)
-    phase_probe(device)
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn(device)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    timed("kernels", phase_kernels)
+    timed("dense_kernels", phase_dense_kernels)
+    timed("truth_tables", phase_truth_tables)
+    timed("probe", phase_probe)
+    cidr_launches = timed("cidr_analyze", phase_cidr_analyze)
     # the steady-state settings of the run, and the slab autotune's winners
     # in a file of its own, gone with the run
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp, env(
         CYCLONUS_PRE_CACHE="1", CYCLONUS_AUTOTUNE="auto",
         CYCLONUS_AUTOTUNE_CACHE=os.path.join(tmp, "autotune.json"),
     ):
-        serve_launches, serve_counts = phase_serve(device)
-        records, main_counts = phase_main_path(device)
+        serve_launches, serve_counts = timed("serve", phase_serve)
+        records, main_counts = timed("main_path", phase_main_path)
     # the serve engine's counts of the headline cluster before its patch
     # are the main path's untiered counts of the same cluster
     if serve_counts != main_counts:
@@ -1893,6 +2239,8 @@ def main() -> int:
     log("serve counts before the patch equal the main path's untiered counts")
     for r in records:
         r["serve_launches"] = serve_launches.get(r["name"], 0)
+        r["cidr_launches"] = cidr_launches.get(r["name"], 0)
+    log(json.dumps({"phase_s": phase_s, "total_s": time.perf_counter() - t0}))
     log(card_info())
     log(json.dumps({"kernels": records}))
     log(json.dumps({

@@ -25,10 +25,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
+    from .analyze import setup_analyze
     from .generate import setup_generate
     from .probe_cmd import setup_probe
     from .serve_cmd import setup_serve
 
+    setup_analyze(sub)
     setup_generate(sub)
     setup_probe(sub)
     setup_serve(sub)

@@ -14,7 +14,14 @@ the same two entry points:
 
 and, for point queries, evaluate_pairs (the verdicts of K (src, dst) pod
 pairs, no grid) and iter_grid_blocks (the grid streamed to the host in
-blocks of source rows).
+blocks of source rows); for the analysis layer, firing_components (each
+rule's firing-mask factors on the raw encoding).
+
+The class signature's CIDR dimension takes the TSS/LPM partition
+signature (engine/cidrspace.py, on the engine's device above its work
+floor) when the stage resolves (`cidr_tss`, CYCLONUS_CIDR_TSS: above 256
+distinct CIDR specs in auto mode), else one bit per distinct spec;
+cidr_stats() reports it.
 
 Two dtype plans, as in the reference (`pack`, CYCLONUS_PACK):
 
@@ -76,7 +83,7 @@ import torch
 from .. import carry
 from ..carry import resolve_device
 from ..matcher.core import Policy
-from . import autotune, dense_kernel, host, tiled
+from . import autotune, cidrspace, dense_kernel, host, tiled
 from .encoding import (
     PEER_IP,
     PolicyEncoding,
@@ -87,7 +94,12 @@ from .encoding import (
     pack_enabled,
     packed_words,
 )
-from .kernel import evaluate_grid_kernel, gather_class_grids, grid_stats_kernel
+from .kernel import (
+    evaluate_grid_kernel,
+    gather_class_grids,
+    grid_stats_kernel,
+    rule_firing_kernel,
+)
 from .packed_kernel import counts_from_packed_ops, packed_operands, sum_partials
 from .tiled import (
     _class_rowsums_kernel,
@@ -232,6 +244,7 @@ class TorchPolicyEngine:
         device=None,
         compact: Optional[bool] = None,
         class_compress: Optional[str] = None,
+        cidr_tss: Optional[str] = None,
         tiers=None,
         pack: Optional[bool] = None,
         slab: Optional[str] = None,
@@ -239,6 +252,9 @@ class TorchPolicyEngine:
     ):
         self.device = resolve_device(device)
         t0 = time.perf_counter()
+        # overrides CYCLONUS_CIDR_TSS for the TSS/LPM CIDR stage of the
+        # class signature (engine/cidrspace.py); None = env
+        self._opt_cidr_tss = cidr_tss
         self._slab_headroom = max(0, int(slab_headroom or 0))
         self.tiers = tiers if tiers else None
         if self.tiers is not None:
@@ -264,6 +280,8 @@ class TorchPolicyEngine:
         )
         classes = None
         ctensors = None
+        space = None
+        classify_s = None
         # the rule-axis partition stats; None when compression is off
         # (the service's policy patch compresses exactly when the build did)
         self._partition_stats = None
@@ -273,7 +291,7 @@ class TorchPolicyEngine:
                 tensors[direction], self._partition_stats[direction] = compress_rule_axes(
                     tensors[direction]
                 )
-            classes = self._maybe_classify(tensors, selpod, mode)
+            classes, space, classify_s = self._maybe_classify(tensors, selpod, mode)
             if classes is not None:
                 ctensors = host._bucket_tensors(
                     host._sort_targets_by_ns(
@@ -293,6 +311,8 @@ class TorchPolicyEngine:
             ctensors=ctensors,
             pack=pack,
             slab=slab,
+            cidr=space,
+            classify_s=classify_s,
         )
         # the compaction-time selector pass, reused by the slab plan
         self._selpod_prebucket = selpod
@@ -309,26 +329,35 @@ class TorchPolicyEngine:
         ]
         self.encode_s = time.perf_counter() - t0
 
-    @staticmethod
-    def _maybe_classify(tensors: Dict, selpod, mode: str):
-        """PodClasses, or None: bucket pods into label-equivalence classes
-        when compression is forced (mode "1") or worth it (auto: above the
-        pod floor with a real reduction).  Reuses the selector pass
-        dead-target compaction paid for; when compaction's work budget
-        skipped it, auto mode skips classes too."""
+    def _maybe_classify(self, tensors: Dict, selpod, mode: str):
+        """(PodClasses, CidrSpace or None, classify seconds), or (None,
+        None, None): bucket pods into label-equivalence classes when
+        compression is forced (mode "1") or worth it (auto: above the pod
+        floor with a real reduction).  Reuses the selector pass dead-target compaction paid
+        for; when compaction's work budget skipped it, auto mode skips
+        classes too.  When the TSS/LPM CIDR stage resolves
+        (CYCLONUS_CIDR_TSS gate, distinct-spec floor, device budget), the
+        signature's CIDR dimension rides the [K] int32 partition
+        signature on the engine's device instead of per-spec bits; None
+        is the dense bit path, byte-identical to the pre-TSS signature."""
         n = int(tensors["pod_ns_id"].shape[0])
         if n == 0 or n >= host._CLASS_MAX_PODS_EXACT:
-            return None
+            return None, None, None
         if mode != "1" and n < host._class_auto_min_pods():
-            return None
+            return None, None, None
         if selpod is None:
             if mode != "1":
-                return None
+                return None, None, None
             selpod = host._selector_pod_matches_host(tensors)
-        pc = compute_pod_classes(tensors, selpod)
+        space = cidrspace.resolve(
+            tensors, mode=self._opt_cidr_tss, n_pods=n, device=self.device
+        )
+        t0 = time.perf_counter()
+        pc = compute_pod_classes(tensors, selpod, cidr=space)
+        classify_s = time.perf_counter() - t0
         if mode != "1" and pc.n_classes > int(0.9 * n):
-            return None  # no real reduction
-        return pc
+            return None, None, None  # no real reduction
+        return pc, space, classify_s
 
     @classmethod
     def from_tensors(
@@ -355,6 +384,7 @@ class TorchPolicyEngine:
         self.encoding = None
         self.tiers = None  # a tiered dict carries its slabs under "tiers"
         self._slab_headroom = 0
+        self._opt_cidr_tss = None
         self._partition_stats = None
         self._init_state(
             tensors,
@@ -375,7 +405,8 @@ class TorchPolicyEngine:
         return self
 
     def _init_state(
-        self, tensors, *, pod_keys, port_names, protocols, classes, ctensors, pack, slab
+        self, tensors, *, pod_keys, port_names, protocols, classes, ctensors, pack, slab,
+        cidr=None, classify_s=None,
     ):
         self._tensors = tensors
         # the encoding's own list when built from one: the verdict
@@ -421,11 +452,18 @@ class TorchPolicyEngine:
                 "class_of": None,
                 "ratio": n / max(classes.n_classes, 1),
                 # the device bytes the class route pins (class map +
-                # weights + the class tensor set), charged against the
-                # device budget exactly as the reference charges them
+                # weights + the class tensor set + the TSS partition
+                # tensors), charged against the device budget exactly as
+                # the reference charges them
                 "aux_bytes": int(
                     n * 4 + cb * 4 + sum(a.nbytes for a in host._np_leaves(ctensors))
+                    + (cidr.nbytes() if cidr is not None else 0)
                 ),
+                # the TSS partition map the signatures were taken with
+                # (None: the dense per-spec bits), and the host seconds of
+                # the classify (signatures, LPM stage included, and unique)
+                "cidr": cidr,
+                "classify_s": classify_s,
             }
 
     @property
@@ -481,6 +519,37 @@ class TorchPolicyEngine:
             "signature_bytes": pc.signature_bytes,
             "aux_bytes": st["aux_bytes"],
             "partitions": self._partition_stats,
+        }
+
+    def cidr_stats(self) -> Dict:
+        """The TSS/LPM CIDR pre-classification summary: whether the stage
+        is active, the distinct spec/atom/partition counts, the last LPM
+        stage wall-clock and whether it ran on the device, the partition-
+        tensor bytes charged to the device budget, and (the port's own
+        key) the seconds of the classify that took the signatures."""
+        st = self._class_state
+        space = st.get("cidr") if st is not None else None
+        if space is None:
+            return {
+                "active": False,
+                "distinct_cidrs": None,
+                "atoms": None,
+                "partitions": None,
+                "lpm_s": None,
+                "device": None,
+                "bytes": 0,
+            }
+        return {
+            "active": True,
+            "distinct_cidrs": space.n_specs,
+            "atoms": space.n_atoms,
+            "partitions": space.n_partitions,
+            "max_bucket": space.max_bucket,
+            "host_rows": space.n_host_rows,
+            "lpm_s": space.last_lpm_s,
+            "device": space.last_device,
+            "bytes": space.nbytes(),
+            "classify_s": st.get("classify_s"),
         }
 
     def _dev(self) -> Dict:
@@ -580,6 +649,44 @@ class TorchPolicyEngine:
         idx = torch.from_numpy(np.asarray(pairs, dtype=np.int64).reshape(-1, 2)).to(self.device)
         out = tiled.evaluate_pairs_kernel(self._with_cases(self._dev(), cases), idx[:, 0], idx[:, 1])
         return torch.stack([out["ingress"], out["egress"], out["combined"]], dim=2).cpu().numpy()
+
+    def firing_components(
+        self, cases: Sequence[PortCase]
+    ) -> Dict[str, Dict[str, np.ndarray]]:
+        """Per-direction RULE firing-mask components on the RAW encoding
+        (built anew: no dead-target compaction, no rule-axis compression,
+        no shape bucketing), so flat peer row p maps 1:1 to resolved rule
+        (peer_target[p], peer_rule_idx[p]) of the policy's
+        sorted_targets() order — the contract the analysis layer
+        (cyclonus_tpu_torch.analysis) audits on.  Computed on the
+        engine's device (kernel.rule_firing_kernel).
+
+        Returns {direction: {rule_tmatch [P, N], peer_match [P, N],
+        pport [P, Q], has_target [N]}} numpy bool arrays; rule p's firing
+        mask over (target-side pod n, peer-side pod m, case q) is
+        rule_tmatch[p, n] & peer_match[p, m] & pport[p, q]."""
+        self._check_ips()
+        if self.encoding is None:
+            raise ValueError("firing_components needs an engine built from a policy")
+        raw = host._build_tensors(self.encoding)
+        # "tiers" excluded on purpose: firing masks are a NetworkPolicy-
+        # tier concept (rule = one peer matcher of one target); the
+        # lattice reads the NP tier only through has_target and the
+        # any-allow OR, which removing a shadowed NP rule leaves as they
+        # are (analysis/audit.py)
+        shared = {
+            k: v for k, v in raw.items() if k not in ("ingress", "egress", "tiers")
+        }
+        for k, a in zip(("q_port", "q_name", "q_proto"), self._port_case_arrays(cases)):
+            shared[k] = a
+        shared = carry.tensors_from_reference(shared, self.device)
+        out = {}
+        for direction in ("ingress", "egress"):
+            comp = rule_firing_kernel(
+                shared, carry.tensors_from_reference(raw[direction], self.device)
+            )
+            out[direction] = {k: v.cpu().numpy() for k, v in comp.items()}
+        return out
 
     def iter_grid_blocks(self, cases: Sequence[PortCase], block: int = 1024):
         """Stream verdict blocks of source rows to the host: yields

@@ -1038,12 +1038,64 @@ def _ip_signature_bits(tensors: Dict) -> Optional[np.ndarray]:
     return np.packbits(bits, axis=0).T  # [N, ceil(B/8)]
 
 
-def pod_signatures(tensors: Dict, selpod: np.ndarray) -> np.ndarray:
+def _ip_signature_tss(tensors: Dict, cidr) -> np.ndarray:
+    """[N, 4K + ceil((H+1)/8)] uint8 TSS signature block: the [K] int32
+    per-pod partition signature (cidrspace.CidrSpace.signature — the
+    device LPM stage or its numpy twin) viewed as bytes, plus the packed
+    host-evaluated columns and the validity bit.
+
+    Sound for compute_pod_classes because pods with equal partition
+    signatures match exactly the same atom in every partition, hence
+    carry identical membership on every (base, mask, excepts) spec —
+    the same bits _ip_signature_bits would emit
+    (cidrspace.spec_membership_words).  The TSS block may be FINER than
+    the bit block (splitting costs classes, never correctness)."""
+    pod_ip = tensors["pod_ip"]  # shape: (N,) uint32; sentinel: 0=invalid; mask: pod_ip_valid
+    pod_ip_valid = tensors["pod_ip_valid"]  # shape: (N,) bool
+    n = int(pod_ip.shape[0])
+    sig = cidr.signature(pod_ip, pod_ip_valid)  # [K, N] int32
+    # explicit width (not -1): numpy cannot infer a trailing dim for a
+    # zero-size array, and n=0 must keep working (empty-cluster rebuild
+    # on the serve path)
+    blocks = [
+        np.ascontiguousarray(sig.T)
+        .view(np.uint8)
+        .reshape(n, 4 * int(sig.shape[0]))
+    ]
+    host_cols = _host_ip_cols(tensors)
+    tail = np.zeros((len(host_cols) + 1, n), dtype=bool)
+    for j, col in enumerate(host_cols):
+        tail[j] = col
+    tail[-1] = pod_ip_valid
+    blocks.append(np.packbits(tail, axis=0).T)
+    return np.concatenate(blocks, axis=1)
+
+
+#: `cidr` default for pod_signatures/compute_pod_classes: resolve the
+#: TSS stage from the env + tensors (engine/cidrspace.py).  Distinct
+#: from None, which means "explicitly dense bits" — the engine passes
+#: its resolved space (or None) so build and serve never disagree
+CIDR_AUTO = "auto"
+
+
+def pod_signatures(
+    tensors: Dict, selpod: np.ndarray, cidr=CIDR_AUTO
+) -> np.ndarray:
     """[N, K] uint8 packed per-pod observability signatures: ns id bytes
     + packed selector-match bits + the IP-observability block (see the
     class-compression design note above).  Pods with equal rows are
-    indistinguishable to every rule.  The IP block is always the dense
-    per-spec bit form (the reference's `cidr=None` route)."""
+    indistinguishable to every rule.
+
+    `cidr` selects the IP block's form: a cidrspace.CidrSpace routes the
+    CIDR dimension through the TSS/LPM partition signature ([K] int32
+    per pod); None keeps the dense per-spec bits; CIDR_AUTO (default)
+    resolves from the env/tensors, which derives the same space an
+    engine build would (its device leg on the current CUDA device).
+
+    The delta path recomputes single rows of this matrix (a one-pod
+    `tensors` view + the pod's [S, 1] selpod column); the row width
+    depends only on the selector count and the ip-peer spec/partition
+    structure, so it is stable across pod-only deltas."""
     n = int(tensors["pod_ns_id"].shape[0])
     blocks = [
         np.ascontiguousarray(
@@ -1056,9 +1108,16 @@ def pod_signatures(tensors: Dict, selpod: np.ndarray) -> np.ndarray:
                 f"selpod covers {selpod.shape[1]} pods but tensors hold {n}"
             )
         blocks.append(np.packbits(selpod, axis=0).T)  # [N, ceil(S/8)]
-    ip_bits = _ip_signature_bits(tensors)
-    if ip_bits is not None:
-        blocks.append(ip_bits)
+    if cidr is CIDR_AUTO:
+        from .cidrspace import resolve as _resolve_cidr
+
+        cidr = _resolve_cidr(tensors)
+    if cidr is not None:
+        blocks.append(_ip_signature_tss(tensors, cidr))
+    else:
+        ip_bits = _ip_signature_bits(tensors)
+        if ip_bits is not None:
+            blocks.append(ip_bits)
     return np.ascontiguousarray(np.concatenate(blocks, axis=1))
 
 
@@ -1086,18 +1145,22 @@ def classes_from_signatures(buf: np.ndarray) -> PodClasses:
     )
 
 
-def compute_pod_classes(tensors: Dict, selpod: np.ndarray) -> PodClasses:
+def compute_pod_classes(
+    tensors: Dict, selpod: np.ndarray, cidr=CIDR_AUTO
+) -> PodClasses:
     """Bucket pods into label-equivalence classes.
 
     `tensors` is the engine tensor dict BEFORE shape bucketing (real pod
     rows only); `selpod` the [S, N] host selector-match matrix over the
     same rows (host._selector_pod_matches_host — the identical pass that
-    feeds dead-target compaction).  Numpy only: one packed signature
-    matrix, one np.unique over its void view."""
+    feeds dead-target compaction); `cidr` a resolved cidrspace.CidrSpace
+    / None / CIDR_AUTO exactly as pod_signatures takes it.  Numpy plus
+    the optional device LPM stage: one packed signature matrix, one
+    np.unique over its void view."""
     n = int(tensors["pod_ns_id"].shape[0])
     if n == 0:
         return classes_from_signatures(np.zeros((0, 1), dtype=np.uint8))
-    return classes_from_signatures(pod_signatures(tensors, selpod))
+    return classes_from_signatures(pod_signatures(tensors, selpod, cidr=cidr))
 
 
 def gather_class_pod_rows(tensors: Dict, class_rep: np.ndarray) -> Dict:

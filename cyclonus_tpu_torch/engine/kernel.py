@@ -322,6 +322,75 @@ def apply_host_ip(enc: Dict, peer_match: torch.Tensor) -> torch.Tensor:
     return peer_match
 
 
+def lpm_partition_signature(
+    pod_ip: torch.Tensor,  # [N] int64 (widened uint32)
+    pod_ip_valid: torch.Tensor,  # [N] bool
+    pmask: torch.Tensor,  # [K] int64 partition masks (LPM order)
+    pbases: torch.Tensor,  # [K, B] int64 sorted bases, 0xFFFFFFFF pad
+    pindex: torch.Tensor,  # [K, B] int32 global atom ids, -1 pad
+) -> torch.Tensor:
+    """[K, N] int32 TSS/LPM partition signature (engine/cidrspace.py):
+    the global atom index pod n's IP matches within partition k, or -1
+    (no base equals pod_ip & pmask[k], or the IP is invalid).  Within a
+    partition at most one base can match — pod_ip & mask is one value —
+    so the leftmost binary search over the sorted bases is the whole
+    trie walk: one batched searchsorted over the K rows.  The uint32
+    operands arrive widened to int64 (torch has no uint32 search), where
+    the 0xFFFFFFFF pad base stays the largest value; pad slots are
+    rejected by their -1 pindex, never by the pad base value, so a real
+    255.255.255.255 base (which ties the pad and wins the leftmost
+    search) still resolves.  Bit-identical to the numpy twin
+    cidrspace.CidrSpace.signature_host."""
+    key = pod_ip[None, :] & pmask[:, None]  # [K, N] int64
+    pos = torch.searchsorted(pbases.contiguous(), key.contiguous(), side="left")
+    pos = pos.clamp(max=pbases.shape[1] - 1)  # [K, N]
+    hit = torch.gather(pbases, 1, pos) == key
+    idx = torch.gather(pindex, 1, pos)
+    return torch.where(
+        hit & (idx >= 0) & pod_ip_valid[None, :], idx, torch.full_like(idx, -1)
+    ).to(torch.int32)
+
+
+def rule_firing_kernel(shared: Dict, enc: Dict) -> Dict[str, torch.Tensor]:
+    """Per-RULE firing-mask components for one direction — the batched
+    variant of the verdict path that the analysis layer
+    (cyclonus_tpu_torch.analysis) audits on.
+
+    The firing mask of flat peer rule p over (target-side pod n,
+    peer-side pod m, port case q) is the rank-1 product
+
+        fire[p, n, m, q] = rule_tmatch[p, n] & peer_match[p, m] & pport[p, q]
+
+    so returning the three factors is the whole mask without ever
+    materializing [P, N, N, Q].  rule_tmatch gathers each rule's
+    target row (a rule fires only where its OWN target applies), with
+    pad rules (peer_target -1) masked to all-False."""
+    selpod, selns = selector_tables(shared)
+    pre = direction_precompute(
+        enc,
+        selpod,
+        selns,
+        shared["pod_ns_id"],
+        shared["pod_ip"],
+        shared["pod_ip_valid"],
+    )
+    peer_match = apply_host_ip(enc, pre["peer_match"])
+    pport = port_spec_allows(
+        enc["port_spec"],
+        shared["q_port"],
+        shared["q_name"],
+        shared["q_proto"],
+    )
+    pt = enc["peer_target"].long()
+    rule_tmatch = pre["tmatch"][pt.clamp(min=0)] & (pt >= 0)[:, None]
+    return {
+        "rule_tmatch": rule_tmatch,  # [P, N] bool
+        "peer_match": peer_match,  # [P, N] bool
+        "pport": pport,  # [P, Q] bool
+        "has_target": pre["has_target"],  # [N] bool
+    }
+
+
 # --- precedence-tier resolution epilogue ----------------------------------
 #
 # The ANP/BANP lattice replaces the bool-OR assumption with

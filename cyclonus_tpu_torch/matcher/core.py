@@ -569,6 +569,34 @@ class AllowedResult:
     def is_allowed(self) -> bool:
         return self.ingress.is_allowed and self.egress.is_allowed
 
+    def table(self) -> str:
+        from ..utils.table import render_table
+        from ..kube.labels import label_selector_table_lines
+
+        rows = []
+        for direction, result in (("Ingress", self.ingress), ("Egress", self.egress)):
+            for action, targets in (
+                ("Allow", result.allowing_targets),
+                ("Deny", result.denying_targets),
+            ):
+                for t in targets:
+                    rows.append(
+                        [
+                            direction,
+                            action,
+                            f"namespace: {t.namespace}\n"
+                            + label_selector_table_lines(t.pod_selector),
+                        ]
+                    )
+            if direction == "Ingress":
+                rows.append(["", "", ""])
+        return render_table(
+            ["Type", "Action", "Target"],
+            rows,
+            footer=["Is allowed?", str(self.is_allowed).lower(), ""],
+            row_line=True,
+        )
+
 
 class Policy:
     """Root compiled form: {ingress, egress: map primary-key -> Target}

@@ -38,10 +38,12 @@ delta recomputes that pod's observability signature and moves it
 between EXISTING classes in place; a brand-new signature, a departing
 class representative with survivors, or any policy/add/remove churn
 rebuilds the class state alone (host classify, and the class tensor set
-uploads again at its next use; the main set stays untouched).  The
-signature's CIDR block is always the dense per-spec bits here
-(encoding.pod_signatures), so the reference's partition-map pin on a
-policy delta has no counterpart.
+uploads again at its next use; the main set stays untouched).  When the
+class signature's CIDR block rides the TSS partition map
+(engine/cidrspace.py), every signature is taken with the engine's cached
+map: a pod delta reuses it, a class rebuild re-resolves it from the
+patched tensors, and a policy delta that changes the map's mask
+structure raises Ineligible before anything mutates.
 
 After any patch, TorchPolicyEngine.invalidate_after_patch() drops what
 was derived from the old values (the steady state's pin, the slab
@@ -57,13 +59,14 @@ cluster state, with the scalar oracle spot-checking both.
 from __future__ import annotations
 
 import os
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import carry
-from ..engine import host
+from ..engine import cidrspace, host
 from ..engine.api import TorchPolicyEngine
 from ..engine.encoding import (
     PEER_IP,
@@ -263,6 +266,10 @@ class IncrementalEngine:
         self._sigs: Optional[np.ndarray] = None
         self._selpod: Optional[np.ndarray] = None
         self._class_sig_of: Dict[bytes, int] = {}
+        # (staged, space) handoff from patch_policy's structure pin to
+        # the rebuild it ends with — consumed (and reset) by
+        # rebuild_class_state, staged only after every Ineligible
+        self._resolved_cidr = (False, None)
         if self.engine._class_state is not None:
             self._init_class_support()
 
@@ -300,7 +307,14 @@ class IncrementalEngine:
     def _init_class_support(self) -> None:
         n = self.engine.n_pods
         self._selpod = host._selector_pod_matches_host(self._raw_selector_view())
-        self._sigs = pod_signatures(self._sig_view(np.arange(n)), self._selpod)
+        # the engine's resolved CidrSpace (or None = dense bits) rides
+        # every signature computation: build and serve must read the
+        # same partition map or row widths/values would diverge
+        self._sigs = pod_signatures(
+            self._sig_view(np.arange(n)),
+            self._selpod,
+            cidr=self.engine._class_state.get("cidr"),
+        )
         pc = self.engine._class_state["classes"]
         self._class_sig_of = {
             self._sigs[rep].tobytes(): cid
@@ -497,7 +511,11 @@ class IncrementalEngine:
             c.pod_kv[i : i + 1], c.pod_key[i : i + 1],
         )[:, 0]
         self._selpod[:, i] = col
-        sig = pod_signatures(self._sig_view(np.array([i])), self._selpod[:, i : i + 1])[0]
+        sig = pod_signatures(
+            self._sig_view(np.array([i])),
+            self._selpod[:, i : i + 1],
+            cidr=eng._class_state.get("cidr"),
+        )[0]
         if sig.shape[0] != self._sigs.shape[1]:
             self.rebuild_class_state()
             return "rebuild"
@@ -536,8 +554,25 @@ class IncrementalEngine:
             return
         n = eng.n_pods
         self._selpod = host._selector_pod_matches_host(self._raw_selector_view())
-        self._sigs = pod_signatures(self._sig_view(np.arange(n)), self._selpod)
+        # re-resolve the TSS partition map from the CURRENT tensors: a
+        # same-structure policy patch may have changed atom membership
+        # within existing masks (patch_policy pins the mask structure
+        # itself), and a stale map would compute stale signatures.  A
+        # patch_policy call hands over the space it already resolved for
+        # the structure pin, so a policy delta derives the map once.
+        stashed, space = self._resolved_cidr
+        self._resolved_cidr = (False, None)
+        if not stashed:
+            space = cidrspace.resolve(
+                eng._tensors, mode=eng._opt_cidr_tss, n_pods=n, device=eng.device
+            )
+        st["cidr"] = space
+        t0 = time.perf_counter()
+        self._sigs = pod_signatures(
+            self._sig_view(np.arange(n)), self._selpod, cidr=space
+        )
         pc = classes_from_signatures(self._sigs)
+        st["classify_s"] = time.perf_counter() - t0
         self._class_sig_of = {
             self._sigs[rep].tobytes(): cid
             for cid, rep in enumerate(np.asarray(pc.class_rep))
@@ -552,7 +587,10 @@ class IncrementalEngine:
         st["classes"] = pc
         st["ratio"] = n / max(pc.n_classes, 1)
         st["ctensors"] = ct
-        st["aux_bytes"] = int(n * 4 + cb * 4 + sum(a.nbytes for a in host._np_leaves(ct)))
+        st["aux_bytes"] = int(
+            n * 4 + cb * 4 + sum(a.nbytes for a in host._np_leaves(ct))
+            + (space.nbytes() if space is not None else 0)
+        )
         st["device_tensors"] = None
         st["class_of"] = None
 
@@ -597,6 +635,28 @@ class IncrementalEngine:
                 "ingress": host._tier_tensors(tier_enc[0]),
                 "egress": host._tier_tensors(tier_enc[1]),
             }
+        # the TSS partition-map pin: when the live class state rides the
+        # LPM stage, a policy delta that changes the MASK structure (a
+        # prefix length appearing or disappearing, or the stage turning
+        # on or off) changes the shape of every pod signature.  That is a
+        # full rebuild, checked before any state mutates; atom churn
+        # within existing masks stays patchable (rebuild_class_state
+        # takes the new map after the slabs land)
+        new_space = None
+        if eng._class_state is not None:
+            new_space = cidrspace.resolve(
+                {"ingress": new["ingress"], "egress": new["egress"]},
+                mode=eng._opt_cidr_tss,
+                n_pods=eng.n_pods,
+                device=eng.device,
+            )
+            if cidrspace.mask_structure(
+                eng._class_state.get("cidr")
+            ) != cidrspace.mask_structure(new_space):
+                raise Ineligible(
+                    "CIDR TSS partition structure changed (new mask "
+                    "structure): the class signature layout must rebuild"
+                )
         pstats = None
         if eng._partition_stats is not None:
             pstats = {}
@@ -741,7 +801,12 @@ class IncrementalEngine:
         )
         if eng._class_state is not None:
             # the selector table changed: every signature's selpod block
-            # is differently shaped — classes rebuild from scratch
+            # is differently shaped — classes rebuild from scratch, with
+            # the space resolved for the structure pin above (a function
+            # of the spec set, which compression and bucketing keep);
+            # staged here, past every Ineligible, so an aborted patch
+            # never leaves a stale stash for a later rebuild
+            self._resolved_cidr = (True, new_space)
             self.rebuild_class_state()
 
     # --- device application ----------------------------------------------

@@ -10,7 +10,8 @@ with one except (20%) or a tier pod selector, half of them also scoped
 to a team namespace selector.  40% of the policies also cover egress.
 
 bench_tiers is the benchmark's admin-tier lattice over the same label
-scheme (a copy of the TierSet in bench.tiers_case).
+scheme (a copy of the TierSet in bench.tiers_case), and cidr_cluster the
+ipBlock-heavy cluster of the benchmark's CIDR leg (bench.cidr_case).
 """
 
 from __future__ import annotations
@@ -145,3 +146,78 @@ def bench_tiers() -> TierSet:
             ingress=[TierRule(action="Deny", peers=[TierScope()])],
         ),
     )
+
+
+def cidr_cluster(n_pods: int, distinct: int, pool: int, rng: random.Random):
+    """The benchmark's ipBlock-heavy cluster (a copy of bench.cidr_case's
+    generator, draw for draw): `n_pods` pods in one namespace with two
+    label shapes, their IPs drawn from a sorted pool of about `pool`
+    addresses, and `distinct` distinct (cidr, excepts) blocks — /32
+    splinters on the pool's /24s, /32s over 10.0.0.0/10, /24s, /16s with
+    one /24 except, /12-/15s — 64 to a policy, each policy selecting
+    every pod and allowing those blocks on ingress and egress, all
+    ports.  Returns (pods, namespaces, policies)."""
+    namespaces = {"cidr": {"ns": "cidr"}}
+    ip_pool = sorted(
+        {
+            f"10.{rng.randrange(64)}.{rng.randrange(256)}"
+            f".{rng.randrange(1, 255)}"
+            for _ in range(pool)
+        }
+    )
+    # two label shapes on purpose: the signature entropy comes from the
+    # CIDR structure, which is what the TSS stage compresses
+    pods = [
+        ("cidr", f"p{i}", {"app": f"app{i % 2}"}, ip_pool[i % len(ip_pool)])
+        for i in range(n_pods)
+    ]
+    cidrs: list = []
+    seen = set()
+    attempts = 0
+    while len(cidrs) < distinct and attempts < 64 * distinct:
+        attempts += 1
+        roll = rng.random()
+        if roll < 0.30:
+            ip = rng.choice(ip_pool)
+            a, b, c, _d = ip.split(".")
+            cand = (f"{a}.{b}.{c}.{rng.randrange(256)}/32", ())
+        elif roll < 0.55:
+            cand = (
+                f"10.{rng.randrange(64)}.{rng.randrange(256)}"
+                f".{rng.randrange(256)}/32",
+                (),
+            )
+        elif roll < 0.80:
+            cand = (
+                f"10.{rng.randrange(64)}.{rng.randrange(256)}.0/24",
+                (),
+            )
+        elif roll < 0.92:
+            b2 = rng.randrange(64)
+            cand = (f"10.{b2}.0.0/16", (f"10.{b2}.{rng.randrange(256)}.0/24",))
+        else:
+            cand = (f"10.{rng.randrange(64)}.0.0/{rng.choice((12, 14, 15))}", ())
+        if cand not in seen:
+            seen.add(cand)
+            cidrs.append(cand)
+    per_rule = 64
+    policies = []
+    for i in range(0, len(cidrs), per_rule):
+        chunk = cidrs[i : i + per_rule]
+        peers = [
+            NetworkPolicyPeer(ip_block=IPBlock.make(c, list(ex)))
+            for c, ex in chunk
+        ]
+        policies.append(
+            NetworkPolicy(
+                name=f"cidr-{i // per_rule}",
+                namespace="cidr",
+                spec=NetworkPolicySpec(
+                    pod_selector=LabelSelector.make(),
+                    policy_types=["Ingress", "Egress"],
+                    ingress=[NetworkPolicyIngressRule(ports=[], from_=peers)],
+                    egress=[NetworkPolicyEgressRule(ports=[], to=peers)],
+                ),
+            )
+        )
+    return pods, namespaces, policies

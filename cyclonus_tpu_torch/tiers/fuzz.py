@@ -9,7 +9,11 @@ door), IPv6 pods against the pod_ip_valid mask.  Seeds also generate
 tier-free scenarios (~1 in 4).  The generator is a copy of the
 reference package's (cyclonus_tpu/tiers/fuzz.py build_fuzz_case), draw
 for draw, so one seed gives the same scenario in both packages; the
-differential gate itself lives with the callers.
+tier differential gate itself lives with the callers.
+
+The CIDR family (build_cidr_fuzz_case, run_cidr_seed) is the ipBlock-
+heavy corpus of the TSS/LPM class signature, seed for seed as the
+reference's, with its differential gate.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from __future__ import annotations
 import random
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from ..engine.api import PortCase
 from ..kube.netpol import (
@@ -337,3 +343,227 @@ def build_fuzz_case(seed: int) -> FuzzCase:
         cases=cases,
         simplify=rng.random() < 0.5,
     )
+
+
+# --- adversarial CIDR family (TSS/LPM pre-classification gate) ------------
+#
+# The corner-case corpus the TSS stage (engine/cidrspace.py) must survive:
+# overlapping prefixes of every depth, /31-/32 splinters landing exactly
+# on pod addresses, the /0 full cover, except == cidr annihilation,
+# excepts nested three deep, and v4/v6 mixes (v6 CIDRs and v4 blocks
+# with v6 excepts must route to the HOST columns, never the trie).
+# Every seed is pinned dense == class-compressed(bit signature) ==
+# class-compressed(TSS signature) == scalar oracle — grid and counts —
+# plus the mechanical signature bridge: per-spec membership recovered
+# from the partition signature (cidrspace.spec_membership_words) equals
+# the membership the dense mask-compare computes.
+
+
+class FuzzMismatch(AssertionError):
+    """The differential gate failed; the message carries the seed and
+    the first divergent cell for one-command reproduction."""
+
+
+def _cidr_fuzz_blocks(rng: random.Random) -> List[IPBlock]:
+    """3-8 adversarial IPBlocks drawn across the corpus families."""
+    blocks: List[IPBlock] = []
+    n = rng.randint(3, 8)
+    for _ in range(n):
+        fam = rng.random()
+        if fam < 0.22:
+            # overlapping prefix ladder over one base
+            p = rng.choice((8, 9, 10, 12, 16, 20, 24))
+            blocks.append(IPBlock.make(f"10.0.0.0/{p}", []))
+        elif fam < 0.42:
+            # /31-/32 splinters on/next to pod addresses
+            o3, o4 = rng.choice((0, 1, 2)), rng.randint(0, 254)
+            p = rng.choice((31, 32, 32))
+            blocks.append(IPBlock.make(f"10.0.{o3}.{o4}/{p}", []))
+        elif fam < 0.52:
+            # the /0 full cover (mask_for_prefix(0) == 0 boundary)
+            blocks.append(IPBlock.make("0.0.0.0/0", []))
+        elif fam < 0.62:
+            # except == cidr annihilation: matches nothing, exactly
+            cidr = rng.choice(("10.0.1.0/24", "10.0.2.0/25"))
+            blocks.append(IPBlock.make(cidr, [cidr]))
+        elif fam < 0.80:
+            # excepts nested three deep inside one block
+            blocks.append(
+                IPBlock.make(
+                    "10.0.0.0/8",
+                    ["10.0.0.0/10", "10.0.0.0/12", "10.0.0.0/14"][
+                        : rng.randint(1, 3)
+                    ],
+                )
+            )
+        elif fam < 0.90:
+            # v6 CIDR: encoding routes it to the host-evaluated path
+            blocks.append(
+                IPBlock.make(rng.choice(("fd00::/8", "fd00::/64")), [])
+            )
+        else:
+            # v4 primary with a v6 except: the MIXED-family case — the
+            # whole row must fall back to host evaluation for exactness
+            blocks.append(IPBlock.make("10.0.0.0/16", ["fd00::/64"]))
+    return blocks
+
+
+def build_cidr_fuzz_case(seed: int) -> FuzzCase:
+    """Deterministic ipBlock-heavy scenario for `seed` (the family
+    corpus above), tier-free: the CIDR gate isolates the TSS stage."""
+    rng = random.Random(seed ^ 0xC1D2)
+    namespaces = {"x": {"ns": "x"}, "y": {"ns": "y"}}
+    pods: List[PodTuple] = []
+    #: boundary addresses on purpose: 0.0.0.0 and 255.255.255.255 are
+    #: REAL addresses next to the encoder's 0-sentinel and the
+    #: partition builder's 0xFFFFFFFF pad value
+    ip_pool = ["0.0.0.0", "255.255.255.255", "10.0.1.0", "10.0.1.255"]
+    ip_pool += [
+        f"10.0.{rng.choice((0, 1, 2))}.{rng.randint(0, 255)}"
+        for _ in range(8)
+    ]
+    for ns in ("x", "y"):
+        for name in _POD_NAMES[: rng.randint(3, 4)]:
+            labels = {"pod": name}
+            if rng.random() < 0.12:
+                ip = f"fd00::{len(pods) + 1:x}"  # v6 pod: pod_ip_valid off
+            else:
+                ip = rng.choice(ip_pool)  # duplicates on purpose: classes
+            pods.append((ns, name, labels, ip))
+    netpols: List[NetworkPolicy] = []
+    for i in range(rng.randint(2, 3)):
+        ptypes = rng.choice((["Ingress"], ["Egress"], ["Ingress", "Egress"]))
+        spec = NetworkPolicySpec(
+            pod_selector=_rand_selector(rng),
+            policy_types=list(ptypes),
+        )
+        peers = [
+            NetworkPolicyPeer(ip_block=b) for b in _cidr_fuzz_blocks(rng)
+        ]
+        if rng.random() < 0.4:
+            peers.append(NetworkPolicyPeer(pod_selector=_rand_selector(rng)))
+        if "Ingress" in ptypes:
+            spec.ingress = [
+                NetworkPolicyIngressRule(
+                    ports=_rand_np_ports(rng), from_=list(peers)
+                )
+            ]
+        if "Egress" in ptypes:
+            spec.egress = [
+                NetworkPolicyEgressRule(
+                    ports=_rand_np_ports(rng), to=list(peers)
+                )
+            ]
+        netpols.append(
+            NetworkPolicy(
+                name=f"cidr-np-{i}",
+                namespace=rng.choice(("x", "y")),
+                spec=spec,
+            )
+        )
+    cases = [
+        PortCase(80, "serve-80-tcp", "TCP"),
+        PortCase(rng.choice(_PORT_POOL), "", rng.choice(_PROTOCOLS)),
+    ]
+    return FuzzCase(
+        seed=seed,
+        pods=pods,
+        namespaces=namespaces,
+        netpols=netpols,
+        tiers=None,
+        cases=cases,
+        simplify=rng.random() < 0.5,
+    )
+
+
+def _table(grid: Dict[str, np.ndarray]) -> np.ndarray:
+    """[Q, src, dst, 3] bool (ingress, egress, combined) of a grid in
+    the GridVerdict layout (ingress [Q, dst, src])."""
+    return np.stack(
+        [np.swapaxes(grid["ingress"], 1, 2), grid["egress"], grid["combined"]],
+        axis=-1,
+    )
+
+
+def _assert_cidr_table(got, want, seed, label, fc) -> None:
+    if not np.array_equal(got, want):
+        bad = np.argwhere(got != want)
+        qi, si, di, ki = (int(x) for x in bad[0])
+        raise FuzzMismatch(
+            f"cidr seed {seed} ({label}): engine diverges from the "
+            f"oracle at case={fc.cases[qi]} src={fc.pods[si][:2]} "
+            f"dst={fc.pods[di][:2]} "
+            f"component={('ingress', 'egress', 'combined')[ki]}: "
+            f"engine={bool(got[qi, si, di, ki])} "
+            f"oracle={bool(want[qi, si, di, ki])} "
+            f"({bad.shape[0]} divergent cells)"
+        )
+
+
+def run_cidr_seed(seed: int, *, check_counts: bool = True, device=None) -> Dict:
+    """The per-seed CIDR differential gate: dense, class-compressed with
+    the per-spec bit signature, and class-compressed with the FORCED TSS
+    partition signature all bit-identical to the scalar oracle — grid
+    and counts — plus the TSS->bits membership bridge when the stage
+    engaged.  The engines run on `device` (None: the current CUDA
+    device).  The reference's mesh leg has no counterpart here (the
+    port has no mesh path)."""
+    from ..engine.api import TorchPolicyEngine
+    from ..engine.cidrspace import dense_spec_membership, spec_membership_words
+    from ..engine.encoding import pack_bool_words
+    from ..matcher.builder import build_network_policies
+    from ..oracle import oracle_grid
+
+    fc = build_cidr_fuzz_case(seed)
+    policy = build_network_policies(fc.simplify, fc.netpols)
+    want = _table(oracle_grid(policy, fc.pods, fc.namespaces, fc.cases))
+    n = len(fc.pods)
+    cells = 0
+    variants = (
+        ("dense", {"class_compress": "0"}),
+        ("classes-bit", {"class_compress": "1", "cidr_tss": "0"}),
+        ("classes-tss", {"class_compress": "1", "cidr_tss": "1"}),
+    )
+    tss_active = False
+    for label, kw in variants:
+        engine = TorchPolicyEngine(policy, fc.pods, fc.namespaces, device=device, **kw)
+        g = engine.evaluate_grid(fc.cases)
+        got = _table({"ingress": g.ingress, "egress": g.egress, "combined": g.combined})
+        _assert_cidr_table(got, want, seed, label, fc)
+        cells += int(want.size // 3)
+        if check_counts:
+            sums = {
+                "ingress": int(want[..., 0].sum()),
+                "egress": int(want[..., 1].sum()),
+                "combined": int(want[..., 2].sum()),
+            }
+            counts = engine.evaluate_grid_counts(fc.cases)
+            got_counts = {k: counts[k] for k in sums}
+            if got_counts != sums:
+                raise FuzzMismatch(
+                    f"cidr seed {seed} ({label}): counts engine "
+                    f"{got_counts} != oracle sums {sums}"
+                )
+        if label == "classes-tss":
+            st = engine._class_state
+            space = st.get("cidr") if st is not None else None
+            if space is not None:
+                tss_active = True
+                # the mechanical signature bridge: per-spec membership
+                # recovered from the partition signature must equal the
+                # dense mask-compare membership, packed word for word
+                t = engine._tensors
+                sig = space.signature_host(t["pod_ip"], t["pod_ip_valid"])
+                bits = dense_spec_membership(
+                    space, t["pod_ip"], t["pod_ip_valid"]
+                )
+                if not np.array_equal(
+                    spec_membership_words(space, sig),
+                    pack_bool_words(bits, axis=0),
+                ):
+                    raise FuzzMismatch(
+                        f"cidr seed {seed}: TSS partition signature does "
+                        f"not reproduce the dense per-spec membership "
+                        f"bits (LPM stage unsound for this spec set)"
+                    )
+    return {"seed": seed, "pods": n, "cells": cells, "tss_active": tss_active}

@@ -294,10 +294,16 @@ class TestPortBoundaries:
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'cyclonus_tpu' or m.startswith('cyclonus_tpu.')]\n"
             "assert not bad, bad\n"
+            "new = ['cyclonus_tpu_torch.engine.cidrspace', 'cyclonus_tpu_torch.analysis.audit',\n"
+            "       'cyclonus_tpu_torch.analysis.classes', 'cyclonus_tpu_torch.analysis.cluster',\n"
+            "       'cyclonus_tpu_torch.analysis.diff', 'cyclonus_tpu_torch.analysis.oracle',\n"
+            "       'cyclonus_tpu_torch.linter.checks', 'cyclonus_tpu_torch.utils.text',\n"
+            "       'cyclonus_tpu_torch.cli.analyze']\n"
+            "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
             "print(len([m for m in sys.modules if m.startswith('cyclonus_tpu_torch')]))\n"
         )
         out = subprocess.run(
             [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
         )
         assert out.returncode == 0, out.stderr
-        assert int(out.stdout.split()[-1]) >= 80
+        assert int(out.stdout.split()[-1]) >= 90
