@@ -131,13 +131,37 @@ Phases, each raising on failure:
                 PRE_CACHE=0, precompute, kernel (median of 5 CUDA-event
                 runs), plain version, the kernel's bound, cells/s; per
                 kernel also its registers, shared memory and spill
-                bytes.
+                bytes;
+  9. mesh     — the pod-axis mesh (engine/sharded.py) on logical shards
+                of the one card: (a) bench.py's mesh leg (2,048 pods x 200
+                policies, random.Random(77), block 512) on 1, 2, 4 and 8
+                shards: ring counts, the pipelined twin and the sharded
+                counts (kernel and tile loop) equal to
+                evaluate_grid_counts; at 8 shards the ring grid, the
+                all-gather grid and evaluate_grid bit-identical, the class
+                engine's sharded grid equal to its evaluate_grid, peer
+                bytes ring < allgather; the 2-D ring on (2, 4); the tiered
+                twin's ring and tile-loop counts equal; (b) the headline
+                cluster through the sharded counts on 1 and 4 shards on
+                both dtype plans, the launch counts zeroed just before
+                and read just after: K1 and K4 once a shard on the shard's
+                rows against the whole target axis, every result equal
+                to evaluate_grid_counts, then one ring counts call on 4
+                shards, and shard 0's K1 and K4 against their plain
+                versions; (c) `fuzz --seeds 8 --conformance --cidr-seeds 4
+                --json` (its mesh leg on the default mesh, 8 logical
+                shards of the card) must exit 0, and `probe --engine
+                cuda-sharded` must print what `--engine cuda` prints.
+                Prints one {"mesh": ...} line a leg.  Logical shards share
+                the card: no scaling or overlap figure comes from them.
 
 Every comparison is exact.  Prints a JSON line of the probe phase, the
-cidr and analyze lines, the serve lines, a JSON line of the main path's
+cidr and analyze lines, the serve lines, the mesh lines, a JSON line of
+the main path's
 end-to-end numbers (per route and dense-plan leg), a line of each
 phase's seconds, a JSON line of per-kernel numbers (with each kernel's
-launches on the serve path and on the CIDR legs), then as its last line
+launches on the serve path, on the CIDR legs and on the mesh's sharded
+calls), then as its last line
 {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  The port's CPU paths are covered by tests/test_torch_*.py.
@@ -733,10 +757,12 @@ def probe_recorder():
 
 def probe_split(records, wall_s, engine="cuda"):
     """The seconds of a run's simulated probes by stage, summed, and a
-    check that each ran on `engine` (on the card for "cuda")."""
+    check that each ran on `engine` (on the card for "cuda" and
+    "cuda-sharded")."""
     sim = [r for r in records if r["kind"] == "SimulatedJobRunner"]
     kube = [r for r in records if r["kind"] == "KubeJobRunner"]
-    bad = [r for r in sim if r["engine"] != engine or (engine == "cuda") != r["device"].startswith("cuda")]
+    bad = [r for r in sim
+           if r["engine"] != engine or (engine != "oracle") != r["device"].startswith("cuda")]
     if not sim or bad:
         raise AssertionError(f"probes not on the {engine} engine: {bad or 'none ran'}")
 
@@ -2191,7 +2217,257 @@ def phase_main_path(device):
     # the main path's end-to-end numbers in one line, next to the kernels
     # line at the end of the output
     log(json.dumps({"main_path": summary}))
-    return records, plain
+    return records, plain, (policy, pods, namespaces, cases, plain)
+
+
+#: bench.py's mesh leg (bench.py:707-895): its synthetic cluster and tile
+MESH_PODS = 2048
+MESH_POLICIES = 200
+MESH_SEED = 77
+MESH_BLOCK = 512
+#: logical shards of the headline leg's sharded calls
+MESH_HEADLINE_SHARDS = (1, 4)
+
+
+def _grids_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, k + "_dev"), getattr(b, k + "_dev"))
+               for k in ("ingress", "egress", "combined"))
+
+
+def mesh_bench_leg(device, cases):
+    """Leg (a): bench.py's mesh leg on logical meshes of 1, 2, 4 and 8
+    shards on the one card.  Ring counts (a warm-up, then the min of 2)
+    and the pipelined twin (5 steps), the sharded counts through the
+    kernel (K1) and the tile loop, each equal to evaluate_grid_counts; at
+    8 shards the ring grid, the all-gather grid and evaluate_grid
+    bit-identical, the class engine's sharded grid equal to its
+    evaluate_grid, the peer-buffer estimate ring < allgather; the 2-D ring
+    on (2, 4); the tiered twin's ring and tile-loop counts equal.  Logical
+    shards share one card, so n shards do the work of one n times over:
+    the seconds are printed as they come, and no scaling or overlap figure
+    is taken from them."""
+    from cyclonus_tpu_torch.engine import TorchPolicyEngine, host, sharded
+    from cyclonus_tpu_torch.matcher import build_network_policies
+    from cyclonus_tpu_torch.synthetic import bench_tiers, build_synthetic
+
+    pods, namespaces, policies = build_synthetic(MESH_PODS, MESH_POLICIES,
+                                                 random.Random(MESH_SEED))
+    policy = build_network_policies(True, policies)
+    n = len(pods)
+    eng = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="0")
+    want = eng.evaluate_grid_counts(cases, block=MESH_BLOCK)
+    rows = []
+    for n_dev in (1, 2, 4, 8):
+        mesh = sharded.logical_mesh(device, n_dev)
+        eng.evaluate_grid_counts_ring(cases, block=MESH_BLOCK, mesh=mesh)  # warm-up
+        ring_s = min_s(lambda: eng.evaluate_grid_counts_ring(cases, block=MESH_BLOCK, mesh=mesh),
+                       reps=2)
+        counts = eng.evaluate_grid_counts_ring(cases, block=MESH_BLOCK, mesh=mesh)
+        pipe_s, pipe_counts = eng.mesh_counts_pipelined_eval_s(
+            cases, reps=5, block=MESH_BLOCK, mesh=mesh)
+        row = {"shards": n_dev, "ring_s": ring_s, "pipelined_s": pipe_s}
+        got = {"ring": counts, "pipelined": pipe_counts}
+        for kernel in ("pallas", "xla"):
+            t0 = time.perf_counter()
+            got[kernel] = eng.evaluate_grid_counts_sharded(cases, block=MESH_BLOCK, mesh=mesh,
+                                                           kernel=kernel)
+            row[f"sharded_{kernel}_s"] = time.perf_counter() - t0
+        for route, c in got.items():
+            if c != want:
+                raise AssertionError(f"mesh (a) {route} at {n_dev} shards: {c} != {want}")
+        rows.append(row)
+
+    mesh8 = sharded.logical_mesh(device, 8)
+    ref = eng.evaluate_grid(cases)
+    t0 = time.perf_counter()
+    ring = eng.evaluate_grid_sharded(cases, mesh=mesh8, schedule="ring")
+    ring_grid_s = time.perf_counter() - t0
+    ag = eng.evaluate_grid_sharded(cases, mesh=mesh8, schedule="allgather")
+    if not (_grids_equal(ring, ref) and _grids_equal(ag, ref)):
+        raise AssertionError("mesh (a): ring / all-gather grid != evaluate_grid at 8 shards")
+    del ring, ag
+    eng_c = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="1")
+    if eng_c.pod_classes() is None:
+        raise AssertionError("mesh (a): the class engine holds no class state")
+    ring_c = eng_c.evaluate_grid_sharded(cases, mesh=mesh8)
+    if not (_grids_equal(ring_c, eng_c.evaluate_grid(cases)) and _grids_equal(ring_c, ref)):
+        raise AssertionError("mesh (a): the class engine's sharded grid != its evaluate_grid")
+    del ring_c, ref
+    ring2d = eng.evaluate_grid_counts_ring2d(
+        cases, block=MESH_BLOCK, mesh=sharded.logical_mesh(device, shape=(2, 4)))
+    if ring2d != want:
+        raise AssertionError(f"mesh (a): ring2d {ring2d} != {want}")
+    padded, _ = host._pad_pod_arrays(eng._with_host_cases(cases), n, 8)
+    peer = {s: sharded.peer_buffer_bytes(padded, 8, s, pack=eng._pack)
+            for s in ("ring", "allgather")}
+    if not 0 < peer["ring"] < peer["allgather"]:
+        raise AssertionError(f"mesh (a): peer-buffer bytes not ring < allgather: {peer}")
+    eng_t = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="0",
+                              tiers=bench_tiers())
+    want_t = eng_t.evaluate_grid_counts(cases, block=MESH_BLOCK)
+    ring_t = eng_t.evaluate_grid_counts_ring(cases, block=MESH_BLOCK, mesh=mesh8)
+    xla_t = eng_t.evaluate_grid_counts_sharded(cases, block=MESH_BLOCK, mesh=mesh8, kernel="xla")
+    if not ring_t == xla_t == want_t:
+        raise AssertionError(f"mesh (a) tiered: ring {ring_t}, xla {xla_t}, counts {want_t}")
+    return {
+        "leg": "bench", "pods": n, "policies": len(policies), "seed": MESH_SEED,
+        "block": MESH_BLOCK, "logical": True, "counts": want, "tiered_counts": want_t,
+        "rows": rows, "ring_grid_s_8": ring_grid_s, "grids_bit_identical": True,
+        "ring2d": [2, 4], "peer_buffer_bytes_8": peer, "classes": eng_c.pod_classes().n_classes,
+    }
+
+
+def _shard0_kernel(eng, cases, n_dev):
+    """(run, padded pods): run(plain=False) launches the counts kernel of
+    shard 0 of an n_dev-shard kernel="pallas" call on the operands
+    tiled.evaluate_grid_counts_sharded gives it (K1 packed, K4/K5 under
+    pack=False), or its plain version with plain=True."""
+    import torch
+
+    from cyclonus_tpu_torch import carry
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.engine import sharded
+    from cyclonus_tpu_torch.engine.tiled import _mesh_counts_setup, _precompute
+
+    n = eng.n_pods
+    _m, _n_dev, _q, _block, tensors, n_padded = _mesh_counts_setup(
+        eng._with_host_cases(cases), n, 1024, sharded.logical_mesh(eng.device, n_dev))
+    pre = _precompute(carry.tensors_from_reference(tensors, eng.device), eng._pack)
+    rows = slice(0, n_padded // n_dev)
+    valid = torch.arange(n_padded, device=eng.device) < n
+    e, ig = pre["egress"], pre["ingress"]
+    if eng._pack:
+        ops = pk.packed_operands(
+            e["tmatch_pk"][:, rows], e["has_target"][rows], e["tallow_pk"],
+            ig["tmatch_pk"], ig["has_target"], ig["tallow_pk"][:, rows],
+            valid_src=valid[rows], valid_dst=valid)
+        return (lambda plain=False: pk.counts_from_packed_ops(ops, plain)), n_padded
+    ops = dk.dense_operands(
+        e["tmatch"][:, rows], e["has_target"][rows], e["tallow_bf"],
+        ig["tmatch"], ig["has_target"], ig["tallow_bf"][:, rows], valid[rows], valid)
+    return (lambda plain=False: dk.counts_from_ops(ops, plain)), n_padded
+
+
+def mesh_headline_leg(device, policy, pods, namespaces, cases, want):
+    """Leg (b): the headline cluster (the main path's) through
+    evaluate_grid_counts_sharded(kernel="pallas") on 1 and 4 logical
+    shards, both dtype plans: K1 (packed) and K4 (pack=False) launched once
+    per shard on the shard's source rows against the whole target axis.
+    The launch counts are zeroed just before these calls and read just
+    after them; every result equals evaluate_grid_counts on the same
+    engine and the main path's counts.  Then one ring counts call on the
+    4-shard mesh (packed plan), and shard 0's partials of the 4-shard call
+    against the plain version at the same operands.  No grid: one
+    [N, N, Q] bool verdict is 2e10 bytes."""
+    import torch
+
+    from cyclonus_tpu_torch.engine import TorchPolicyEngine, sharded
+
+    engines = {}
+    for plan, pack in (("packed", True), ("dense", False)):
+        eng = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="0",
+                                pack=pack)
+        counts = eng.evaluate_grid_counts(cases)
+        if counts != want:
+            raise AssertionError(f"mesh (b) {plan}: evaluate_grid_counts {counts} != {want}")
+        engines[plan] = eng
+    out = {"leg": "headline", "pods": len(pods), "shards": list(MESH_HEADLINE_SHARDS),
+           "logical": True}
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+
+    pk.reset_launches()
+    dk.reset_launches()
+    for plan, eng in engines.items():
+        for n_dev in MESH_HEADLINE_SHARDS:
+            mesh = sharded.logical_mesh(device, n_dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            counts = eng.evaluate_grid_counts_sharded(cases, mesh=mesh, kernel="pallas")
+            out[f"{plan}_{n_dev}_shard_s"] = time.perf_counter() - t0
+            if counts != want:
+                raise AssertionError(f"mesh (b) {plan} at {n_dev} shards: {counts} != {want}")
+    mesh4 = sharded.logical_mesh(device, 4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring = engines["packed"].evaluate_grid_counts_ring(cases, mesh=mesh4)
+    out["ring_4_shard_s"] = time.perf_counter() - t0
+    launches = launch_counts()
+    if ring != want:
+        raise AssertionError(f"mesh (b) ring at 4 shards: {ring} != {want}")
+    per_plan = sum(MESH_HEADLINE_SHARDS)
+    dense = launches["dense_counts_1chunk"] + launches["dense_counts_chunked"]
+    if launches["packed_counts"] != per_plan or dense != per_plan:
+        raise AssertionError(f"mesh (b): expected {per_plan} K1 and {per_plan} K4/K5 "
+                             f"launches, got {launches}")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    # second calls: each reruns its precompute (the mesh has no pin)
+    for plan, eng in engines.items():
+        for n_dev in MESH_HEADLINE_SHARDS:
+            mesh = sharded.logical_mesh(device, n_dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.evaluate_grid_counts_sharded(cases, mesh=mesh, kernel="pallas")
+            out[f"{plan}_{n_dev}_shard_second_s"] = time.perf_counter() - t0
+    # shard 0 of the 4-shard call against the plain version
+    for plan, eng in engines.items():
+        run, n_padded = _shard0_kernel(eng, cases, 4)
+        got = run()
+        torch.cuda.synchronize()
+        ref = run(plain=True)
+        check_kernel(got, ref, f"mesh (b) {plan}, shard 0 of 4")
+        out[f"{plan}_shard0"] = {
+            "rows": n_padded // 4, "dst": n_padded, "max_abs_err": float(
+                (got.double() - ref.double()).abs().max()),
+            "kernel_ms": time_ms(run, reps=5, warm=1),
+        }
+        del run, got, ref
+    del engines
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def mesh_gate_leg():
+    """Leg (c): the tier fuzz gate with its mesh leg on the card (8
+    logical shards on the one card) and the sharded probe, whose stdout
+    must equal the single-device probe's byte for byte."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "cyclonus_tpu_torch", "fuzz", "--seeds", "8",
+           "--conformance", "--cidr-seeds", "4", "--json"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+    fuzz_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"mesh (c): fuzz exited {run.returncode}: {run.stdout[-2000:]} "
+                             f"{run.stderr[-2000:]}")
+    rep = json.loads(run.stdout.strip().splitlines()[-1])
+    if not (rep["ok"] and rep["mesh_cells_checked"] > 0 and rep["conformance_cases"] == 10):
+        raise AssertionError(f"mesh (c): fuzz report {rep}")
+    argv = ["probe", "--mock", "--perfect-cni", "--policy-path", SIMPLE_EXAMPLE]
+    rc, cuda_out, _ = run_cli(argv + ["--engine", "cuda"])
+    t0 = time.perf_counter()
+    rc_s, mesh_out, _ = run_cli(argv + ["--engine", "cuda-sharded"], engine="cuda-sharded")
+    probe_s = time.perf_counter() - t0
+    if rc != 0 or rc_s != 0 or mesh_out != cuda_out:
+        raise AssertionError("mesh (c): the cuda-sharded probe's output != the cuda probe's")
+    return {"leg": "gate", "fuzz_s": fuzz_s, "fuzz": {k: rep[k] for k in (
+        "seeds", "cells_checked", "mesh_cells_checked", "pair_checks", "tiered_seeds",
+        "cidr_cells_checked", "conformance_cases")},
+        "probe_sharded_s": probe_s, "probe_equal": True}
+
+
+def phase_mesh(device, headline):
+    """The pod-axis mesh: legs (a)-(c), one {"mesh": ...} line each.
+    Returns the kernel launches of leg (b)'s sharded calls."""
+    policy, pods, namespaces, cases, want = headline
+    log(json.dumps({"mesh": {"card": card_info(), **mesh_bench_leg(device, cases)}}))
+    out, launches = mesh_headline_leg(device, policy, pods, namespaces, cases, want)
+    log(json.dumps({"mesh": {"card": card_info(), **out}}))
+    log(json.dumps({"mesh": {"card": card_info(), **mesh_gate_leg()}}))
+    return launches
 
 
 def main() -> int:
@@ -2230,7 +2506,8 @@ def main() -> int:
         CYCLONUS_AUTOTUNE_CACHE=os.path.join(tmp, "autotune.json"),
     ):
         serve_launches, serve_counts = timed("serve", phase_serve)
-        records, main_counts = timed("main_path", phase_main_path)
+        records, main_counts, headline = timed("main_path", phase_main_path)
+        mesh_launches = timed("mesh", lambda device: phase_mesh(device, headline))
     # the serve engine's counts of the headline cluster before its patch
     # are the main path's untiered counts of the same cluster
     if serve_counts != main_counts:
@@ -2240,6 +2517,7 @@ def main() -> int:
     for r in records:
         r["serve_launches"] = serve_launches.get(r["name"], 0)
         r["cidr_launches"] = cidr_launches.get(r["name"], 0)
+        r["mesh_launches"] = mesh_launches.get(r["name"], 0)
     log(json.dumps({"phase_s": phase_s, "total_s": time.perf_counter() - t0}))
     log(card_info())
     log(json.dumps({"kernels": records}))

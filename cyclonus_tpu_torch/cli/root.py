@@ -26,11 +26,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
 
     from .analyze import setup_analyze
+    from .fuzz_cmd import setup_fuzz
     from .generate import setup_generate
     from .probe_cmd import setup_probe
     from .serve_cmd import setup_serve
 
     setup_analyze(sub)
+    setup_fuzz(sub)
     setup_generate(sub)
     setup_probe(sub)
     setup_serve(sub)

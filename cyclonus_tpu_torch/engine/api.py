@@ -17,6 +17,15 @@ pairs, no grid) and iter_grid_blocks (the grid streamed to the host in
 blocks of source rows); for the analysis layer, firing_components (each
 rule's firing-mask factors on the raw encoding).
 
+On a pod-axis mesh (engine/sharded.py: `mesh` None is
+sharded.default_mesh(device), every visible card, or 8 logical shards
+on the engine's device): evaluate_grid_sharded (ring or all-gather
+schedule), evaluate_grid_counts_sharded (the counts kernel per shard, or
+the tile loop; the class route splits its class axis),
+evaluate_grid_counts_ring, its pipelined twin mesh_counts_pipelined_eval_s
+and evaluate_grid_counts_ring2d.  These read the host tensors and never
+touch the steady state's pins or the ns-order permutation.
+
 The class signature's CIDR dimension takes the TSS/LPM partition
 signature (engine/cidrspace.py, on the engine's device above its work
 floor) when the stage resolves (`cidr_tss`, CYCLONUS_CIDR_TSS: above 256
@@ -83,7 +92,7 @@ import torch
 from .. import carry
 from ..carry import resolve_device
 from ..matcher.core import Policy
-from . import autotune, cidrspace, dense_kernel, host, tiled
+from . import autotune, cidrspace, dense_kernel, host, sharded, tiled
 from .encoding import (
     PEER_IP,
     PolicyEncoding,
@@ -769,9 +778,10 @@ class TorchPolicyEngine:
             self._with_host_cases(cases), n, block=block, pack=self._pack, device=self.device
         )
 
-    def _with_host_cases(self, cases: Sequence[PortCase]) -> Dict:
-        """The host (numpy) tensors with the port-case arrays."""
-        t = dict(self._tensors)
+    def _with_host_cases(self, cases: Sequence[PortCase], tensors: Optional[Dict] = None) -> Dict:
+        """The host (numpy) tensors (default: the engine's) with the
+        port-case arrays."""
+        t = dict(self._tensors if tensors is None else tensors)
         t["q_port"], t["q_name"], t["q_proto"] = self._port_case_arrays(cases)
         return t
 
@@ -1172,6 +1182,116 @@ class TorchPolicyEngine:
         rs = outs[-1].cpu().numpy()
         dt = (time.perf_counter() - t0) / reps
         return dt, class_counts_finish(rs, pc.class_size, pc.n_classes, len(cases), self.n_pods)
+
+    # --- the pod-axis mesh ------------------------------------------------
+
+    def _mesh(self, mesh) -> "sharded.Mesh":
+        return mesh if mesh is not None else sharded.default_mesh(self.device)
+
+    def evaluate_grid_sharded(
+        self, cases: Sequence[PortCase], mesh=None, schedule: Optional[str] = None
+    ) -> GridVerdict:
+        """The truth tables over the pod-axis mesh (sharded.
+        evaluate_grid_sharded; `schedule` "ring", the default, or
+        "allgather"), bit-identical to evaluate_grid; the grids lie on the
+        mesh's first device.  Class state runs the sharded program over
+        the class axis and gathers back to pod axes on the device."""
+        self._check_ips()
+        if not cases:
+            return self.evaluate_grid(cases)
+        mesh = self._mesh(mesh)
+        st = self._class_state
+        if st is not None:
+            pc = st["classes"]
+            grids = sharded.evaluate_class_grid_sharded(
+                self._with_host_cases(cases, st["ctensors"]), pc.n_classes, pc.class_of_pod,
+                mesh=mesh, schedule=schedule, pack=self._pack,
+            )
+        else:
+            grids = sharded.evaluate_grid_sharded(
+                self._with_host_cases(cases), self.n_pods, mesh=mesh, schedule=schedule,
+                pack=self._pack,
+            )
+        return GridVerdict(self.pod_keys, list(cases), *(torch.movedim(g, -1, 0) for g in grids))
+
+    def evaluate_grid_counts_sharded(
+        self, cases: Sequence[PortCase], block: int = 1024, mesh=None, kernel: Optional[str] = None
+    ) -> Dict[str, int]:
+        """Mesh-parallel counts (tiled.evaluate_grid_counts_sharded): source
+        rows split over the mesh, the counts kernel (kernel="pallas", the
+        default on a CUDA mesh) or the tile loop ("xla") per shard.  The
+        class route, when it is eligible, splits its class axis instead.
+        Tiered counts take the tile loop: kernel None resolves to "xla",
+        an explicit "pallas" raises."""
+        self._check_ips()
+        n = self.n_pods
+        if not cases or n == 0:
+            return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
+        mesh = self._mesh(mesh)
+        if self._class_counts_eligible(len(cases)):
+            pc = self._class_state["classes"]
+            return tiled.evaluate_grid_counts_classes_sharded(
+                self._with_host_cases(cases, self._class_state["ctensors"]), pc.n_classes,
+                pc.class_size, n, block=block, mesh=mesh, pack=self._pack,
+            )
+        if "tiers" in self._tensors and kernel != "xla":
+            if kernel is not None:
+                raise ValueError(
+                    f"sharded counts kernel {kernel!r} cannot evaluate the "
+                    "precedence-tier lattice; use kernel='xla' or kernel=None "
+                    "(auto) on a tiered engine"
+                )
+            kernel = "xla"
+        return tiled.evaluate_grid_counts_sharded(
+            self._with_host_cases(cases), n, block=block, mesh=mesh, kernel=kernel,
+            pack=self._pack,
+        )
+
+    def evaluate_grid_counts_ring(
+        self, cases: Sequence[PortCase], block: int = 1024, mesh=None
+    ) -> Dict[str, int]:
+        """Ring-rotation counts (tiled.evaluate_grid_counts_ring): both pod
+        axes sharded, the dst-side precompute rotating around the mesh."""
+        self._check_ips()
+        n = self.n_pods
+        if not cases or n == 0:
+            return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
+        return tiled.evaluate_grid_counts_ring(
+            self._with_host_cases(cases), n, block=block, mesh=self._mesh(mesh), pack=self._pack
+        )
+
+    def mesh_counts_pipelined_eval_s(
+        self, cases: Sequence[PortCase], reps: int = 10, block: int = 1024, mesh=None
+    ):
+        """Seconds per ring-counts evaluation with the steps pipelined
+        (tiled.evaluate_grid_counts_ring_pipelined: one seed pins each
+        shard's src view and ring bundle, then `reps` ring sweeps back to
+        back and one readback).  Returns (seconds per evaluation, counts),
+        or None for an empty problem."""
+        self._check_ips()
+        n = self.n_pods
+        if not cases or n == 0:
+            return None
+        return tiled.evaluate_grid_counts_ring_pipelined(
+            self._with_host_cases(cases), n, reps=reps, block=block, mesh=self._mesh(mesh),
+            pack=self._pack,
+        )
+
+    def evaluate_grid_counts_ring2d(
+        self, cases: Sequence[PortCase], block: int = 1024, mesh=None
+    ) -> Dict[str, int]:
+        """Hierarchical ring counts over a ("dcn", "ici") mesh
+        (tiled.evaluate_grid_counts_ring2d); mesh None factors the default
+        mesh into 2 "hosts" (sharded.ring2d_mesh)."""
+        self._check_ips()
+        n = self.n_pods
+        if not cases or n == 0:
+            return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
+        if mesh is None:
+            mesh = sharded.ring2d_mesh(sharded.default_mesh(self.device))
+        return tiled.evaluate_grid_counts_ring2d(
+            self._with_host_cases(cases), n, block=block, mesh=mesh, pack=self._pack
+        )
 
     def pre_cache_stats(self) -> Dict:
         """The steady state's counters and residency: hits (steady-state

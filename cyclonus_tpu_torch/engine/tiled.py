@@ -14,17 +14,26 @@ Python loop over `block`-row source tiles that materialises one
 (_tile_verdicts_split).  The tile loop is the reference's XLA route
 (backend "xla"), and it is where tiered counts go under the dense dtype
 plan (CYCLONUS_PACK=0), which has no tiered kernel.
+
+The mesh family (engine/sharded.py's Mesh, one shard a loop step) splits
+the pod axis over the shards: the sharded counts (each shard's source
+rows against the whole target axis, through the counts kernels or the
+tile loop), the class-axis split of the class route, and the ring counts
+(both pod axes sharded, the dst-side bundle rotating one hop a step: the
+sync ring, its pipelined twin and the 2-D ring).  Every shard's partial
+counts are int32 (_int32_safe_block) and summed on the host in int64.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+import time
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import carry
-from . import host
+from . import dense_kernel, host
 from .encoding import TIER_KEY_NONE
 from .kernel import (
     _bool_matmul,
@@ -302,6 +311,49 @@ def _tile_verdicts_split(
     return ingress_rows, egress, egress & ingress_rows
 
 
+#: the dst-side bundle keys: the arrays the ring paths rotate.  Tier
+#: arrays on the DST pod axis (egress peer side, ingress target side) ride
+#: the bundle, or a rotated step would resolve tiers against the wrong
+#: shard.
+_DST_VIEW_KEYS = ("tallow_e", "tmatch_i", "has_i")
+_DST_TIER_KEYS = ("tier_peerq_e", "tier_subj_i")
+
+
+def _dst_bundle_keys(ring: Dict) -> Tuple[str, ...]:
+    keys = _DST_VIEW_KEYS
+    if "tier_peerq_e" in ring:
+        keys = keys + _DST_TIER_KEYS
+    return keys
+
+
+def _permute(rings: List[Dict], devices: Sequence[torch.device], perm: Sequence[int]) -> List[Dict]:
+    """One ppermute hop: shard d's bundle moves to shard perm[d], each
+    leaf copied to that shard's device without a host sync (on the same
+    device `.to` returns the tensor itself)."""
+    out: List[Dict] = [{} for _ in rings]
+    for d, ring in enumerate(rings):
+        dev = devices[perm[d]]
+        out[perm[d]] = {k: v.to(dev, non_blocking=True) for k, v in ring.items()}
+    return out
+
+
+def _ring_sweep(devices: Sequence[torch.device], rings: List[Dict], accs: List, body):
+    """The ring loop every 1-D ring path shares (the sync ring counts, the
+    pipelined twin and the sharded grid's ring) so the schedule cannot
+    diverge between them.  One hop per step, issued before the step's
+    compute: the copy and the compute both only read the current bundle.
+    `body(step, d, ring, acc) -> acc` consumes the bundle shard d holds.
+    All n hops run: the last returns every bundle to its origin, which
+    the pipelined twin relies on.  Returns (accs, rings at origin)."""
+    n = len(devices)
+    perm = [(d + 1) % n for d in range(n)]
+    for step in range(n):
+        nxt = _permute(rings, devices, perm)
+        accs = [body(step, d, rings[d], accs[d]) for d in range(n)]
+        rings = nxt
+    return accs, rings
+
+
 def _pad_pod_axis(tensors: Dict, n_pods: int, block: int) -> Tuple[Dict, int]:
     """Pad the (numpy) pod axis to a multiple of `block` with inert rows
     (host._pad_pod_arrays: they match no target and no peer); returns the
@@ -396,6 +448,267 @@ def _class_rowsums_kernel(
     return torch.cat(
         [_class_tile_rowsums(src, dst, w, i * block, block) for i in range(n_tiles)]
     )
+
+
+# --- the pod-axis mesh ----------------------------------------------------
+
+
+def _mesh_counts_setup(tensors: Dict, n_pods: int, block: int, mesh):
+    """The setup every mesh counts path shares: resolve the mesh (None:
+    sharded.default_mesh), bound the tile height for int32 partials, and
+    pad the (numpy) pod axis so every shard gets a whole number of tiles."""
+    from .sharded import default_mesh
+
+    mesh = mesh or default_mesh()
+    n_dev = mesh.size
+    q = int(tensors["q_port"].shape[0])
+    block = _int32_safe_block(min(block, max(n_pods // n_dev, 1)), n_pods, q)
+    tensors, n_padded = host._pad_pod_arrays(tensors, n_pods, n_dev * block)
+    return mesh, n_dev, q, block, tensors, n_padded
+
+
+def _run_mesh_counts(parts: Sequence[torch.Tensor], q: int, n_pods: int) -> Dict[str, int]:
+    """The tail of every mesh counts path: the shards' [*, 3] int32
+    partials summed on the host in int64."""
+    counts = np.zeros(3, dtype=np.int64)
+    for p in parts:
+        counts += p.cpu().numpy().astype(np.int64).reshape(-1, 3).sum(axis=0)
+    return {
+        "ingress": int(counts[0]),
+        "egress": int(counts[1]),
+        "combined": int(counts[2]),
+        "cells": q * n_pods * n_pods,
+    }
+
+
+def _shard_valid(d: int, shard: int, n_pods: int, device) -> torch.Tensor:
+    """[shard] bool: the real pods among shard d's rows."""
+    return (torch.arange(shard, device=device) + d * shard) < n_pods
+
+
+def evaluate_grid_counts_sharded(
+    tensors: Dict, n_pods: int, block: int = 1024, mesh=None, kernel: str = None, *, pack: bool
+) -> Dict[str, int]:
+    """Mesh-parallel counts: the SOURCE-ROW axis is split over the mesh;
+    each shard evaluates its row shard against the full (replicated)
+    precompute, and the shards' partials are summed on the host.
+
+    kernel="pallas" runs the hand-written counts kernel once per shard on
+    the rectangular pair (the shard's source rows against the whole
+    target axis, with validity masks): the packed kernel (K1) under the
+    packed plan, K4 (K5 when the operands span chunks) under pack=False;
+    kernel="xla" runs the tile loop.  The default is "pallas" on a CUDA
+    mesh and "xla" on a CPU mesh (where the kernels' plain versions run).
+    `tensors` is the engine's host (numpy) tensor dict with the port-case
+    arrays; tiered counts take kernel="xla" (the engine resolves it)."""
+    from .sharded import replicate
+
+    mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(tensors, n_pods, block, mesh)
+    if kernel is None:
+        kernel = "pallas" if mesh.flat[0].type == "cuda" else "xla"
+    if kernel not in ("pallas", "xla"):
+        raise ValueError(f"unknown sharded counts kernel {kernel!r} (want 'pallas' or 'xla')")
+    shard = n_padded // n_dev
+    devices = mesh.flat
+    parts = []
+    for d, t in enumerate(replicate(tensors, devices)):
+        pre = _precompute(t, pack)
+        row0 = d * shard
+        valid = torch.arange(n_padded, device=devices[d]) < n_pods
+        if kernel == "xla":
+            src, dst = _split_pre(pre)
+            parts.append(torch.stack([
+                _tile_counts_split(src, dst, valid, valid, start, block)
+                for start in range(row0, row0 + shard, block)
+            ]))
+            continue
+        rows = slice(row0, row0 + shard)
+        e, ig = pre["egress"], pre["ingress"]
+        if pack:
+            parts.append(verdict_counts_packed(
+                e["tmatch_pk"][:, rows], e["has_target"][rows], e["tallow_pk"],
+                ig["tmatch_pk"], ig["has_target"], ig["tallow_pk"][:, rows],
+                valid_src=valid[rows], valid_dst=valid,
+            ))
+        else:
+            parts.append(dense_kernel.verdict_counts_rect(
+                e["tmatch"][:, rows], e["has_target"][rows], e["tallow_bf"],
+                ig["tmatch"], ig["has_target"], ig["tallow_bf"][:, rows],
+                valid_src=valid[rows], valid_dst=valid,
+            ))
+    return _run_mesh_counts(parts, q, n_pods)
+
+
+def evaluate_grid_counts_classes_sharded(
+    tensors: Dict,
+    n_classes: int,
+    class_size: np.ndarray,
+    n_pods: int,
+    block: int = 1024,
+    mesh=None,
+    *,
+    pack: bool,
+) -> Dict[str, int]:
+    """Mesh-parallel compressed counts: the CLASS axis splits over the
+    mesh, each shard computes the f32 class-weighted row sums of its class
+    shard against the replicated dst view (the tile loop's row sums), and
+    the gathered [C, Q, 3] row sums go to the same exact host finish as
+    the single-device route (class_counts_finish)."""
+    from .sharded import replicate
+
+    mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(
+        tensors, n_classes, block, mesh
+    )
+    shard = n_padded // n_dev
+    w = np.zeros((n_padded,), dtype=np.float32)
+    w[:n_classes] = np.asarray(class_size, dtype=np.float32)
+    rows = []
+    for d, t in enumerate(replicate(dict(tensors, class_w=w), mesh.flat)):
+        src, dst = _split_pre(_precompute(t, pack))
+        row0 = d * shard
+        rows.append(torch.cat([
+            _class_tile_rowsums(src, dst, t["class_w"], start, block)
+            for start in range(row0, row0 + shard, block)
+        ]))
+    rs = np.concatenate([r.cpu().numpy() for r in rows])
+    return class_counts_finish(rs, class_size, n_classes, q, n_pods)
+
+
+def ring_counts_pipeline(tensors: Dict, n_pods: int, block: int, devices, *, pack: bool):
+    """(seed, step, meta) of the ring counts over `tensors` (already padded
+    by _mesh_counts_setup) on the shards' `devices`, in shard order:
+
+      seed(tensors) -> (srcs, rings)  each shard's tensors on its device
+                                      and its precompute, split into the
+                                      src view (local) and the dst bundle
+                                      with its validity mask (the ring)
+      step(srcs, rings) -> (partials, rings)  the full n-hop ring sweep;
+                                      the last hop returns every bundle to
+                                      its origin, so the returned rings
+                                      feed the next step
+
+    The sync ring runs one seed and one step; the pipelined twin one seed
+    and steps back to back.  meta holds the shard height, the tiles per
+    shard and count_bundle, the count body the 2-D ring shares."""
+    from .sharded import shard_tensors
+
+    devices = list(devices)
+    n_dev = len(devices)
+    shard = int(tensors["pod_ns_id"].shape[0]) // n_dev
+    tiles_per_shard = shard // block
+
+    def seed(tensors):
+        srcs, rings = [], []
+        for d, t in enumerate(shard_tensors(tensors, devices, shard)):
+            src, dst0 = _split_pre(_precompute(t, pack))
+            srcs.append(src)
+            rings.append(dict(dst0, valid=_shard_valid(d, shard, n_pods, devices[d])))
+        return srcs, rings
+
+    def count_bundle(src, ring, valid_local, counts, slot):
+        """Shard counts of src rows against the bundle `ring`, written at
+        tile rows slot * tiles_per_shard onwards."""
+        dst = {k: ring[k] for k in _dst_bundle_keys(ring)}
+        for i in range(tiles_per_shard):
+            counts[slot * tiles_per_shard + i] = _tile_counts_split(
+                src, dst, valid_local, ring["valid"], i * block, block
+            )
+        return counts
+
+    def step(srcs, rings):
+        def body(st, d, ring, counts):
+            return count_bundle(srcs[d], ring, _shard_valid(d, shard, n_pods, devices[d]), counts, st)
+
+        init = [
+            torch.zeros((n_dev * tiles_per_shard, 3), dtype=torch.int32, device=dev)
+            for dev in devices
+        ]
+        return _ring_sweep(devices, rings, init, body)
+
+    return seed, step, {"shard": shard, "tiles_per_shard": tiles_per_shard,
+                        "count_bundle": count_bundle}
+
+
+def evaluate_grid_counts_ring(
+    tensors: Dict, n_pods: int, block: int = 1024, mesh=None, *, pack: bool
+) -> Dict[str, int]:
+    """Ring-rotation counts: BOTH pod axes stay sharded.  Each shard keeps
+    only its own pod shard's precompute, and the dst-side bundle rotates
+    one hop a step (_ring_sweep):
+
+        for step in range(n_dev):
+            counts += local src rows x current dst block
+            dst block <- the previous shard's
+
+    so a shard holds O(N / n_dev) of the precompute where the sharded
+    counts replicate all of it.  With `pack` the bundle carries the packed
+    words."""
+    mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(tensors, n_pods, block, mesh)
+    seed, step, _meta = ring_counts_pipeline(tensors, n_pods, block, mesh.flat, pack=pack)
+    parts, _rings = step(*seed(tensors))
+    return _run_mesh_counts(parts, q, n_pods)
+
+
+def evaluate_grid_counts_ring_pipelined(
+    tensors: Dict, n_pods: int, reps: int = 10, block: int = 1024, mesh=None, *, pack: bool
+) -> Tuple[float, Dict[str, int]]:
+    """Steady-state seconds per ring-counts evaluation: one seed (upload
+    and precompute, pinned on the shards' devices), one warm step read
+    back, then `reps` steps back to back, each fed the previous one's
+    rings, and one readback at the end.  Returns (seconds per evaluation,
+    counts)."""
+    mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(tensors, n_pods, block, mesh)
+    seed, step, _meta = ring_counts_pipeline(tensors, n_pods, block, mesh.flat, pack=pack)
+    srcs, rings = seed(tensors)
+    partials, rings = step(srcs, rings)
+    _run_mesh_counts(partials, q, n_pods)  # warm; the readback is the barrier
+    t0 = time.perf_counter()
+    for _ in range(max(reps, 1)):
+        partials, rings = step(srcs, rings)
+    counts = _run_mesh_counts(partials, q, n_pods)  # the streams run in order: one barrier
+    return (time.perf_counter() - t0) / max(reps, 1), counts
+
+
+def evaluate_grid_counts_ring2d(
+    tensors: Dict, n_pods: int, block: int = 1024, mesh=None, *, pack: bool
+) -> Dict[str, int]:
+    """Hierarchical ring counts over a 2-D ("dcn", "ici") mesh: the math of
+    evaluate_grid_counts_ring with the rotation laid out for several
+    hosts.  Each round makes n_ici - 1 hops on the "ici" axis, then one on
+    "dcn", so shard (h, c) sees every shard once: at step j of round o it
+    holds the bundle of (h - o, c + o - j mod n_ici).  Pod shards follow
+    the flattened (dcn, ici) order.  mesh None: the default mesh factored
+    by sharded.ring2d_mesh."""
+    from .sharded import default_mesh, ring2d_mesh
+
+    if mesh is None:
+        mesh = ring2d_mesh(default_mesh())
+    if set(mesh.axis_names) != {"dcn", "ici"}:
+        raise ValueError(f"ring2d needs a ('dcn', 'ici') mesh, got {mesh.axis_names}")
+    grid = mesh.devices if mesh.axis_names == ("dcn", "ici") else mesh.devices.T
+    n_dcn, n_ici = grid.shape
+    devices = list(grid.flat)
+    mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(tensors, n_pods, block, mesh)
+    seed, _step, meta = ring_counts_pipeline(tensors, n_pods, block, devices, pack=pack)
+    srcs, rings = seed(tensors)
+    ici = [h * n_ici + (c + 1) % n_ici for h in range(n_dcn) for c in range(n_ici)]
+    dcn = [((h + 1) % n_dcn) * n_ici + c for h in range(n_dcn) for c in range(n_ici)]
+    counts = [
+        torch.zeros((n_dev * meta["tiles_per_shard"], 3), dtype=torch.int32, device=dev)
+        for dev in devices
+    ]
+    for o in range(n_dcn):
+        for j in range(n_ici):
+            # all but one hop of a round stay on "ici"; the bundle crosses
+            # "dcn" once a round (the last round's hop brings it home)
+            nxt = _permute(rings, devices, ici if j < n_ici - 1 else dcn)
+            for d in range(n_dev):
+                valid_local = _shard_valid(d, meta["shard"], n_pods, devices[d])
+                counts[d] = meta["count_bundle"](
+                    srcs[d], rings[d], valid_local, counts[d], o * n_ici + j
+                )
+            rings = nxt
+    return _run_mesh_counts(counts, q, n_pods)
 
 
 # --- streamed blocks and point pairs ----------------------------------------

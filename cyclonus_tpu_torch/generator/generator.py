@@ -52,6 +52,16 @@ class TestCaseGenerator:
     def upstream_e2e_test_cases(self) -> List[TestCase]:
         return cases.upstream_e2e_cases()
 
+    def tier_test_cases(self):
+        """The ANP/BANP precedence-tier conformance family
+        (generator/anp_cases.py TierCase objects).  Differential, not
+        kubectl-driven — gated engine-vs-oracle by tiers.fuzz.
+        run_conformance (`fuzz --conformance`) — so it rides alongside,
+        not inside, the 216 probe-driven cases."""
+        from .anp_cases import tier_cases
+
+        return tier_cases()
+
     def generate_all_test_cases(self) -> List[TestCase]:
         return (
             self.target_test_cases()

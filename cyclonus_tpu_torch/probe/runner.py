@@ -3,7 +3,9 @@
 The simulated runner's default engine, "cuda", compiles the (policy,
 resources) pair once into a TorchPolicyEngine, evaluates the whole
 verdict grid on the device, and scatters every job's verdict out of the
-grid.  engine="oracle" keeps the scalar per-job evaluation, the
+grid; "cuda-sharded" evaluates the grid over the engine's default
+pod-axis mesh instead (evaluate_grid_sharded, the reference's
+tpu-sharded).  engine="oracle" keeps the scalar per-job evaluation, the
 reference behaviour (jobrunner.go:68-94).
 
 Kube runners stay host-side concurrency (they are I/O-bound cluster exec
@@ -36,8 +38,8 @@ from .resources import Resources
 from .table import Table
 
 DEFAULT_ENGINE = "cuda"
-# the CLI --engine vocabulary
-ENGINE_CHOICES = ["oracle", "cuda"]
+# the CLI --engine vocabulary (cuda-sharded = cuda over the pod-axis mesh)
+ENGINE_CHOICES = ["oracle", "cuda", "cuda-sharded"]
 
 # grid bit -> verdict
 _VERDICT = (CONNECTIVITY_BLOCKED, CONNECTIVITY_ALLOWED)
@@ -104,7 +106,8 @@ class SimulatedJobRunner(JobRunner):
     """engine="oracle": per-job scalar evaluation (reference behaviour).
     engine="cuda": one TorchPolicyEngine per probe on `device` (None =
     the current CUDA device, which raises when there is none; "cpu" runs
-    the engine on the CPU).  A missing card or a failing engine raises:
+    the engine on the CPU); "cuda-sharded" the same engine with the grid
+    evaluated over its default mesh (sharded.default_mesh).  A missing card or a failing engine raises:
     nothing demotes to the oracle.
 
     `seconds` holds the split of the last grid probe: "build" (the
@@ -117,7 +120,7 @@ class SimulatedJobRunner(JobRunner):
             raise ValueError(f"invalid simulated engine {engine!r}")
         self.policies = policies
         self.engine = engine
-        self.device = resolve_device(device) if engine == "cuda" else None
+        self.device = resolve_device(device) if engine != "oracle" else None
         self.seconds: Dict[str, float] = {}
 
     # --- oracle path (jobrunner.go:68-94) ---
@@ -158,7 +161,10 @@ class SimulatedJobRunner(JobRunner):
             self.policies, pods, resources.namespaces, device=self.device
         )
         t1 = time.perf_counter()
-        grid = engine.evaluate_grid(cases)
+        if self.engine == "cuda-sharded":
+            grid = engine.evaluate_grid_sharded(cases)
+        else:
+            grid = engine.evaluate_grid(cases)
         # one copy of each grid to the host: never a device read per job
         ingress, egress, combined = grid.ingress, grid.egress, grid.combined
         t2 = time.perf_counter()

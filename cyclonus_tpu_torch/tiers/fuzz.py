@@ -1,30 +1,46 @@
-"""Seeded precedence-tier scenario generator: the fixtures of the
-tiered differential checks (tests/test_torch_tiers.py, chip_smoke.py).
+"""Seeded policy-set fuzzer: the precedence-tier subsystem's
+correctness gate (`python -m cyclonus_tpu_torch fuzz`), a copy of the
+reference package's tiers/fuzz.py on the port's engine.
 
 Every seed deterministically generates an adversarial scenario —
 overlapping ANP priorities, Pass-chains, overlapping CIDRs with
 excepts, empty selectors, endPort ranges, SCTP, sentinel-adjacent port
 values (0 / 1 / 65535, the encoder's 0-default and -1 pads live next
-door), IPv6 pods against the pod_ip_valid mask.  Seeds also generate
-tier-free scenarios (~1 in 4).  The generator is a copy of the
-reference package's (cyclonus_tpu/tiers/fuzz.py build_fuzz_case), draw
-for draw, so one seed gives the same scenario in both packages; the
-tier differential gate itself lives with the callers.
+door), IPv6 pods against the pod_ip_valid mask — and differentially
+checks the engine against the scalar lattice oracle
+(matcher/tiered.py):
+
+  * grid truth tables BIT-IDENTICAL, dense AND class-compressed
+    (class_compress both off and forced), and again through the ring
+    schedule of the pod-axis mesh (the mesh leg, engine/sharded.py);
+  * the counts engine equal to the oracle-checked grid sums;
+  * evaluate_pairs spot checks on sampled cells;
+  * the class reduction sound under the tiered oracle, and the linter
+    running over every generated NetworkPolicy set.
+
+Seeds also generate tier-free scenarios (~1 in 4).  The generator is
+draw for draw the reference's (build_fuzz_case), so one seed gives the
+same scenario in both packages.  A mismatch raises FuzzMismatch carrying
+the seed and the first divergent cell, so any failure reproduces with
+`fuzz --seed N --seeds 1`.
 
 The CIDR family (build_cidr_fuzz_case, run_cidr_seed) is the ipBlock-
 heavy corpus of the TSS/LPM class signature, seed for seed as the
-reference's, with its differential gate.
+reference's, with its differential gate and its mesh leg; the ANP/BANP
+conformance family (generator/anp_cases.py) runs through run_conformance.
+Every engine runs on `device` (None: the current CUDA device) and the
+mesh leg on `mesh` (None: sharded.default_mesh of that device).
 """
 
 from __future__ import annotations
 
 import random
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..engine.api import PortCase
+from ..engine.api import PortCase, TorchPolicyEngine
 from ..kube.netpol import (
     IPBlock,
     IntOrString,
@@ -41,6 +57,10 @@ from ..kube.netpol import (
     OP_IN,
     OP_NOT_IN,
 )
+from ..matcher.builder import build_network_policies
+from ..matcher.core import Policy
+from ..matcher.tiered import TieredPolicy
+from ..oracle import traffic_for_cell
 from .model import (
     AdminNetworkPolicy,
     BaselineAdminNetworkPolicy,
@@ -62,6 +82,37 @@ class FuzzCase:
     tiers: Optional[TierSet]
     cases: List[PortCase]
     simplify: bool = True
+
+
+@dataclass
+class FuzzReport:
+    seeds: List[int] = field(default_factory=list)
+    cells_checked: int = 0
+    mesh_cells_checked: int = 0  # cells re-checked through the mesh's ring
+    pair_checks: int = 0
+    tiered_seeds: int = 0
+    #: the linter leg (linter/checks.py): every seed's generated
+    #: NetworkPolicy set runs linter.lint without crashing; the warning
+    #: totals ride the report
+    lint_warnings: int = 0
+    lint_warnings_by_check: Dict[str, int] = field(default_factory=dict)
+    #: the adversarial CIDR family: every seed pinned dense == compressed
+    #: == TSS == oracle, mesh leg included
+    cidr_seeds: List[int] = field(default_factory=list)
+    cidr_cells_checked: int = 0
+
+    def to_dict(self) -> Dict:
+        return {
+            "seeds": list(self.seeds),
+            "cells_checked": self.cells_checked,
+            "mesh_cells_checked": self.mesh_cells_checked,
+            "pair_checks": self.pair_checks,
+            "tiered_seeds": self.tiered_seeds,
+            "lint_warnings": self.lint_warnings,
+            "lint_warnings_by_check": dict(self.lint_warnings_by_check),
+            "cidr_seeds": list(self.cidr_seeds),
+            "cidr_cells_checked": self.cidr_cells_checked,
+        }
 
 
 # --- scenario generation ---------------------------------------------------
@@ -345,6 +396,171 @@ def build_fuzz_case(seed: int) -> FuzzCase:
     )
 
 
+class FuzzMismatch(AssertionError):
+    """The differential gate failed; the message carries the seed and
+    the first divergent cell for one-command reproduction."""
+
+
+# --- the differential gate -------------------------------------------------
+
+
+def _oracle_table(
+    policy: Policy,
+    tiers: Optional[TierSet],
+    pods: List[PodTuple],
+    namespaces: Dict[str, Dict[str, str]],
+    cases: List[PortCase],
+) -> np.ndarray:
+    """[Q, N, N, 3] bool oracle truth table (ingress, egress, combined),
+    indexed [q, src, dst]."""
+    oracle = TieredPolicy(policy, tiers)
+    n = len(pods)
+    out = np.zeros((len(cases), n, n, 3), dtype=bool)
+    for qi, case in enumerate(cases):
+        for si in range(n):
+            for di in range(n):
+                out[qi, si, di] = oracle.is_traffic_allowed(
+                    traffic_for_cell(pods, namespaces, case, si, di)
+                )
+    return out
+
+
+def _table_from_grid(grid) -> np.ndarray:
+    """[Q, src, dst, 3] bool of a GridVerdict (ingress [Q, dst, src])."""
+    return np.stack(
+        [np.swapaxes(grid.ingress, 1, 2), grid.egress, grid.combined], axis=-1
+    )
+
+
+def _engine_table(engine: TorchPolicyEngine, cases: List[PortCase]) -> np.ndarray:
+    return _table_from_grid(engine.evaluate_grid(cases))
+
+
+def _first_divergence(got: np.ndarray, want: np.ndarray, cases, pods):
+    """(where, divergent cell count, (q, src, dst, component)) of the
+    first cell where two tables differ."""
+    bad = np.argwhere(got != want)
+    qi, si, di, ki = (int(x) for x in bad[0])
+    return (
+        f"case={cases[qi]} src={pods[si][:2]} dst={pods[di][:2]} "
+        f"component={('ingress', 'egress', 'combined')[ki]}"
+    ), bad.shape[0], (qi, si, di, ki)
+
+
+def run_seed(
+    seed: int,
+    *,
+    modes: Tuple[str, ...] = ("0", "1"),
+    check_counts: bool = True,
+    check_mesh: bool = True,
+    pair_samples: int = 16,
+    device=None,
+    mesh=None,
+) -> Dict:
+    """The per-seed differential gate (module docstring).  Returns check
+    stats; raises FuzzMismatch on any divergence.  check_mesh routes
+    every engine (tiered and tier-free, dense AND class-compressed)
+    through the ring schedule of the pod-axis mesh too
+    (evaluate_grid_sharded over `mesh`) and pins it bit-identical to the
+    same oracle table."""
+    from ..analysis.classes import audit_class_reduction
+    from ..linter.checks import lint as policy_lint
+
+    fc = build_fuzz_case(seed)
+    # the linter must process every generated NetworkPolicy set without
+    # crashing, adversarial shapes included; the census rides the report
+    lint_warnings = policy_lint(fc.netpols)
+    policy = build_network_policies(fc.simplify, fc.netpols)
+    want = _oracle_table(policy, fc.tiers, fc.pods, fc.namespaces, fc.cases)
+    n = len(fc.pods)
+    rng = random.Random(seed ^ 0x5EED)
+    pair_checks = 0
+    mesh_cells = 0
+    for mode in modes:
+        engine = TorchPolicyEngine(
+            policy, fc.pods, fc.namespaces, tiers=fc.tiers, class_compress=mode, device=device,
+        )
+        got = _engine_table(engine, fc.cases)
+        if not np.array_equal(got, want):
+            where, n_bad, (qi, si, di, ki) = _first_divergence(got, want, fc.cases, fc.pods)
+            raise FuzzMismatch(
+                f"seed {seed} (class_compress={mode}): engine diverges "
+                f"from the tiered oracle at {where}: "
+                f"engine={bool(got[qi, si, di, ki])} "
+                f"oracle={bool(want[qi, si, di, ki])} "
+                f"({n_bad} divergent cells)"
+            )
+        if check_mesh and n:
+            got_mesh = _table_from_grid(
+                engine.evaluate_grid_sharded(fc.cases, mesh=mesh, schedule="ring")
+            )
+            if not np.array_equal(got_mesh, want):
+                where, n_bad, _ = _first_divergence(got_mesh, want, fc.cases, fc.pods)
+                raise FuzzMismatch(
+                    f"seed {seed} (class_compress={mode}): the mesh's ring "
+                    f"diverges from the tiered oracle at {where} "
+                    f"({n_bad} divergent cells)"
+                )
+            mesh_cells += int(want.size // 3)
+        if check_counts:
+            sums = {
+                "ingress": int(want[..., 0].sum()),
+                "egress": int(want[..., 1].sum()),
+                "combined": int(want[..., 2].sum()),
+            }
+            counts = engine.evaluate_grid_counts(fc.cases, block=8)
+            got_counts = {k: counts[k] for k in sums}
+            if got_counts != sums:
+                raise FuzzMismatch(
+                    f"seed {seed} (class_compress={mode}): counts engine "
+                    f"{got_counts} != oracle sums {sums}"
+                )
+        if mode == "1":
+            # class-reduction soundness under the lattice: co-classed pods
+            # must be indistinguishable to the TIERED oracle
+            pc = engine.pod_classes()
+            if pc is not None:
+                res = audit_class_reduction(
+                    policy, fc.pods, fc.namespaces, fc.cases, pc,
+                    rng=random.Random(seed ^ 0xC1A5), tiers=fc.tiers,
+                )
+                if not res["ok"]:
+                    raise FuzzMismatch(
+                        f"seed {seed}: class-reduction audit found "
+                        f"{len(res['violations'])} violations under the "
+                        f"tiered oracle; first {res['violations'][0]}"
+                    )
+        if n and pair_samples:
+            pairs = [(rng.randrange(n), rng.randrange(n)) for _ in range(pair_samples)]
+            res = engine.evaluate_pairs(fc.cases, pairs)
+            for k, (si, di) in enumerate(pairs):
+                for qi in range(len(fc.cases)):
+                    got_p = tuple(bool(x) for x in res[k, qi])
+                    want_p = tuple(bool(x) for x in want[qi, si, di])
+                    if got_p != want_p:
+                        raise FuzzMismatch(
+                            f"seed {seed} (class_compress={mode}): "
+                            f"evaluate_pairs diverges at "
+                            f"case={fc.cases[qi]} src={fc.pods[si][:2]} "
+                            f"dst={fc.pods[di][:2]}: {got_p} != {want_p}"
+                        )
+                    pair_checks += 1
+    lint_by_check: Dict[str, int] = {}
+    for w in lint_warnings:
+        lint_by_check[w.check] = lint_by_check.get(w.check, 0) + 1
+    return {
+        "seed": seed,
+        "pods": n,
+        "tiered": fc.tiers is not None,
+        "cells": int(want.size // 3 * len(modes)),
+        "mesh_cells": mesh_cells,
+        "pair_checks": pair_checks,
+        "anp_count": 0 if fc.tiers is None else len(fc.tiers.anps),
+        "lint_warnings": len(lint_warnings),
+        "lint_warnings_by_check": lint_by_check,
+    }
+
+
 # --- adversarial CIDR family (TSS/LPM pre-classification gate) ------------
 #
 # The corner-case corpus the TSS stage (engine/cidrspace.py) must survive:
@@ -353,15 +569,11 @@ def build_fuzz_case(seed: int) -> FuzzCase:
 # excepts nested three deep, and v4/v6 mixes (v6 CIDRs and v4 blocks
 # with v6 excepts must route to the HOST columns, never the trie).
 # Every seed is pinned dense == class-compressed(bit signature) ==
-# class-compressed(TSS signature) == scalar oracle — grid and counts —
-# plus the mechanical signature bridge: per-spec membership recovered
-# from the partition signature (cidrspace.spec_membership_words) equals
-# the membership the dense mask-compare computes.
-
-
-class FuzzMismatch(AssertionError):
-    """The differential gate failed; the message carries the seed and
-    the first divergent cell for one-command reproduction."""
+# class-compressed(TSS signature) == scalar oracle — grid, counts and the
+# mesh's ring — plus the mechanical signature bridge: per-spec
+# membership recovered from the partition signature
+# (cidrspace.spec_membership_words) equals the membership the dense
+# mask-compare computes.
 
 
 def _cidr_fuzz_blocks(rng: random.Random) -> List[IPBlock]:
@@ -476,49 +688,35 @@ def build_cidr_fuzz_case(seed: int) -> FuzzCase:
     )
 
 
-def _table(grid: Dict[str, np.ndarray]) -> np.ndarray:
-    """[Q, src, dst, 3] bool (ingress, egress, combined) of a grid in
-    the GridVerdict layout (ingress [Q, dst, src])."""
-    return np.stack(
-        [np.swapaxes(grid["ingress"], 1, 2), grid["egress"], grid["combined"]],
-        axis=-1,
-    )
-
-
 def _assert_cidr_table(got, want, seed, label, fc) -> None:
     if not np.array_equal(got, want):
-        bad = np.argwhere(got != want)
-        qi, si, di, ki = (int(x) for x in bad[0])
+        where, n_bad, (qi, si, di, ki) = _first_divergence(got, want, fc.cases, fc.pods)
         raise FuzzMismatch(
             f"cidr seed {seed} ({label}): engine diverges from the "
-            f"oracle at case={fc.cases[qi]} src={fc.pods[si][:2]} "
-            f"dst={fc.pods[di][:2]} "
-            f"component={('ingress', 'egress', 'combined')[ki]}: "
+            f"oracle at {where}: "
             f"engine={bool(got[qi, si, di, ki])} "
             f"oracle={bool(want[qi, si, di, ki])} "
-            f"({bad.shape[0]} divergent cells)"
+            f"({n_bad} divergent cells)"
         )
 
 
-def run_cidr_seed(seed: int, *, check_counts: bool = True, device=None) -> Dict:
+def run_cidr_seed(
+    seed: int, *, check_mesh: bool = True, check_counts: bool = True, device=None, mesh=None
+) -> Dict:
     """The per-seed CIDR differential gate: dense, class-compressed with
     the per-spec bit signature, and class-compressed with the FORCED TSS
-    partition signature all bit-identical to the scalar oracle — grid
-    and counts — plus the TSS->bits membership bridge when the stage
-    engaged.  The engines run on `device` (None: the current CUDA
-    device).  The reference's mesh leg has no counterpart here (the
-    port has no mesh path)."""
-    from ..engine.api import TorchPolicyEngine
+    partition signature all bit-identical to the scalar oracle — grid,
+    counts, and (check_mesh) the ring schedule of the pod-axis mesh —
+    plus the TSS->bits membership bridge when the stage engaged."""
     from ..engine.cidrspace import dense_spec_membership, spec_membership_words
     from ..engine.encoding import pack_bool_words
-    from ..matcher.builder import build_network_policies
-    from ..oracle import oracle_grid
 
     fc = build_cidr_fuzz_case(seed)
     policy = build_network_policies(fc.simplify, fc.netpols)
-    want = _table(oracle_grid(policy, fc.pods, fc.namespaces, fc.cases))
+    want = _oracle_table(policy, None, fc.pods, fc.namespaces, fc.cases)
     n = len(fc.pods)
     cells = 0
+    mesh_cells = 0
     variants = (
         ("dense", {"class_compress": "0"}),
         ("classes-bit", {"class_compress": "1", "cidr_tss": "0"}),
@@ -527,17 +725,22 @@ def run_cidr_seed(seed: int, *, check_counts: bool = True, device=None) -> Dict:
     tss_active = False
     for label, kw in variants:
         engine = TorchPolicyEngine(policy, fc.pods, fc.namespaces, device=device, **kw)
-        g = engine.evaluate_grid(fc.cases)
-        got = _table({"ingress": g.ingress, "egress": g.egress, "combined": g.combined})
+        got = _engine_table(engine, fc.cases)
         _assert_cidr_table(got, want, seed, label, fc)
         cells += int(want.size // 3)
+        if check_mesh and n:
+            got_mesh = _table_from_grid(
+                engine.evaluate_grid_sharded(fc.cases, mesh=mesh, schedule="ring")
+            )
+            _assert_cidr_table(got_mesh, want, seed, f"{label}/mesh", fc)
+            mesh_cells += int(want.size // 3)
         if check_counts:
             sums = {
                 "ingress": int(want[..., 0].sum()),
                 "egress": int(want[..., 1].sum()),
                 "combined": int(want[..., 2].sum()),
             }
-            counts = engine.evaluate_grid_counts(fc.cases)
+            counts = engine.evaluate_grid_counts(fc.cases, block=8)
             got_counts = {k: counts[k] for k in sums}
             if got_counts != sums:
                 raise FuzzMismatch(
@@ -566,4 +769,94 @@ def run_cidr_seed(seed: int, *, check_counts: bool = True, device=None) -> Dict:
                         f"not reproduce the dense per-spec membership "
                         f"bits (LPM stage unsound for this spec set)"
                     )
-    return {"seed": seed, "pods": n, "cells": cells, "tss_active": tss_active}
+    return {
+        "seed": seed,
+        "pods": n,
+        "cells": cells,
+        "mesh_cells": mesh_cells,
+        "tss_active": tss_active,
+    }
+
+
+def run(
+    seeds: int = 8,
+    base_seed: int = 0,
+    *,
+    modes: Tuple[str, ...] = ("0", "1"),
+    check_counts: bool = True,
+    check_mesh: bool = True,
+    pair_samples: int = 16,
+    cidr_seeds: int = 0,
+    log=None,
+    device=None,
+    mesh=None,
+) -> FuzzReport:
+    """Run `seeds` consecutive seeds from `base_seed` (plus `cidr_seeds`
+    seeds of the adversarial CIDR family); raises FuzzMismatch on the
+    first divergence."""
+    report = FuzzReport()
+    for s in range(base_seed, base_seed + seeds):
+        r = run_seed(
+            s,
+            modes=modes,
+            check_counts=check_counts,
+            check_mesh=check_mesh,
+            pair_samples=pair_samples,
+            device=device,
+            mesh=mesh,
+        )
+        report.seeds.append(s)
+        report.cells_checked += r["cells"]
+        report.mesh_cells_checked += r["mesh_cells"]
+        report.pair_checks += r["pair_checks"]
+        report.tiered_seeds += int(r["tiered"])
+        report.lint_warnings += r["lint_warnings"]
+        for check, n_w in r["lint_warnings_by_check"].items():
+            report.lint_warnings_by_check[check] = (
+                report.lint_warnings_by_check.get(check, 0) + n_w
+            )
+        if log is not None:
+            log(
+                f"seed {s}: pods={r['pods']} anps={r['anp_count']} "
+                f"tiered={r['tiered']} cells={r['cells']} "
+                f"mesh={r['mesh_cells']} lint={r['lint_warnings']} OK"
+            )
+    for s in range(base_seed, base_seed + max(0, cidr_seeds)):
+        r = run_cidr_seed(
+            s, check_mesh=check_mesh, check_counts=check_counts, device=device, mesh=mesh
+        )
+        report.cidr_seeds.append(s)
+        report.cidr_cells_checked += r["cells"] + r["mesh_cells"]
+        if log is not None:
+            log(
+                f"cidr seed {s}: pods={r['pods']} cells={r['cells']} "
+                f"mesh={r['mesh_cells']} tss={r['tss_active']} OK"
+            )
+    return report
+
+
+def run_conformance(log=None, device=None) -> int:
+    """Run the generator's ANP/BANP conformance family through the same
+    differential gate; returns the case count."""
+    from ..generator.anp_cases import tier_cases
+
+    n_cases = 0
+    for tc in tier_cases():
+        pods, namespaces = tc.cluster()
+        policy = build_network_policies(True, tc.netpols)
+        want = _oracle_table(policy, tc.tiers, pods, namespaces, tc.cases)
+        for mode in ("0", "1"):
+            engine = TorchPolicyEngine(
+                policy, pods, namespaces, tiers=tc.tiers, class_compress=mode, device=device
+            )
+            got = _engine_table(engine, tc.cases)
+            if not np.array_equal(got, want):
+                where, _n_bad, _ = _first_divergence(got, want, tc.cases, pods)
+                raise FuzzMismatch(
+                    f"conformance case {tc.description!r} "
+                    f"(class_compress={mode}) diverges at {where}"
+                )
+        n_cases += 1
+        if log is not None:
+            log(f"conformance: {tc.description} OK")
+    return n_cases

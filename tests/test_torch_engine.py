@@ -298,7 +298,9 @@ class TestPortBoundaries:
             "       'cyclonus_tpu_torch.analysis.classes', 'cyclonus_tpu_torch.analysis.cluster',\n"
             "       'cyclonus_tpu_torch.analysis.diff', 'cyclonus_tpu_torch.analysis.oracle',\n"
             "       'cyclonus_tpu_torch.linter.checks', 'cyclonus_tpu_torch.utils.text',\n"
-            "       'cyclonus_tpu_torch.cli.analyze']\n"
+            "       'cyclonus_tpu_torch.cli.analyze', 'cyclonus_tpu_torch.engine.sharded',\n"
+            "       'cyclonus_tpu_torch.generator.anp_cases', 'cyclonus_tpu_torch.kube.pathological',\n"
+            "       'cyclonus_tpu_torch.cli.fuzz_cmd']\n"
             "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
             "print(len([m for m in sys.modules if m.startswith('cyclonus_tpu_torch')]))\n"
         )

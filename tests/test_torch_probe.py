@@ -222,7 +222,7 @@ class TestTables:
 
 class TestNoFallback:
     def test_engine_vocabulary(self):
-        assert port_runner.ENGINE_CHOICES == ["oracle", "cuda"]
+        assert port_runner.ENGINE_CHOICES == ["oracle", "cuda", "cuda-sharded"]
         assert port_runner.DEFAULT_ENGINE == "cuda"
         for engine in ("tpu", "tpu-sharded", "native"):
             with pytest.raises(ValueError):
@@ -235,6 +235,8 @@ class TestNoFallback:
             SimulatedJobRunner(policy)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             new_simulated_runner(policy, engine="cuda", device=None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SimulatedJobRunner(policy, engine="cuda-sharded")
         with pytest.raises(RuntimeError):
             SimulatedJobRunner(policy, device="cuda")
         # the interpreter's default config asks for the card too
