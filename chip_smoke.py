@@ -153,15 +153,36 @@ Phases, each raising on failure:
                 shards of the card) must exit 0, and `probe --engine
                 cuda-sharded` must print what `--engine cuda` prints.
                 Prints one {"mesh": ...} line a leg.  Logical shards share
-                the card: no scaling or overlap figure comes from them.
+                the card: no scaling or overlap figure comes from them;
+ 10. loopback — run right after `probe`, with the kernel launch counts
+                zeroed before it and read after it: the loopback cluster
+                (pods as processes on 127/8 answering real TCP and UDP
+                probes, kube/loopback.py) through the port's CLI, every
+                simulated table on the card: (a) `probe --loopback` on
+                the getting-started policies, TCP 80, zero differing
+                cells; (b) `generate --loopback --include conflict
+                --retries 0`, per-job exec and `--batch-jobs` (one worker
+                subprocess per source pod and step), 16/16 each, the
+                descriptions those of the reference's committed journal
+                in its order; (c) `analyze -A --mode probe` through the
+                recording kubectl of tests/fakekubectl.py on PATH, its
+                tables equal to the oracle engine's; (d) for (a) and four
+                conflict cases, a TorchPolicyEngine on the card over the
+                step's pods, namespaces and policy counts the step's port
+                cases on the packed plan (K1) and under CYCLONUS_PACK=0
+                (K4): each combined count equal to the allowed cells of
+                the real-socket table, each kernel launched.  Only a
+                refused bind of port 80 on 127/8 skips (a)-(c) (one
+                {"loopback": {"skipped": ...}} line; (d) then counts the
+                mock cluster's tables).  Prints one {"loopback": ...} line.
 
 Every comparison is exact.  Prints a JSON line of the probe phase, the
-cidr and analyze lines, the serve lines, the mesh lines, a JSON line of
+loopback line, the cidr and analyze lines, the serve lines, the mesh lines, a JSON line of
 the main path's
 end-to-end numbers (per route and dense-plan leg), a line of each
 phase's seconds, a JSON line of per-kernel numbers (with each kernel's
-launches on the serve path, on the CIDR legs and on the mesh's sharded
-calls), then as its last line
+launches on the serve path, on the CIDR legs, on the mesh's sharded
+calls and on the loopback phase), then as its last line
 {"ok": true, "device": {...}}.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  The port's CPU paths are covered by tests/test_torch_*.py.
@@ -727,13 +748,17 @@ PROBE_ORACLE_SAMPLE = 2000
 SIMPLE_EXAMPLE = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "examples", "networkpolicies", "simple-example"
 )
+#: the job runners that probe a cluster: per-job exec and in-pod batches
+KUBE_RUNNERS = ("KubeJobRunner", "KubeBatchJobRunner")
 
 
 @contextlib.contextmanager
-def probe_recorder():
+def probe_recorder(keep=False):
     """Every probe that Runner.run_probe_for_config runs while active, as
     the runner recorded it: the job runner's kind, the seconds split, and
-    for the simulated runner its engine and device."""
+    for the simulated runner its engine and device.  With `keep`, also the
+    table, the pods and namespaces it probed and the simulated runner's
+    policy."""
     from cyclonus_tpu_torch.probe import runner as pr
 
     records = []
@@ -745,6 +770,13 @@ def probe_recorder():
         rec = {"kind": type(jr).__name__, **self.seconds}
         if isinstance(jr, pr.SimulatedJobRunner):
             rec.update(engine=jr.engine, device=str(jr.device), **jr.seconds)
+        if keep:
+            rec.update(
+                probe_table=table,
+                policy=getattr(jr, "policies", None),
+                pods=[(p.namespace, p.name, dict(p.labels), p.ip) for p in resources.pods],
+                namespaces={k: dict(v) for k, v in resources.namespaces.items()},
+            )
         records.append(rec)
         return table
 
@@ -760,7 +792,7 @@ def probe_split(records, wall_s, engine="cuda"):
     check that each ran on `engine` (on the card for "cuda" and
     "cuda-sharded")."""
     sim = [r for r in records if r["kind"] == "SimulatedJobRunner"]
-    kube = [r for r in records if r["kind"] == "KubeJobRunner"]
+    kube = [r for r in records if r["kind"] in KUBE_RUNNERS]
     bad = [r for r in sim
            if r["engine"] != engine or (engine != "oracle") != r["device"].startswith("cuda")]
     if not sim or bad:
@@ -782,17 +814,20 @@ def probe_split(records, wall_s, engine="cuda"):
     }
 
 
-def run_cli(argv, engine="cuda"):
-    """(exit code, stdout, stage split) of one in-process CLI run."""
+def run_cli(argv, engine="cuda", keep=None):
+    """(exit code, stdout, stage split) of one in-process CLI run; a list
+    `keep` receives the run's probe records with their tables."""
     import io
 
     from cyclonus_tpu_torch.cli import main as cli_main
 
     out = io.StringIO()
     t0 = time.perf_counter()
-    with probe_recorder() as records, contextlib.redirect_stdout(out):
+    with probe_recorder(keep is not None) as records, contextlib.redirect_stdout(out):
         rc = cli_main(argv)
     split = probe_split(records, time.perf_counter() - t0, engine)
+    if keep is not None:
+        keep.extend(records)
     return rc, out.getvalue(), split
 
 
@@ -923,6 +958,245 @@ def phase_probe(device) -> None:
         f"{PROBE_ORACLE_SAMPLE} to the oracle; card {card_split['seconds']:.2f} s, "
         f"CPU engine {cpu_s:.2f} s, device busy {share}")
     log(json.dumps({"probe": out}))
+
+
+# --- the loopback cluster -----------------------------------------------------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GETTING_STARTED = os.path.join(HERE, "examples", "networkpolicies", "getting-started")
+#: the reference's committed journal of the 16 conflict cases on its
+#: loopback cluster: the descriptions, in order, that leg (b) must pass
+LOOPBACK_JOURNAL = os.path.join(HERE, "artifacts", "loopback-conformance-journal.jsonl")
+#: the conflict cases (indices into the 16) whose step leg (d) recounts on
+#: the engine: egress and ingress, by pod and by IP
+LOOPBACK_COUNT_CASES = (0, 5, 12, 15)
+#: one bind that the pod servers' ports need (root or CAP_NET_BIND_SERVICE)
+LOOPBACK_BIND = ("127.10.0.1", 80)
+
+
+def loopback_precondition():
+    """None when this process may bind port 80 on 127/8, else the errno
+    text: the one reason legs (a)-(c) may be skipped."""
+    import socket
+
+    s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    try:
+        s.bind(LOOPBACK_BIND)
+    except OSError as e:
+        return f"bind {LOOPBACK_BIND[0]}:{LOOPBACK_BIND[1]}: {e.strerror or e}"
+    finally:
+        s.close()
+    return None
+
+
+@contextlib.contextmanager
+def worker_batches():
+    """Counts the in-pod worker batches the loopback cluster runs while
+    active: each one `python -m cyclonus_tpu_torch.worker` subprocess."""
+    from cyclonus_tpu_torch.kube.loopback import LoopbackKubernetes
+
+    count = [0]
+    original = LoopbackKubernetes.execute_remote_command
+
+    def counted(self, namespace, pod, container, command):
+        if command and command[0] == "/worker":
+            count[0] += 1
+        return original(self, namespace, pod, container, command)
+
+    LoopbackKubernetes.execute_remote_command = counted
+    try:
+        yield count
+    finally:
+        LoopbackKubernetes.execute_remote_command = original
+
+
+def step_pairs(records, what):
+    """The (simulated, cluster) probe records of each step, in order: the
+    interpreter probes the simulated table, then the cluster once (no
+    retries)."""
+    sims, kubes = records[0::2], records[1::2]
+    kinds = [r["kind"] for r in records]
+    if (len(sims) != len(kubes) or any(r["kind"] != "SimulatedJobRunner" for r in sims)
+            or any(r["kind"] not in KUBE_RUNNERS for r in kubes)):
+        raise AssertionError(f"{what}: probes not in (simulated, cluster) pairs: {kinds}")
+    return list(zip(sims, kubes))
+
+
+def loopback_counts(device, sim, kube, label):
+    """Leg (d) for one step: the engine on `device` over the step's pods,
+    namespaces and policy counts the step's port cases on the packed plan
+    (K1) and under CYCLONUS_PACK=0 (K4); each combined count must equal
+    the allowed cells of the cluster's table, each cell count its jobs,
+    and on the card each kernel must have launched."""
+    from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine
+
+    table = kube["probe_table"]
+    results = [r for fr, to in table.wrapped.keys() for r in table.get(fr, to).job_results.values()]
+    keys = list(dict.fromkeys(
+        (r.job.resolved_port, r.job.resolved_port_name, r.job.protocol) for r in results
+    ))
+    cases = [PortCase(*k) for k in keys]
+    allowed = sum(r.combined == "allowed" for r in results)
+    out = {"jobs": len(results), "allowed": allowed, "cases": len(cases)}
+    for plan, pack, kernel in (("packed", "1", "packed_counts"), ("dense", "0", "dense_counts_1chunk")):
+        before = launch_counts()
+        with env(CYCLONUS_PACK=pack):
+            eng = TorchPolicyEngine(sim["policy"], sim["pods"], sim["namespaces"], device=device)
+            counts = eng.evaluate_grid_counts(cases)
+        moved = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        if counts["combined"] != allowed or counts["cells"] != len(results):
+            raise AssertionError(f"{label}, {plan} plan: counts {counts} against {allowed} "
+                                 f"allowed of {len(results)} cells in the cluster's table")
+        if device.type == "cuda" and moved.get(kernel, 0) < 1:
+            raise AssertionError(f"{label}, {plan} plan: {kernel} did not launch: {moved}")
+        out[plan] = {"counts": counts, "launches": moved}
+    return out
+
+
+def loopback_analyze():
+    """Leg (c): `analyze -A --mode probe` with its pods, namespaces and
+    policies from the recording kubectl of tests/fakekubectl.py on PATH,
+    the simulated probe on the card; its tables equal the oracle
+    engine's."""
+    from pathlib import Path
+
+    from cyclonus_tpu_torch.kube.yaml_io import load_policies_from_path, policy_to_dict
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from fakekubectl import FakeKubectl, pod_json
+
+    namespaces, pods = ["x", "y", "z"], ["a", "b", "c"]
+    policies = [policy_to_dict(p) for p in load_policies_from_path(SIMPLE_EXAMPLE)]
+    texts, calls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-kubectl-") as tmp:
+        for engine in ("cuda", "oracle"):
+            root = Path(tmp) / engine
+            root.mkdir()
+            fake = FakeKubectl(root)
+            fake.enqueue({"items": policies})
+            fake.enqueue({"items": [
+                pod_json(ns=ns, name=name, labels={"pod": name}, ip=f"10.7.{i}.{j + 1}")
+                for i, ns in enumerate(namespaces) for j, name in enumerate(pods)
+            ]})
+            fake.enqueue({"items": [{"metadata": {"name": ns, "labels": {"ns": ns}}}
+                                    for ns in namespaces]})
+            with env(PATH=f"{root}{os.pathsep}{os.environ.get('PATH', '')}"), \
+                    probe_recorder() as records:
+                rc, texts[engine] = analyze_cli(["-A", "--mode", "probe", "--engine", engine])
+            if rc != 0:
+                raise AssertionError(f"analyze -A --engine {engine}: exit {rc}")
+            calls[engine] = [c["argv"] for c in fake.calls()]
+            if engine == "cuda":
+                split = probe_split(records, 0.0)
+    if texts["cuda"] != texts["oracle"] or "Combined:" not in texts["cuda"]:
+        raise AssertionError("analyze -A: the card's tables differ from the oracle engine's")
+    if calls["cuda"] != [["get", "networkpolicy", "--all-namespaces", "-o", "json"],
+                         ["get", "pods", "--all-namespaces", "-o", "json"],
+                         ["get", "namespaces", "-o", "json"]] or calls["oracle"] != calls["cuda"]:
+        raise AssertionError(f"analyze -A: kubectl calls {calls}")
+    return {"cells_compared": len(namespaces) ** 2 * len(pods) ** 2, "kubectl_calls": len(calls["cuda"]),
+            "device": split["device"], "grid_s": split["grid_s"]}
+
+
+def phase_loopback(device):
+    """The loopback cluster (pods as processes on 127/8, real sockets)
+    through the port's CLI, every simulated table on the card: (a) `probe
+    --loopback`, (b) the 16 conflict cases in both exec modes, (c)
+    `analyze -A` through a recording kubectl, (d) the engine's counts
+    (K1, K4) against the real-socket tables.  Returns the kernel launches
+    of the phase, counted from zero."""
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+
+    pk.reset_launches()
+    dk.reset_launches()
+    out = {"card": card_info()}
+    legs_s = {}
+    skipped = loopback_precondition()
+    if skipped:
+        # (d) still runs, on the same pods and policies in the mock cluster
+        log(json.dumps({"loopback": {"skipped": skipped}}))
+        cluster = ["--mock", "--perfect-cni"]
+    else:
+        cluster = ["--loopback"]
+
+    # (a) the one-off probe of getting-started on TCP 80
+    t0 = time.perf_counter()
+    one_off = []
+    rc, text, split = run_cli(["probe"] + cluster + [
+        "--probe-port", "80", "--probe-protocol", "tcp", "--policy-path", GETTING_STARTED,
+        "--noisy"], keep=one_off)
+    (wrong, ignored, correct), steps = comparison_counts(text)
+    if rc != 0 or wrong or correct != 81 or steps != 1:
+        raise AssertionError(f"probe {cluster[0]}: rc {rc}, {wrong} wrong, {correct} correct")
+    legs_s["a_probe"] = time.perf_counter() - t0
+    out["cli_probe"] = {**split, "cells_compared": wrong + ignored + correct, "differing_cells": wrong}
+    log(f"probe {cluster[0]}: {correct} cells of the real-socket table equal to the card's, "
+        f"{legs_s['a_probe']:.2f} s")
+
+    # (b) the 16 conflict cases, per-job exec and in-pod batches
+    with open(LOOPBACK_JOURNAL) as f:
+        want = [json.loads(line)["description"] for line in f if line.strip()]
+    conflict = []
+    workers = 0
+    for mode in ("exec", "batch") if not skipped else ("exec",):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-loopback-") as tmp, \
+                worker_batches() as batches:
+            journal = os.path.join(tmp, "journal.jsonl")
+            rc, text, split = run_cli(
+                ["generate"] + cluster + ["--include", "conflict", "--retries", "0", "--journal", journal]
+                + (["--batch-jobs"] if mode == "batch" else []),
+                keep=conflict if mode == "exec" else None,
+            )
+            with open(journal) as f:
+                entries = [json.loads(line) for line in f if line.strip()]
+        (wrong, ignored, correct), steps = comparison_counts(text)
+        passed = sum(e["passed"] for e in entries)
+        if rc != 0 or passed != 16 or wrong or [e["description"] for e in entries] != want:
+            raise AssertionError(f"conflict cases ({mode}): rc {rc}, {passed}/{len(entries)} passed, "
+                                 f"{wrong} wrong cells, descriptions equal to the journal's: "
+                                 f"{[e['description'] for e in entries] == want}")
+        if mode == "batch" and batches[0] != 16 * 9:
+            raise AssertionError(f"conflict cases (batch): {batches[0]} worker batches, not 16 x 9")
+        workers += batches[0]
+        legs_s[f"b_conflict_{mode}"] = time.perf_counter() - t0
+        out[f"conflict_{mode}"] = {**split, "cases_run": len(entries), "cases_passed": passed,
+                                   "steps": steps, "cells_compared": wrong + ignored + correct,
+                                   "worker_subprocesses": batches[0]}
+        log(f"conflict cases ({mode}): {passed}/{len(entries)} passed over real sockets, "
+            f"{legs_s[f'b_conflict_{mode}']:.2f} s")
+
+    # (c) analyze -A through the recording kubectl
+    if not skipped:
+        t0 = time.perf_counter()
+        out["analyze_kube"] = loopback_analyze()
+        legs_s["c_analyze"] = time.perf_counter() - t0
+        log(f"analyze -A --mode probe: the card's tables equal the oracle engine's, "
+            f"{legs_s['c_analyze']:.2f} s")
+
+    # (d) the engine's counts against the real-socket tables
+    t0 = time.perf_counter()
+    pairs = step_pairs(one_off, "probe")
+    conflict_pairs = step_pairs(conflict, "conflict cases")
+    if len(conflict_pairs) != 16:
+        raise AssertionError(f"conflict cases: {len(conflict_pairs)} probed steps, not 16")
+    pairs += [conflict_pairs[i] for i in LOOPBACK_COUNT_CASES]
+    counts = [loopback_counts(device, sim, kube, f"step {i}") for i, (sim, kube) in enumerate(pairs)]
+    legs_s["d_counts"] = time.perf_counter() - t0
+    launches = launch_counts()
+    for kernel in ("packed_counts", "dense_counts_1chunk"):
+        if device.type == "cuda" and launches[kernel] < len(pairs):
+            raise AssertionError(f"loopback counts: {kernel} launched {launches[kernel]} times "
+                                 f"for {len(pairs)} steps")
+    out["counts"] = {"steps": counts, "cells_compared": sum(c["jobs"] for c in counts)}
+    log(f"loopback counts: {len(pairs)} steps, K1 and K4 combined counts equal to the "
+        f"real-socket tables' allowed cells, {legs_s['d_counts']:.2f} s")
+    out.update(legs_s=legs_s, worker_subprocesses=workers, launches=launches,
+               cases_run=sum(out[k]["cases_run"] for k in out if k.startswith("conflict_")),
+               cases_passed=sum(out[k]["cases_passed"] for k in out if k.startswith("conflict_")))
+    log(json.dumps({"loopback": out}))
+    return launches
 
 
 # --- the verdict service ----------------------------------------------------
@@ -2498,6 +2772,7 @@ def main() -> int:
     timed("dense_kernels", phase_dense_kernels)
     timed("truth_tables", phase_truth_tables)
     timed("probe", phase_probe)
+    loopback_launches = timed("loopback", phase_loopback)
     cidr_launches = timed("cidr_analyze", phase_cidr_analyze)
     # the steady-state settings of the run, and the slab autotune's winners
     # in a file of its own, gone with the run
@@ -2518,6 +2793,7 @@ def main() -> int:
         r["serve_launches"] = serve_launches.get(r["name"], 0)
         r["cidr_launches"] = cidr_launches.get(r["name"], 0)
         r["mesh_launches"] = mesh_launches.get(r["name"], 0)
+        r["loopback_launches"] = loopback_launches.get(r["name"], 0)
     log(json.dumps({"phase_s": phase_s, "total_s": time.perf_counter() - t0}))
     log(card_info())
     log(json.dumps({"kernels": records}))

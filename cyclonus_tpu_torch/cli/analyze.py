@@ -4,9 +4,8 @@ a copy of the reference package's cli/analyze.py on the port's engine).
 
 The audit, diff and probe modes run the engine on `--device` (default:
 the current CUDA device, and an error without one; "cpu" runs it on the
-CPU).  Policies come from files and the bundled examples: `-n` / `-A`
-read a live cluster through kubectl, which the port does not have, and
-exit with one line."""
+CPU).  Policies come from files, the bundled examples and, with `-n` /
+`-A`, a live cluster through kubectl (kube/kubectl.py)."""
 
 from __future__ import annotations
 
@@ -113,25 +112,50 @@ def _bool_action():
     return _B
 
 
-def _read_cluster(args) -> None:
-    """-n / -A read policies, pods and namespace labels from a live
-    cluster through kubectl (analyze.go:91-109), which is not ported:
-    exit with one line, as the other commands do without --mock."""
+def _read_cluster(args, want_pods: bool, want_ns_labels: bool):
+    """Kube-sourced inputs (RunAnalyzeCommand step 1, analyze.go:91-109):
+    policies — plus pods (query-target/probe) and namespace labels
+    (probe only) when a requested mode consumes them; fetching the whole
+    pod list for lint/explain would stall large clusters for nothing —
+    from the live cluster whenever -n/-A is given.  One deviation,
+    noted: with -n the reference leaves the namespace-label map empty
+    (only -A fills it, analyze.go:100-105), which silently breaks
+    namespace selectors in probe mode — here the named namespaces'
+    labels are fetched too."""
+    policies: List[NetworkPolicy] = []
+    kube_pods = []  # List[KubePod]
+    kube_namespaces = {}  # Dict[ns name, labels]
     if args.namespace and args.all_namespaces:
         # kubectl rejects this combination too
         raise SystemExit("--namespace and --all-namespaces are mutually exclusive")
     if args.namespace or args.all_namespaces:
-        raise SystemExit(
-            "error: -n/-A read a live cluster through kubectl, which is not "
-            "ported to cyclonus_tpu_torch yet; use --policy-path or "
-            "--use-example-policies"
-        )
+        from ..kube.kubectl import KubectlKubernetes
+
+        kube = KubectlKubernetes(args.context)
+        if args.all_namespaces:
+            policies.extend(kube.get_network_policies_all_namespaces())
+            if want_pods:
+                kube_pods.extend(kube.get_pods_all_namespaces())
+            if want_ns_labels:
+                for ns in kube.get_all_namespaces():
+                    kube_namespaces[ns.name] = ns.labels
+        else:
+            for ns in args.namespace:
+                policies.extend(kube.get_network_policies_in_namespace(ns))
+                if want_pods:
+                    kube_pods.extend(kube.get_pods_in_namespace(ns))
+                if want_ns_labels:
+                    kube_namespaces[ns] = kube.get_namespace(ns).labels
+    return policies, kube_pods, kube_namespaces
 
 
 def run_analyze(args) -> int:
     modes = args.mode or ["explain"]
-    _read_cluster(args)
-    kube_policies: List[NetworkPolicy] = []
+    want_pods = bool({"query-target", "probe"} & set(modes))
+    want_ns_labels = "probe" in modes  # only probe consumes ns labels
+    kube_policies, kube_pods, kube_namespaces = _read_cluster(
+        args, want_pods, want_ns_labels
+    )
     if args.policy_path:
         kube_policies = kube_policies + load_policies_from_path(args.policy_path)
     if args.use_example_policies:
@@ -154,11 +178,18 @@ def run_analyze(args) -> int:
         elif mode == "diff":
             _run_diff(policies, args)
         elif mode == "query-target":
-            _query_targets(policies, args.target_pod_path)
+            _query_targets(policies, args.target_pod_path, kube_pods)
         elif mode == "query-traffic":
             _query_traffic(policies, args.traffic_path)
         elif mode == "probe":
-            _synthetic_probe(policies, args.probe_path, args.engine, args.device)
+            _synthetic_probe(
+                policies,
+                args.probe_path,
+                args.engine,
+                kube_pods,
+                kube_namespaces,
+                device=args.device,
+            )
         else:
             raise ValueError(f"unrecognized mode {mode}")
     return 0
@@ -321,10 +352,14 @@ def _parse_table(policies: List[NetworkPolicy]) -> str:
     )
 
 
-def _query_targets(policies: Policy, pod_path: str) -> None:
-    """analyze.go:170-207, with pods from the JSON file only (the
-    live-cluster pods of -n/-A are not ported)."""
-    pods = []
+def _query_targets(policies: Policy, pod_path: str, kube_pods=()) -> None:
+    """analyze.go:170-207: kube-sourced pods first (when -n/-A gave us
+    any, analyze.go:133-140), then pods from the JSON file appended
+    (analyze.go:171-178) — the file is optional once a cluster supplies
+    pods."""
+    pods = [
+        {"Namespace": p.namespace, "Labels": p.labels} for p in kube_pods
+    ]
     if pod_path:
         with open(pod_path) as f:
             pods.extend(json.load(f))
@@ -367,57 +402,116 @@ def _query_traffic(policies: Policy, traffic_path: str) -> None:
 
 
 def _synthetic_probe(
-    policies: Policy, probe_path: str, engine: str, device=None
+    policies: Policy,
+    probe_path: str,
+    engine: str,
+    kube_pods=(),
+    kube_namespaces=None,
+    device=None,
 ) -> None:
     """analyze.go:232-299: simulated probes over a JSON cluster model
-    (--probe-path); `engine` on `device`.  The reference's kube path
-    (an all-available probe over the pods of -n/-A) is not ported."""
+    (when --probe-path is given) and/or an all-available probe over
+    probe.Resources built from live-cluster pods (when -n/-A sourced
+    any; ProbeSyntheticConnectivity's kube path, analyze.go:255-299 —
+    port-less containers and container-less pods are skipped with a
+    warning exactly like the reference).  The reference also runs the
+    kube path with zero pods, printing empty tables; here that case
+    raises instead, since it always signals a missing flag.  `engine`
+    runs on `device`."""
     from ..probe.pod import Container, Pod
     from ..probe.probeconfig import ProbeConfig
     from ..probe.resources import Resources
     from ..probe.runner import new_simulated_runner
 
-    if not probe_path:
+    if not probe_path and not kube_pods:
         raise ValueError(
             "probe mode needs a model: a JSON file (--probe-path) or a "
             "cluster source (-n/-A)"
         )
     runner = new_simulated_runner(policies, engine=engine, device=device)
-    with open(probe_path) as f:
-        config = json.load(f)
+    if probe_path:
+        with open(probe_path) as f:
+            config = json.load(f)
 
-    resources_json = config.get("Resources") or {}
-    pods = []
-    for p in resources_json.get("Pods") or []:
-        containers = [
-            Container(
-                name=c.get("Name", ""),
-                port=c["Port"],
-                protocol=c.get("Protocol", "TCP").upper(),
-                port_name=c.get("PortName", ""),
+        resources_json = config.get("Resources") or {}
+        pods = []
+        for p in resources_json.get("Pods") or []:
+            containers = [
+                Container(
+                    name=c.get("Name", ""),
+                    port=c["Port"],
+                    protocol=c.get("Protocol", "TCP").upper(),
+                    port_name=c.get("PortName", ""),
+                )
+                for c in p.get("Containers") or []
+            ]
+            pods.append(
+                Pod(
+                    namespace=p["Namespace"],
+                    name=p["Name"],
+                    labels=p.get("Labels") or {},
+                    ip=p.get("IP", ""),
+                    containers=containers,
+                )
             )
-            for c in p.get("Containers") or []
-        ]
-        pods.append(
-            Pod(
-                namespace=p["Namespace"],
-                name=p["Name"],
-                labels=p.get("Labels") or {},
-                ip=p.get("IP", ""),
-                containers=containers,
-            )
+        resources = Resources(
+            namespaces=resources_json.get("Namespaces") or {}, pods=pods
         )
-    resources = Resources(
-        namespaces=resources_json.get("Namespaces") or {}, pods=pods
-    )
 
-    for probe_spec in config.get("Probes") or []:
-        port = IntOrString(probe_spec["Port"])
-        protocol = probe_spec.get("Protocol", "TCP")
+        for probe_spec in config.get("Probes") or []:
+            port = IntOrString(probe_spec["Port"])
+            protocol = probe_spec.get("Protocol", "TCP")
+            table = runner.run_probe_for_config(
+                ProbeConfig.port_protocol_config(port, protocol), resources
+            )
+            print(f"probe on port {port.value}, protocol {protocol}")
+            print(f"Ingress:\n{table.render_ingress()}")
+            print(f"Egress:\n{table.render_egress()}")
+            print(f"Combined:\n{table.render_table()}\n\n")
+
+    if kube_pods:
+        import sys
+
+        pods = []
+        for kp in kube_pods:
+            containers = []
+            for c in kp.containers:
+                if not c.ports:
+                    print(
+                        f"skipping container {kp.namespace}/{kp.name}/"
+                        f"{c.name}, no ports available",
+                        file=sys.stderr,
+                    )
+                    continue
+                port = c.ports[0]
+                containers.append(
+                    Container(
+                        name=c.name,
+                        port=port.container_port,
+                        protocol=port.protocol,
+                        port_name=port.name,
+                    )
+                )
+            if not containers:
+                print(
+                    f"skipping pod {kp.namespace}/{kp.name}, no containers "
+                    f"available",
+                    file=sys.stderr,
+                )
+                continue
+            pods.append(
+                Pod(
+                    namespace=kp.namespace,
+                    name=kp.name,
+                    labels=kp.labels,
+                    ip=kp.pod_ip,
+                    containers=containers,
+                )
+            )
+        resources = Resources(namespaces=dict(kube_namespaces or {}), pods=pods)
         table = runner.run_probe_for_config(
-            ProbeConfig.port_protocol_config(port, protocol), resources
+            ProbeConfig.all_available_config(), resources
         )
-        print(f"probe on port {port.value}, protocol {protocol}")
         print(f"Ingress:\n{table.render_ingress()}")
         print(f"Egress:\n{table.render_egress()}")
         print(f"Combined:\n{table.render_table()}\n\n")

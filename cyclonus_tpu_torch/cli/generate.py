@@ -17,6 +17,13 @@ def setup_generate(sub) -> None:
     )
     cmd.add_argument("--mock", action="store_true", help="use an in-memory mock cluster")
     cmd.add_argument(
+        "--loopback",
+        action="store_true",
+        help="use the loopback cluster: pods as real processes on 127.x "
+        "addresses, probes as real TCP/UDP through the in-pod worker "
+        "(kube/loopback.py; SCTP unsupported and dropped)",
+    )
+    cmd.add_argument(
         "--perfect-cni",
         action="store_true",
         help="with --mock: emulate a policy-correct CNI (all cases should pass)",
@@ -29,6 +36,7 @@ def setup_generate(sub) -> None:
         help="override every test step's probe destination (generate.go"
         ":131-139); leave empty to keep per-case modes",
     )
+    cmd.add_argument("--context", default="", help="kube context")
     cmd.add_argument(
         "--server-namespace",
         "--namespace",  # the reference's generate spells it --namespace
@@ -64,6 +72,13 @@ def setup_generate(sub) -> None:
         "pass the literal value 'none' to run the full unfiltered suite)",
     )
     cmd.add_argument("--retries", type=int, default=1, help="kube probe retries")
+    cmd.add_argument(
+        "--perturbation-wait-seconds", type=int, default=5, help="wait after each perturbation"
+    )
+    cmd.add_argument(
+        "--pod-creation-timeout-seconds", type=int, default=60, help="pod creation timeout"
+    )
+    cmd.add_argument("--batch-jobs", action="store_true", help="use the in-pod batch worker")
     cmd.add_argument("--ignore-loopback", action="store_true", help="ignore loopback calls")
     cmd.add_argument("--noisy", action="store_true", help="print tables for every step")
     cmd.add_argument(
@@ -125,13 +140,36 @@ def run_generate(args) -> int:
     validate_tags(args.include)
     validate_tags(excluded)
 
-    from ._cluster import make_cluster
+    from ._cluster import close_cluster, make_cluster
 
-    kubernetes = make_cluster(args)
-    resources = Resources.new_default(kubernetes, namespaces, pods, ports, protocols)
+    kubernetes, protocols = make_cluster(args, protocols)
+    # pod servers (loopback subprocesses) exist from new_default onward;
+    # an exception mid-case must still close the cluster
+    try:
+        return _run_generate_cases(
+            args, kubernetes, namespaces, pods, ports, protocols, excluded
+        )
+    finally:
+        close_cluster(kubernetes)
+
+
+def _run_generate_cases(
+    args, kubernetes, namespaces, pods, ports, protocols, excluded
+) -> int:
+    from ._cluster import perturbation_wait_seconds
+
+    resources = Resources.new_default(
+        kubernetes,
+        namespaces,
+        pods,
+        ports,
+        protocols,
+        pod_creation_timeout_seconds=args.pod_creation_timeout_seconds,
+        batch_jobs=args.batch_jobs,
+    )
     print(f"resources:\n{resources.render_table()}")
 
-    if args.perfect_cni:
+    if args.mock and args.perfect_cni:
         from ..kube.mockcni import PolicyAwareMockExec
 
         kubernetes.exec_verdict_fn = PolicyAwareMockExec(kubernetes)
@@ -173,10 +211,11 @@ def run_generate(args) -> int:
         reset_cluster_before_test_case=True,
         verify_cluster_state_before_test_case=True,
         kube_probe_retries=args.retries,
-        # the mock cluster answers from memory: no settle wait
-        perturbation_wait_seconds=0,
+        perturbation_wait_seconds=perturbation_wait_seconds(args),
+        batch_jobs=args.batch_jobs,
         ignore_loopback=args.ignore_loopback,
         simulated_engine=args.engine,
+        pod_wait_timeout_seconds=args.pod_creation_timeout_seconds,
         device=args.device,
     )
     interpreter = Interpreter(kubernetes, resources, config)

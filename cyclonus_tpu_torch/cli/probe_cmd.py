@@ -23,9 +23,16 @@ def setup_probe(sub) -> None:
     cmd = sub.add_parser("probe", help="run a connectivity probe against a cluster")
     cmd.add_argument("--mock", action="store_true", help="use an in-memory mock cluster")
     cmd.add_argument(
+        "--loopback",
+        action="store_true",
+        help="use the loopback cluster: pods as real processes on 127.x "
+        "addresses, real TCP/UDP probes (kube/loopback.py; SCTP dropped)",
+    )
+    cmd.add_argument(
         "--perfect-cni", action="store_true",
         help="with --mock: emulate a policy-correct CNI",
     )
+    cmd.add_argument("--context", default="", help="kube context")
     cmd.add_argument(
         "-n",
         "--server-namespace",
@@ -72,6 +79,15 @@ def setup_probe(sub) -> None:
         "--engine", default=DEFAULT_ENGINE, choices=ENGINE_CHOICES, help="simulated engine"
     )
     cmd.add_argument(
+        "--pod-creation-timeout-seconds", type=int, default=60, help="pod creation timeout"
+    )
+    cmd.add_argument(
+        "--perturbation-wait-seconds",
+        type=int,
+        default=5,
+        help="wait after applying policies before probing (ignored with --mock)",
+    )
+    cmd.add_argument(
         "--device",
         default=None,
         help="torch device of the cuda engine (default: the current CUDA "
@@ -94,11 +110,29 @@ def run_probe(args) -> int:
     ports = args.server_port or [80, 81]
     protocols = [p.upper() for p in (args.server_protocol or ["TCP", "UDP", "SCTP"])]
 
-    from ._cluster import make_cluster
+    from ._cluster import close_cluster, make_cluster
 
-    kubernetes = make_cluster(args)
-    resources = Resources.new_default(kubernetes, namespaces, pods, ports, protocols)
-    if args.perfect_cni:
+    kubernetes, protocols = make_cluster(args, protocols)
+    # pod servers (loopback subprocesses) exist from new_default onward;
+    # an exception anywhere past this point must still close the cluster
+    try:
+        return _run_probe_cases(args, kubernetes, namespaces, pods, ports, protocols)
+    finally:
+        close_cluster(kubernetes)
+
+
+def _run_probe_cases(args, kubernetes, namespaces, pods, ports, protocols) -> int:
+    from ._cluster import perturbation_wait_seconds
+
+    resources = Resources.new_default(
+        kubernetes,
+        namespaces,
+        pods,
+        ports,
+        protocols,
+        pod_creation_timeout_seconds=args.pod_creation_timeout_seconds,
+    )
+    if args.mock and args.perfect_cni:
         from ..kube.mockcni import PolicyAwareMockExec
 
         kubernetes.exec_verdict_fn = PolicyAwareMockExec(kubernetes)
@@ -139,22 +173,24 @@ def run_probe(args) -> int:
                     )
                 )
 
-    # the mock cluster answers from memory: no settle wait after a change
-    interpreter = Interpreter(
-        kubernetes,
-        resources,
-        InterpreterConfig(
+    def make_config(wait_s):
+        return InterpreterConfig(
             kube_probe_retries=0,
-            perturbation_wait_seconds=0,
+            perturbation_wait_seconds=wait_s,
             simulated_engine=args.engine,
+            pod_wait_timeout_seconds=args.pod_creation_timeout_seconds,
             ignore_loopback=args.ignore_loopback,
             device=args.device,
-        ),
+        )
+
+    interpreter = Interpreter(
+        kubernetes, resources, make_config(perturbation_wait_seconds(args))
     )
+    # later cases only re-run the idempotent read (the creates applied in
+    # case 1 and would error on re-apply), so they need no settle wait
+    interpreter_settled = Interpreter(kubernetes, resources, make_config(0))
     printer = Printer(noisy=args.noisy, ignore_loopback=args.ignore_loopback)
     for i, (description, probe_config) in enumerate(probe_configs):
-        # later cases only re-run the idempotent read (the creates applied
-        # in case 1 and would error on re-apply)
         test_case = TestCase(
             description=description,
             tags=StringSet(),
@@ -165,5 +201,8 @@ def run_probe(args) -> int:
                 )
             ],
         )
-        printer.print_test_case_result(interpreter.execute_test_case(test_case))
+        result = (
+            interpreter if i == 0 else interpreter_settled
+        ).execute_test_case(test_case)
+        printer.print_test_case_result(result)
     return 0

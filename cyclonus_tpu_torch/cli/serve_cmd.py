@@ -1,12 +1,11 @@
 """`serve`: the long-running verdict service (cyclonus_tpu_torch/serve;
 the reference's cli/serve_cmd.py).
 
-Boot a cluster (policies from YAML plus a synthetic pod set), then answer
-a JSON-lines stream of Batch envelopes on stdin — Deltas patch the live
-engine on the device, Queries answer from it — one reply object per
-line, until EOF.  The reference's --synthesize-pods needs the analysis
-layer, which is not ported, and its --metrics-port HTTP surface is left
-out."""
+Boot a cluster (policies from YAML plus a synthesized or synthetic pod
+set), then answer a JSON-lines stream of Batch envelopes on stdin —
+Deltas patch the live engine on the device, Queries answer from it — one
+reply object per line, until EOF.  The reference's --metrics-port HTTP
+surface is left out."""
 
 from __future__ import annotations
 
@@ -37,7 +36,9 @@ def setup_serve(sub) -> None:
     cmd.add_argument(
         "--synthesize-pods",
         action="store_true",
-        help="not ported (needs the analysis layer): exits with an error",
+        help="synthesize an initial pod set exercising every policy-"
+        "referenced shape (analysis.synthesize_cluster) instead of "
+        "starting pod-less",
     )
     cmd.add_argument(
         "--synthetic-pods",
@@ -117,11 +118,6 @@ def run_serve(args) -> int:
     from ..serve import VerdictService, run_stdio
     from ..serve.service import prewarm_enabled
 
-    if args.synthesize_pods:
-        raise SystemExit(
-            "error: --synthesize-pods needs the analysis layer, which is "
-            "not ported to cyclonus_tpu_torch yet"
-        )
     policies = load_policies_from_path(args.policies) if args.policies else []
     tiers = None
     if args.anps:
@@ -133,6 +129,12 @@ def run_serve(args) -> int:
         pods, namespaces = synthetic_cluster(
             args.synthetic_pods, args.synthetic_namespaces, args.seed
         )
+    elif args.synthesize_pods and policies:
+        from ..analysis import synthesize_cluster
+        from ..matcher.builder import build_network_policies
+
+        compiled = build_network_policies(not args.no_simplify, policies)
+        pods, namespaces = synthesize_cluster(compiled)
     for p in policies:
         namespaces.setdefault(p.effective_namespace(), {})
     prewarm_on = not args.no_prewarm and prewarm_enabled()

@@ -14,7 +14,12 @@ from ..kube.ikubernetes import IKubernetes
 from ..matcher.builder import build_network_policies
 from ..probe.probeconfig import ProbeConfig
 from ..probe.resources import Resources
-from ..probe.runner import DEFAULT_ENGINE, new_kube_runner, new_simulated_runner
+from ..probe.runner import (
+    DEFAULT_ENGINE,
+    new_kube_batch_runner,
+    new_kube_runner,
+    new_simulated_runner,
+)
 from .comparison import COMPARISON_DIFFERENT
 from .result import Result
 from .state import TestCaseState
@@ -23,6 +28,7 @@ from .stepresult import StepResult
 logger = logging.getLogger(__name__)
 
 DEFAULT_WORKERS = 15
+DEFAULT_BATCH_WORKERS = 9  # 3 namespaces x 3 pods
 
 
 @dataclass
@@ -33,6 +39,7 @@ class InterpreterConfig:
     kube_probe_retries: int = 1
     perturbation_wait_seconds: int = 5
     verify_cluster_state_before_test_case: bool = False
+    batch_jobs: bool = False
     ignore_loopback: bool = False
     # new vs reference: which simulated engine to use, and the torch
     # device of the "cuda" engine (None = the current CUDA device, which
@@ -53,7 +60,10 @@ class Interpreter:
         self.kubernetes = kubernetes
         self.resources = resources
         self.config = config
-        self.kube_runner = new_kube_runner(kubernetes, DEFAULT_WORKERS)
+        if config.batch_jobs:
+            self.kube_runner = new_kube_batch_runner(kubernetes, DEFAULT_BATCH_WORKERS)
+        else:
+            self.kube_runner = new_kube_runner(kubernetes, DEFAULT_WORKERS)
 
     def execute_test_case(self, test_case: TestCase) -> Result:
         """interpreter.go:64-135."""

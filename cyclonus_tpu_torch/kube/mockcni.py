@@ -7,13 +7,15 @@ makes the full conformance loop meaningful clusterless: simulated tables
 must equal mock-kube tables on every step, or the framework itself is
 broken.
 
-Handles the exec shape the framework issues:
+Handles both exec shapes the framework issues:
   * /agnhost connect <host:port> --timeout=1s --protocol=<p>
+  * /worker --jobs <json-batch>   (the in-pod batch prober)
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import json
+from typing import List, Optional, Tuple, Union
 
 from ..matcher.builder import build_network_policies
 from ..matcher.core import InternalPeer, Policy, Traffic, TrafficPeer
@@ -127,7 +129,24 @@ class PolicyAwareMockExec:
 
     def __call__(
         self, namespace: str, pod: str, container: str, command: List[str]
-    ) -> bool:
+    ) -> Union[bool, Tuple[str, str, Optional[str]]]:
+        if command and command[0] == "/worker":
+            # batch prober: answer with the worker's JSON result protocol
+            from ..worker.model import Batch, Result
+
+            batch = Batch.from_json(command[command.index("--jobs") + 1])
+            results = []
+            for req in batch.requests:
+                ok = self._verdict(
+                    namespace, pod, req.host, req.port, req.protocol.upper()
+                )
+                results.append(
+                    Result(
+                        request=req, output="", error="" if ok else "blocked"
+                    ).to_dict()
+                )
+            return (json.dumps(results), "", None)
+
         # /agnhost connect host:port --timeout=1s --protocol=<p>
         address = command[2]
         host, port_str = address.rsplit(":", 1)

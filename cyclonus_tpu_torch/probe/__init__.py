@@ -27,8 +27,10 @@ from .runner import (
     Runner,
     SimulatedJobRunner,
     KubeJobRunner,
+    KubeBatchJobRunner,
     new_simulated_runner,
     new_kube_runner,
+    new_kube_batch_runner,
 )
 
 __all__ = [
@@ -55,6 +57,8 @@ __all__ = [
     "Runner",
     "SimulatedJobRunner",
     "KubeJobRunner",
+    "KubeBatchJobRunner",
     "new_simulated_runner",
     "new_kube_runner",
+    "new_kube_batch_runner",
 ]

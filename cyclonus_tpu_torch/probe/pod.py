@@ -21,7 +21,7 @@ from .probeconfig import (
     ProbeMode,
 )
 
-from ..images import AGNHOST_IMAGE  # noqa: F401  (re-export)
+from ..images import AGNHOST_IMAGE, WORKER_IMAGE  # noqa: F401  (re-export)
 
 
 @dataclass
@@ -33,19 +33,21 @@ class Container:
     port: int
     protocol: str
     port_name: str
+    batch_jobs: bool = False
 
     @staticmethod
-    def default(port: int, protocol: str) -> "Container":
+    def default(port: int, protocol: str, batch_jobs: bool = False) -> "Container":
         proto = protocol.lower()
         return Container(
             name=f"cont-{port}-{proto}",
             port=port,
             protocol=protocol,
             port_name=f"serve-{port}-{proto}",
+            batch_jobs=batch_jobs,
         )
 
     def image(self) -> str:
-        return AGNHOST_IMAGE
+        return WORKER_IMAGE if self.batch_jobs else AGNHOST_IMAGE
 
     def kube_container(self) -> KubeContainer:
         return KubeContainer(
@@ -85,11 +87,12 @@ class Pod:
         name: str,
         ports: List[int],
         protocols: List[str],
+        batch_jobs: bool = False,
     ) -> "Pod":
         """One container per port x protocol; labels {pod: name}
         (pod.go:28-42)."""
         containers = [
-            Container.default(port, protocol)
+            Container.default(port, protocol, batch_jobs)
             for port in ports
             for protocol in protocols
         ]

@@ -35,13 +35,14 @@ class Resources:
         ports: List[int],
         protocols: List[str],
         pod_creation_timeout_seconds: int = 60,
+        batch_jobs: bool = False,
     ) -> "Resources":
         """Create the ns x pod grid in the cluster, wait ready, harvest IPs
         (resources.go:21-46)."""
         r = Resources(
             namespaces={ns: {"ns": ns} for ns in namespaces},
             pods=[
-                Pod.default(ns, name, ports, protocols)
+                Pod.default(ns, name, ports, protocols, batch_jobs)
                 for ns in namespaces
                 for name in pod_names
             ],

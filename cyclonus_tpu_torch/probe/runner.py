@@ -9,7 +9,9 @@ tpu-sharded).  engine="oracle" keeps the scalar per-job evaluation, the
 reference behaviour (jobrunner.go:68-94).
 
 Kube runners stay host-side concurrency (they are I/O-bound cluster exec
-calls): a thread pool replaces the reference's 15-goroutine pool.
+calls): a thread pool replaces the reference's 15-goroutine pool, and
+the batch runner sends one in-pod worker batch per source pod from a
+pool of 9.
 """
 
 from __future__ import annotations
@@ -220,6 +222,60 @@ class KubeJobRunner(JobRunner):
         return CONNECTIVITY_ALLOWED
 
 
+class KubeBatchJobRunner(JobRunner):
+    """One in-pod worker batch per source pod (jobrunner.go:149-227)."""
+
+    def __init__(self, kubernetes: IKubernetes, workers: int = 9):
+        from ..worker.client import Client
+
+        self.client = Client(kubernetes)
+        self.workers = workers
+
+    def run_jobs(self, jobs: List[Job]) -> List[JobResult]:
+        from ..worker.model import Batch, Request
+
+        job_map: Dict[str, Job] = {}
+        batches: Dict[str, Batch] = {}
+        for job in jobs:
+            if job.from_key not in batches:
+                batches[job.from_key] = Batch(
+                    namespace=job.from_namespace,
+                    pod=job.from_pod,
+                    container=job.from_container,
+                )
+            batches[job.from_key].requests.append(
+                Request(
+                    key=job.key(),
+                    protocol=job.protocol,
+                    host=job.to_host,
+                    port=job.resolved_port,
+                )
+            )
+            job_map[job.key()] = job
+
+        results: List[JobResult] = []
+        if not batches:
+            return results
+        with ThreadPoolExecutor(max_workers=self.workers) as pool:
+            for batch_results in pool.map(self._run_batch, batches.values()):
+                for key, connectivity in batch_results:
+                    results.append(JobResult(job=job_map[key], combined=connectivity))
+        return results
+
+    def _run_batch(self, batch):
+        try:
+            results = self.client.batch(batch)
+        except KubeError:
+            return [(r.key, CONNECTIVITY_CHECK_FAILED) for r in batch.requests]
+        return [
+            (
+                r.request.key,
+                CONNECTIVITY_ALLOWED if r.is_success() else CONNECTIVITY_BLOCKED,
+            )
+            for r in results
+        ]
+
+
 def new_simulated_runner(
     policies: Policy, engine: str = DEFAULT_ENGINE, device=None
 ) -> Runner:
@@ -228,3 +284,7 @@ def new_simulated_runner(
 
 def new_kube_runner(kubernetes: IKubernetes, workers: int = 15) -> Runner:
     return Runner(KubeJobRunner(kubernetes, workers))
+
+
+def new_kube_batch_runner(kubernetes: IKubernetes, workers: int = 9) -> Runner:
+    return Runner(KubeBatchJobRunner(kubernetes, workers))

@@ -124,10 +124,22 @@ class TestModes:
 
 class TestErrors:
     @pytest.mark.parametrize("argv", [["-n", "x"], ["-A"], ["-n", "x", "-A"]])
-    def test_cluster_flags_exit_with_one_line(self, argv):
-        with pytest.raises(SystemExit) as e:
-            main(["analyze", "--mode", "explain"] + argv)
-        assert isinstance(e.value.code, str) and "\n" not in e.value.code
+    def test_cluster_flags_exit_with_one_line(self, argv, tmp_path, monkeypatch):
+        """-n / -A read the cluster through kubectl (ported; the reads
+        themselves: test_torch_cli_kube.py): without kubectl on PATH both
+        packages raise the same KubeError, and the two flags together exit
+        with the reference's one line."""
+        monkeypatch.setenv("PATH", str(tmp_path))  # nothing on PATH
+        got = []
+        for run in (main, ref_main):
+            with pytest.raises((SystemExit, Exception)) as e:
+                run(["analyze", "--mode", "explain"] + argv)
+            got.append((type(e.value).__name__, str(e.value)))
+        assert got[0] == got[1]
+        if "-A" in argv and "-n" in argv:
+            assert got[0] == ("SystemExit", "--namespace and --all-namespaces are mutually exclusive")
+        else:
+            assert got[0] == ("KubeError", "kubectl not found on PATH")
 
     @pytest.mark.parametrize("mode,needs", [("diff", "policy-path2"),
                                             ("query-traffic", "traffic file"),

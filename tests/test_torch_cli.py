@@ -2,7 +2,8 @@
 against the reference's (`python -m cyclonus_tpu`), on the CPU: the same
 arguments, plus `--device cpu`, print the same report and write the same
 journal.  Without a card and without `--device cpu` the commands raise,
-and a cluster other than `--mock` exits with one line."""
+and without `--mock` or `--loopback` they go to kubectl, as the
+reference's do (the loopback paths: test_torch_loopback.py)."""
 
 import json
 import os
@@ -91,10 +92,21 @@ class TestNoFallback:
             main(argv)
 
     @pytest.mark.parametrize("command", ["probe", "generate"])
-    def test_only_mock_cluster(self, command, capsys):
+    def test_only_mock_cluster(self, command, tmp_path, monkeypatch):
+        """Neither --mock nor --loopback names the kubectl cluster (now
+        ported, as the reference's), which needs kubectl on PATH: both
+        packages raise the same KubeError; --mock with --loopback exits
+        with the reference's one line."""
+        monkeypatch.setenv("PATH", str(tmp_path))  # nothing on PATH
+        errors = []
+        for fn, extra in ((main, ["--device", "cpu"]), (ref_main, [])):
+            with pytest.raises(Exception) as e:
+                fn([command] + extra)
+            errors.append((type(e.value).__name__, str(e.value)))
+        assert errors[0] == errors[1] == ("KubeError", "kubectl not found on PATH")
         with pytest.raises(SystemExit) as e:
-            main([command, "--device", "cpu"])
-        assert "kubectl and loopback clusters are not ported" in str(e.value)
+            main([command, "--mock", "--loopback", "--device", "cpu"])
+        assert str(e.value) == "--mock and --loopback are mutually exclusive"
 
 
 def test_module_entry_point():

@@ -300,7 +300,11 @@ class TestPortBoundaries:
             "       'cyclonus_tpu_torch.linter.checks', 'cyclonus_tpu_torch.utils.text',\n"
             "       'cyclonus_tpu_torch.cli.analyze', 'cyclonus_tpu_torch.engine.sharded',\n"
             "       'cyclonus_tpu_torch.generator.anp_cases', 'cyclonus_tpu_torch.kube.pathological',\n"
-            "       'cyclonus_tpu_torch.cli.fuzz_cmd']\n"
+            "       'cyclonus_tpu_torch.cli.fuzz_cmd', 'cyclonus_tpu_torch.utils.retry',\n"
+            "       'cyclonus_tpu_torch.utils.bounded', 'cyclonus_tpu_torch.worker.worker',\n"
+            "       'cyclonus_tpu_torch.worker.client', 'cyclonus_tpu_torch.worker.__main__',\n"
+            "       'cyclonus_tpu_torch.kube.kubectl', 'cyclonus_tpu_torch.kube.loopback',\n"
+            "       'cyclonus_tpu_torch.kube.loopback_server', 'cyclonus_tpu_torch.cli._cluster']\n"
             "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
             "print(len([m for m in sys.modules if m.startswith('cyclonus_tpu_torch')]))\n"
         )

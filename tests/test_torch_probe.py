@@ -19,6 +19,7 @@ from cyclonus_tpu.kube import MockKubernetes as RefMockKubernetes
 from cyclonus_tpu.kube.netpol import IntOrString as RefIntOrString
 from cyclonus_tpu.kube.yaml_io import load_policies_from_path, policy_to_dict
 from cyclonus_tpu.matcher import build_network_policies as ref_build
+from cyclonus_tpu.probe import Pod as RefPod
 from cyclonus_tpu.probe import ProbeConfig as RefProbeConfig
 from cyclonus_tpu.probe import Resources as RefResources
 from cyclonus_tpu.probe import new_simulated_runner as ref_new_simulated_runner
@@ -36,6 +37,7 @@ from cyclonus_tpu_torch.probe import (
     SimulatedJobRunner,
     new_simulated_runner,
 )
+from cyclonus_tpu_torch.probe import Pod as PortPod
 from cyclonus_tpu_torch.probe import runner as port_runner
 from cyclonus_tpu_torch.probe.probeconfig import PROBE_MODE_SERVICE_NAME
 
@@ -150,12 +152,18 @@ class TestJobFanOut:
         assert ref_res.namespaces == port_res.namespaces
 
         def pod_form(p):
-            # the port's Container has no batch_jobs field: the in-pod
-            # batch worker is not ported
-            containers = [(c.name, c.port, c.protocol, c.port_name, c.image()) for c in p.containers]
+            containers = [
+                (c.name, c.port, c.protocol, c.port_name, c.batch_jobs, c.image())
+                for c in p.containers
+            ]
             return (p.namespace, p.name, p.labels, p.ip, p.service_ip, containers)
 
         assert [pod_form(p) for p in ref_res.pods] == [pod_form(p) for p in port_res.pods]
+        # the in-pod batch worker's pods ask for the worker image
+        ref_pod = RefPod.default("x", "a", [80], ["TCP"], batch_jobs=True)
+        port_pod = PortPod.default("x", "a", [80], ["TCP"], batch_jobs=True)
+        assert pod_form(port_pod) == pod_form(ref_pod)
+        assert port_pod.containers[0].image() == "cyclonus-tpu-worker:latest"
         assert ref_res.render_table() == port_res.render_table()
 
 

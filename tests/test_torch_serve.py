@@ -14,6 +14,7 @@ loop's bytes, the `serve` CLI, and no fallback without a card.  The
 import dataclasses
 import io
 import json
+import os
 import random
 import subprocess
 import sys
@@ -641,10 +642,31 @@ class TestCli:
         assert reply["Epoch"] == 0 and reply["Verdicts"][0]["Combined"] is True
         assert "prewarmed the query path" in proc.stderr
 
-    def test_synthesize_pods_not_ported(self):
-        with pytest.raises(SystemExit) as e:
-            main(["serve", "--synthesize-pods", "--device", "cpu"])
-        assert "analysis layer" in str(e.value)
+    def test_synthesize_pods_not_ported(self, monkeypatch, capsys):
+        """--synthesize-pods (ported with the analysis layer) boots the
+        reference's synthesized cluster: the same pod count on stderr and
+        the same reply to a query between two of its pods (the whole
+        stream against the reference: test_torch_cli_kube.py)."""
+        from cyclonus_tpu_torch.analysis import synthesize_cluster
+        from cyclonus_tpu_torch.kube.yaml_io import load_policies_from_path
+        from cyclonus_tpu_torch.matcher import build_network_policies
+
+        path = os.path.join(REPO, "examples", "networkpolicies", "simple-example")
+        pods, _ = synthesize_cluster(build_network_policies(True, load_policies_from_path(path)))
+        key = f"{pods[0][0]}/{pods[0][1]}"
+        line = json.dumps({"Namespace": "", "Pod": "", "Container": "", "Queries": [
+            {"Src": key, "Dst": f"{pods[1][0]}/{pods[1][1]}", "Port": 80, "Protocol": "TCP"}]})
+        still = types.SimpleNamespace(perf_counter=lambda: 0.0, monotonic=lambda: 0.0)
+        monkeypatch.setattr(ref_service_mod, "time", still)
+        monkeypatch.setattr(service_mod, "time", still)
+        outs = []
+        argv = ["serve", "--synthesize-pods", "--policies", path, "--no-prewarm"]
+        for fn, extra in ((main, ["--device", "cpu"]), (ref_main, [])):
+            monkeypatch.setattr(sys, "stdin", io.StringIO(line + "\n"))
+            assert fn(argv + extra) == 0
+            outs.append(capsys.readouterr())
+        assert outs[0].out == outs[1].out
+        assert f"{len(pods)} pods" in outs[0].err and f"{len(pods)} pods" in outs[1].err
 
 
 class TestNoFallback:
