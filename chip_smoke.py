@@ -175,15 +175,41 @@ Phases, each raising on failure:
                 refused bind of port 80 on 127/8 skips (a)-(c) (one
                 {"loopback": {"skipped": ...}} line; (d) then counts the
                 mock cluster's tables).  Prints one {"loopback": ...} line.
+ 11. telemetry — run after `mesh`, the kernel launch counts zeroed before
+                it and read after it: (a) `generate --loopback
+                --batch-jobs --include conflict --max-cases 2 --metrics-port
+                0 --trace-out F --phase-stats` through the port's CLI on the
+                card: F must hold the driver's events and at least one
+                worker subprocess's under one trace id, `trace --input F`
+                must summarise it, and an in-process scrape of /metrics
+                must show cyclonus_tpu_probe_latency_seconds samples; (b)
+                on the headline cluster, 5 steady counts calls on each
+                route (packed: K1; class: K2; pack=False: K6 or K4 by the
+                autotune): the route's dispatch counter moves by 5, the
+                flight recorder holds 5 `ok` entries with the counts'
+                cells, the kernel traces rise on the first shape and stay
+                flat, the route's launches move by 5; then 5 rounds of a
+                call with telemetry off and one with it on, whose minima
+                must stay within 1.05 of each other; (c) a VerdictService
+                at the serve phase's 1,024-pod cluster behind register_http
+                on a metrics server at port 0: /readyz 503 before the
+                prewarm and 200 after, /state equal to state() outside the
+                volatile keys, 64 /query GETs with the verdicts of
+                svc.query, the query counter moved by 64; (d)
+                /profile?seconds=2 while a thread makes K1 steady calls:
+                200, its Chrome trace names packed_counts_kernel among the
+                device events, and a second /profile during the first gets
+                409.  Prints one {"telemetry": ...} line.
 
 Every comparison is exact.  Prints a JSON line of the probe phase, the
 loopback line, the cidr and analyze lines, the serve lines, the mesh lines, a JSON line of
 the main path's
-end-to-end numbers (per route and dense-plan leg), a line of each
-phase's seconds, a JSON line of per-kernel numbers (with each kernel's
-launches on the serve path, on the CIDR legs, on the mesh's sharded
-calls and on the loopback phase), then as its last line
-{"ok": true, "device": {...}}.
+end-to-end numbers (per route and dense-plan leg), the telemetry line, a
+line of each phase's seconds, a JSON line of per-kernel numbers (with
+each kernel's launches on the serve path, on the CIDR legs, on the
+mesh's sharded calls, on the loopback phase and on the telemetry
+phase), then as its last line {"ok": true, "device": {...}}.
+A crash dumps the flight recorder into the temporary directory.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  The port's CPU paths are covered by tests/test_torch_*.py.
 """
@@ -2744,6 +2770,354 @@ def phase_mesh(device, headline):
     return launches
 
 
+# --- telemetry ----------------------------------------------------------------
+
+#: state() keys that read a clock or a process-wide counter, or are the
+#: reference's blocks the port leaves out (tests/test_torch_serve.py VOLATILE)
+SERVE_VOLATILE = {"slo", "audit", "degraded_queries", "query_latency", "last_apply_s",
+                  "last_full_rebuild_s", "staleness_s"}
+#: steady counts calls each route of leg (b) is held over, the rounds of
+#: its on/off timing, and the budget of the on/off ratio of their minima
+TELEMETRY_CALLS = 5
+TELEMETRY_BUDGET = 1.05
+#: (b)'s routes: engine options, the flight path, the kernels it launches
+TELEMETRY_ROUTES = {
+    "packed": ({"class_compress": "0"}, "counts.pallas", ("packed_counts",)),
+    "class": ({}, "counts.classes", ("packed_rowsums",)),
+    "dense": ({"class_compress": "0", "pack": False}, "counts.pallas",
+              ("dense_counts_slab", "dense_counts_1chunk", "dense_counts_chunked")),
+}
+#: the /profile capture of leg (d), seconds
+PROFILE_SECONDS = 2
+
+
+def http_get(url, timeout=120):
+    """(status, body text) of one GET; error statuses read, not raised."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def metric_sample(text, prefix):
+    """The value of the exposition line that starts with `prefix`."""
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            return float(line.rsplit(" ", 1)[1])
+    raise AssertionError(f"no sample {prefix!r} in the scrape")
+
+
+def telemetry_timeline(tmp):
+    """(a) `generate --loopback --batch-jobs --include conflict --max-cases
+    2 --metrics-port 0 --trace-out F --phase-stats` through the port's CLI
+    on the card: F must hold the driver's events and those of at least one
+    worker subprocess under one trace id, `trace --input F` must summarise
+    it, and an in-process scrape of /metrics must show the batch probes'
+    latency histogram."""
+    from cyclonus_tpu_torch.cli import main as cli_main
+    from cyclonus_tpu_torch.telemetry import events
+    from cyclonus_tpu_torch.telemetry import server as tserver
+
+    skipped = loopback_precondition()
+    if skipped:
+        raise AssertionError(f"telemetry (a) needs the loopback cluster: {skipped}")
+    path = os.path.join(tmp, "timeline.json")
+    t0 = time.perf_counter()
+    try:
+        with worker_batches() as batches:
+            rc, text, split = run_cli([
+                "generate", "--loopback", "--batch-jobs", "--include", "conflict",
+                "--max-cases", "2", "--retries", "0", "--metrics-port", "0",
+                "--trace-out", path, "--phase-stats"])
+        status, scrape = http_get(tserver.active_server().url + "/metrics")
+    finally:
+        events.disable()
+        events.reset()
+        tserver.register_readiness(None)
+        tserver.stop_metrics_server()
+    seconds = time.perf_counter() - t0
+    (wrong, _ignored, correct), steps = comparison_counts(text)
+    if rc != 0 or wrong or "phase timers:" not in text or "engine.dispatch" not in text:
+        raise AssertionError(f"telemetry (a): rc {rc}, {wrong} wrong cells, phase stats "
+                             f"{'phase timers:' in text}")
+    with open(path) as f:
+        trace = json.load(f)
+    evts = [e for e in trace["traceEvents"] if e["ph"] != "M"]
+    roles = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"] if e["ph"] == "M"}
+    pids = sorted({e["pid"] for e in evts})
+    workers = [p for p, r in roles.items() if "worker" in r]
+    ids = trace["otherData"]["trace_ids"]
+    if len(ids) != 1 or len(pids) < 2 or not workers or os.getpid() not in pids:
+        raise AssertionError(f"telemetry (a): trace ids {ids}, pids {pids}, roles {roles}")
+    names = {e["name"] for e in evts}
+    for want in ("generate.run", "interpreter.case", "probe.simulated", "probe.kube_batch",
+                 "worker.batch", "worker.probe", "engine.dispatch"):
+        if want not in names:
+            raise AssertionError(f"telemetry (a): no {want} span in the trace")
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["trace", "--input", path])
+    summary = out.getvalue()
+    if rc != 0 or f"{len(pids)} process(es)" not in summary:
+        raise AssertionError(f"telemetry (a): trace --input: rc {rc}: {summary[:500]}")
+    latency = metric_sample(
+        scrape, 'cyclonus_tpu_probe_latency_seconds_count{source="batch",outcome="ok"}')
+    if status != 200 or latency <= 0:
+        raise AssertionError(f"telemetry (a): /metrics {status}, {latency} batch probe samples")
+    log(f"telemetry (a): {len(evts)} events of {len(pids)} processes under trace "
+        f"{ids[0]}, {correct} cells compared, {seconds:.2f} s")
+    return {"seconds": seconds, "cases": steps, "cells_compared": correct + wrong,
+            "worker_subprocesses": batches[0], "events": len(evts), "pids": len(pids),
+            "worker_pids": len(workers), "trace_id": ids[0],
+            "probe_latency_samples": latency, "split": split,
+            "summary_head": summary.splitlines()[0]}
+
+
+def kernel_traces():
+    from cyclonus_tpu_torch.telemetry import instruments as ti
+
+    return sum(s["value"] for s in ti.KERNEL_TRACES.snapshot()["samples"])
+
+
+def telemetry_counts(device, headline):
+    """(b) the counts routes at full width, telemetry on: on the headline
+    engine, three calls to reach the steady state, then TELEMETRY_CALLS
+    steady calls on each route (packed: K1; class: K2; pack=False: K6 or
+    K4 by the autotune).  The dispatch counter of the route's path must
+    move by exactly the calls, the flight recorder must hold one `ok` entry
+    a call with the counts' cells, the kernel traces must rise on the first
+    shape and stay flat after it, and the route's kernel launches must move
+    with the calls.  Then the on/off timing: TELEMETRY_CALLS rounds of one
+    call with telemetry off and one with it on, in alternating order; the
+    ratio of their minima must stay within TELEMETRY_BUDGET.  Returns (figures, the packed
+    engine for leg (d))."""
+    import torch
+
+    from cyclonus_tpu_torch import telemetry
+    from cyclonus_tpu_torch.engine import TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import build as kbuild
+    from cyclonus_tpu_torch.telemetry import instruments as ti
+
+    policy, pods, namespaces, cases, want = headline
+    # the shapes this process already ran count again, as in a fresh one
+    kbuild._TRACED.clear()
+    out, keep = {}, None
+    for name, (kw, path, kernels) in TELEMETRY_ROUTES.items():
+        t0 = time.perf_counter()
+        eng = TorchPolicyEngine(policy, pods, namespaces, device=device, **kw)
+        if (name == "class") != eng._class_counts_eligible(len(cases)):
+            raise AssertionError(f"telemetry (b) {name}: class route eligibility")
+        traces0 = kernel_traces()
+        for _ in range(3):
+            if eng.evaluate_grid_counts(cases) != want:
+                raise AssertionError(f"telemetry (b) {name}: counts != the main path's")
+        traces1 = kernel_traces()
+        dispatches0 = ti.EVAL_DISPATCHES.value(path=path)
+        seq0 = max([e["seq"] for e in telemetry.recorder.entries()], default=0)
+        launches0 = launch_counts()
+        for _ in range(TELEMETRY_CALLS):
+            if eng.evaluate_grid_counts(cases) != want:
+                raise AssertionError(f"telemetry (b) {name}: counts != the main path's")
+        dispatches = ti.EVAL_DISPATCHES.value(path=path) - dispatches0
+        flights = [e for e in telemetry.recorder.entries() if e["seq"] > seq0]
+        launches = {k: v - launches0[k] for k, v in launch_counts().items() if v != launches0[k]}
+        if dispatches != TELEMETRY_CALLS:
+            raise AssertionError(f"telemetry (b) {name}: {dispatches} dispatches of {path}")
+        if (len(flights) != TELEMETRY_CALLS
+                or any(e["path"] != path or e["outcome"] != "ok" or e["cells"] != want["cells"]
+                       for e in flights)):
+            raise AssertionError(f"telemetry (b) {name}: flight entries {flights}")
+        if not traces1 > traces0 or kernel_traces() != traces1:
+            raise AssertionError(f"telemetry (b) {name}: kernel traces {traces0} -> {traces1} "
+                                 f"-> {kernel_traces()}")
+        if sum(launches.get(k, 0) for k in kernels) != TELEMETRY_CALLS or set(launches) - set(kernels):
+            raise AssertionError(f"telemetry (b) {name}: launches {launches}")
+        times = {True: [], False: []}
+        for r in range(TELEMETRY_CALLS):
+            # alternate which side runs first, so neither gains by order
+            for on in ((False, True) if r % 2 == 0 else (True, False)):
+                telemetry.set_enabled(on)
+                try:
+                    t = time.perf_counter()
+                    got = eng.evaluate_grid_counts(cases)
+                    times[on].append(time.perf_counter() - t)
+                finally:
+                    telemetry.set_enabled(True)
+                if got != want:
+                    raise AssertionError(f"telemetry (b) {name}: counts != the main path's")
+        ratio = min(times[True]) / min(times[False])
+        out[name] = {
+            "path": path, "dispatches": dispatches, "flights": len(flights),
+            "flight_cells": flights[-1]["cells"], "flight_mode": flights[-1].get("mode"),
+            "kernel_traces": {"before": traces0, "after_warm": traces1,
+                              "after_steady": kernel_traces()},
+            "launches": launches, "on_s": times[True], "off_s": times[False],
+            "on_min_s": min(times[True]), "off_min_s": min(times[False]), "on_off": ratio,
+            "seconds": time.perf_counter() - t0,
+        }
+        log(f"telemetry (b) {name}: {dispatches} dispatches, {len(flights)} flights, "
+            f"launches {launches}, min on {1e3 * min(times[True]):.3f} ms / off "
+            f"{1e3 * min(times[False]):.3f} ms = {ratio:.4f}")
+        if ratio > TELEMETRY_BUDGET:
+            raise AssertionError(f"telemetry (b) {name}: on/off {ratio:.4f} > {TELEMETRY_BUDGET}")
+        if name == "packed":
+            keep = eng
+        else:
+            del eng
+        torch.cuda.empty_cache()
+    return out, keep
+
+
+def telemetry_serve(device, srv):
+    """(c) a VerdictService at the serve phase's 1,024-pod cluster on the
+    card, behind register_http on the metrics server `srv`: /readyz 503
+    before the prewarm and 200 after it, /state equal to svc.state()
+    outside the volatile keys, 64 /query GETs with the verdicts of
+    svc.query, and the query counter moved by 64."""
+    from urllib.parse import urlencode
+
+    from cyclonus_tpu_torch.serve import VerdictService
+    from cyclonus_tpu_torch.serve.service import register_http
+    from cyclonus_tpu_torch.synthetic import build_synthetic
+    from cyclonus_tpu_torch.telemetry import instruments as ti
+    from cyclonus_tpu_torch.telemetry import server as tserver
+
+    t0 = time.perf_counter()
+    rng = random.Random(SERVE_SEED)
+    pods, namespaces, policies = build_synthetic(SERVE_PODS, SERVE_POLICIES, rng)
+    svc = VerdictService(pods, namespaces, policies, device=device, defer_ready=True)
+    register_http(svc)
+    tserver.register_readiness(svc.readiness)
+    warming = http_get(srv.url + "/readyz")
+    svc.prewarm()
+    ready = http_get(srv.url + "/readyz")
+    if warming[0] != 503 or ready[0] != 200:
+        raise AssertionError(f"telemetry (c): /readyz {warming} then {ready}")
+    got = json.loads(http_get(srv.url + "/state")[1])
+    want = json.loads(json.dumps(svc.state(), default=str))
+    for st in (got, want):
+        for k in SERVE_VOLATILE:
+            st.pop(k, None)
+    if got != want:
+        raise AssertionError(f"telemetry (c): /state {got} != state() {want}")
+    qs = serve_queries(rng, list(svc.pods), 64)
+    expect = [(v.ingress, v.egress, v.combined, v.epoch) for v in svc.query(qs)]
+    queries0 = ti.SERVE_QUERIES.value()
+    answers = []
+    for q in qs:
+        status, body = http_get(srv.url + "/query?" + urlencode({
+            "src": q.src, "dst": q.dst, "port": q.port, "protocol": q.protocol,
+            "portName": q.port_name}))
+        v = json.loads(body)
+        if status != 200:
+            raise AssertionError(f"telemetry (c): /query {status}: {body}")
+        answers.append((v["Ingress"], v["Egress"], v["Combined"], v["Epoch"]))
+    moved = ti.SERVE_QUERIES.value() - queries0
+    if answers != expect or moved != len(qs):
+        raise AssertionError(f"telemetry (c): /query verdicts equal {answers == expect}, "
+                             f"queries counter moved {moved}")
+    tserver.register_readiness(None)
+    del svc
+    return {"seconds": time.perf_counter() - t0, "pods": SERVE_PODS, "policies": SERVE_POLICIES,
+            "readyz": [warming[0], ready[0]], "state_keys": len(got), "queries": len(qs),
+            "queries_counter": moved,
+            "allowed": sum(a[2] for a in answers)}
+
+
+def telemetry_profile(srv, eng, cases, want):
+    """(d) /profile?seconds=PROFILE_SECONDS while a thread makes K1 steady
+    calls on `eng`: 200, and its Chrome trace must name
+    packed_counts_kernel among the device events; a second /profile during
+    the first must get 409."""
+    import threading
+
+    from cyclonus_tpu_torch.telemetry import server as tserver
+
+    t0 = time.perf_counter()
+    stop, errors, calls = threading.Event(), [], [0]
+
+    def work():
+        try:
+            while not stop.is_set():
+                if eng.evaluate_grid_counts(cases) != want:
+                    errors.append("counts != the main path's")
+                calls[0] += 1
+        except Exception as e:  # reported below, the leg fails
+            errors.append(repr(e))
+
+    first = {}
+    worker = threading.Thread(target=work, daemon=True)
+    capture = threading.Thread(
+        target=lambda: first.update(r=http_get(f"{srv.url}/profile?seconds={PROFILE_SECONDS}")))
+    worker.start()
+    capture.start()
+    try:
+        for _ in range(3000):
+            if tserver._PROFILE_LOCK.locked() or not capture.is_alive():
+                break
+            time.sleep(0.01)
+        second = http_get(srv.url + "/profile?seconds=1")
+    finally:
+        capture.join()
+        stop.set()
+        worker.join()
+    status, body = first["r"]
+    if errors or status != 200 or second[0] != 409:
+        raise AssertionError(f"telemetry (d): {errors}, /profile {status} {body[:500]}, "
+                             f"second {second}")
+    with open(json.loads(body)["trace"]) as f:
+        trace = json.load(f)
+    kernels = sorted({e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"})
+    hits = [k for k in kernels if "packed_counts_kernel" in k]
+    if not hits:
+        raise AssertionError(f"telemetry (d): no packed_counts_kernel among the device "
+                             f"events {kernels[:20]}")
+    launched = sum(1 for e in trace["traceEvents"]
+                   if e.get("cat") == "kernel" and "packed_counts_kernel" in e["name"])
+    return {"seconds": time.perf_counter() - t0, "capture_s": PROFILE_SECONDS,
+            "status": status, "concurrent_status": second[0], "calls": calls[0],
+            "device_kernels": kernels, "packed_counts_kernel_events": launched,
+            "trace_events": len(trace["traceEvents"])}
+
+
+def phase_telemetry(device, headline):
+    """Telemetry on the card, legs (a)-(d), one {"telemetry": ...} line.
+    Returns the kernel launches of the phase, counted from zero."""
+    import torch
+
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.telemetry import server as tserver
+
+    _policy, _pods, _namespaces, cases, want = headline
+    pk.reset_launches()
+    dk.reset_launches()
+    out = {"card": card_info()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-telemetry-") as tmp:
+        out["a_timeline"] = telemetry_timeline(tmp)
+    out["b_counts"], eng = telemetry_counts(device, headline)
+    srv = tserver.start_metrics_server(0)
+    try:
+        out["c_serve"] = telemetry_serve(device, srv)
+        out["d_profile"] = telemetry_profile(srv, eng, cases, want)
+    finally:
+        for route in ("/state", "/query"):
+            tserver.unregister_route(route)
+        tserver.stop_metrics_server()
+    del eng
+    torch.cuda.empty_cache()
+    out["on_off"] = {k: v["on_off"] for k, v in out["b_counts"].items()}
+    out["launches"] = launch_counts()
+    log(json.dumps({"telemetry": out}))
+    return out["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2751,6 +3125,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     device = torch.device("cuda")
+    # a crash dumps the flight recorder into the temporary directory, never
+    # into the checkout's artifacts/
+    os.environ["CYCLONUS_FLIGHT_RECORDER_PATH"] = os.path.join(
+        tempfile.gettempdir(), f"chip_smoke-flight-recorder-{os.getpid()}.json")
 
     from cyclonus_tpu_torch.engine import build
 
@@ -2783,6 +3161,7 @@ def main() -> int:
         serve_launches, serve_counts = timed("serve", phase_serve)
         records, main_counts, headline = timed("main_path", phase_main_path)
         mesh_launches = timed("mesh", lambda device: phase_mesh(device, headline))
+        telemetry_launches = timed("telemetry", lambda device: phase_telemetry(device, headline))
     # the serve engine's counts of the headline cluster before its patch
     # are the main path's untiered counts of the same cluster
     if serve_counts != main_counts:
@@ -2794,6 +3173,7 @@ def main() -> int:
         r["cidr_launches"] = cidr_launches.get(r["name"], 0)
         r["mesh_launches"] = mesh_launches.get(r["name"], 0)
         r["loopback_launches"] = loopback_launches.get(r["name"], 0)
+        r["telemetry_launches"] = telemetry_launches.get(r["name"], 0)
     log(json.dumps({"phase_s": phase_s, "total_s": time.perf_counter() - t0}))
     log(card_info())
     log(json.dumps({"kernels": records}))

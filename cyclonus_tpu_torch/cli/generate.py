@@ -9,6 +9,7 @@ from ..generator.tags import validate_tags
 from ..probe.probeconfig import ALL_PROBE_MODES, ProbeMode
 from ..probe.resources import Resources
 from ..probe.runner import DEFAULT_ENGINE, ENGINE_CHOICES
+from .probe_cmd import add_telemetry_flags
 
 
 def setup_generate(sub) -> None:
@@ -113,6 +114,12 @@ def setup_generate(sub) -> None:
         action="store_true",
         help="skip test cases already recorded in --journal",
     )
+    cmd.add_argument(
+        "--phase-stats",
+        action="store_true",
+        help="print per-phase wall-clock timers at the end of the run",
+    )
+    add_telemetry_flags(cmd)
     cmd.set_defaults(func=run_generate)
 
 
@@ -123,6 +130,10 @@ def run_generate(args) -> int:
     if args.resume and not args.journal:
         # validate before any cluster resources get created
         raise SystemExit("--resume requires --journal")
+    from .probe_cmd import _mark_ready, _start_metrics, _start_trace
+
+    _start_metrics(args)
+    _start_trace(args)
     namespaces = args.server_namespace or ["x", "y", "z"]
     pods = args.server_pod or ["a", "b", "c"]
     ports = args.server_port or [80, 81]
@@ -143,6 +154,7 @@ def run_generate(args) -> int:
     from ._cluster import close_cluster, make_cluster
 
     kubernetes, protocols = make_cluster(args, protocols)
+    _mark_ready(args, "cluster up; generating")
     # pod servers (loopback subprocesses) exist from new_default onward;
     # an exception mid-case must still close the cluster
     try:
@@ -150,7 +162,14 @@ def run_generate(args) -> int:
             args, kubernetes, namespaces, pods, ports, protocols, excluded
         )
     finally:
-        close_cluster(kubernetes)
+        # trace first (the run's artifact survives a cleanup failure),
+        # cleanup guaranteed even if the write fails — see run_probe
+        from .probe_cmd import _write_trace
+
+        try:
+            _write_trace(args)
+        finally:
+            close_cluster(kubernetes)
 
 
 def _run_generate_cases(
@@ -229,30 +248,42 @@ def _run_generate_cases(
         if args.resume and journal.completed():
             print(f"resuming: {len(journal.completed())} case(s) already journaled")
 
+    from ..telemetry.spans import span
+    from ..utils.tracing import render_stats, torch_profile
+
     failed = 0
-    for i, tc in enumerate(cases):
-        # descriptions are not unique across cases; the index in the
-        # deterministic generated order disambiguates (see journal.py)
-        case_key = f"{i}:{tc.description}"
-        if journal is not None and args.resume and journal.should_skip(case_key):
-            print(f"skipping journaled test case #{i + 1} ({tc.description})")
-            continue
-        print(f"starting test case #{i + 1} ({tc.description})")
-        result = interpreter.execute_test_case(tc)
-        printer.print_test_case_result(result)
-        if not result.passed(args.ignore_loopback):
-            failed += 1
-        if journal is not None:
-            journal.record(
-                tc.description,
-                passed=result.passed(args.ignore_loopback),
-                step_count=len(result.steps),
-                tags=tc.tags.keys_sorted(),
-                error=str(result.err) if result.err else "",
-                key=case_key,
-            )
+    # generate.run is the timeline's root; interpreter.case / .step /
+    # .probe and the worker's spans all nest under it
+    with torch_profile(args.torch_profile), span(
+        "generate.run", cases=len(cases), engine=args.engine
+    ):
+        for i, tc in enumerate(cases):
+            # descriptions are not unique across cases; the index in the
+            # deterministic generated order disambiguates (see journal.py)
+            case_key = f"{i}:{tc.description}"
+            if journal is not None and args.resume and journal.should_skip(
+                case_key
+            ):
+                print(f"skipping journaled test case #{i + 1} ({tc.description})")
+                continue
+            print(f"starting test case #{i + 1} ({tc.description})")
+            result = interpreter.execute_test_case(tc)
+            printer.print_test_case_result(result)
+            if not result.passed(args.ignore_loopback):
+                failed += 1
+            if journal is not None:
+                journal.record(
+                    tc.description,
+                    passed=result.passed(args.ignore_loopback),
+                    step_count=len(result.steps),
+                    tags=tc.tags.keys_sorted(),
+                    error=str(result.err) if result.err else "",
+                    key=case_key,
+                )
 
     printer.print_summary()
+    if args.phase_stats:
+        print(f"\nphase timers:\n{render_stats()}")
 
     if args.cleanup_namespaces:
         for ns in namespaces:

@@ -19,6 +19,70 @@ from ..probe.resources import Resources
 from ..probe.runner import DEFAULT_ENGINE, ENGINE_CHOICES
 
 
+def _start_metrics(args) -> None:
+    """Shared --metrics-port hookup for probe/generate: a daemon
+    http.server thread serving the process-global telemetry registry.
+    Prints the BOUND port (port 0 is ephemeral — the OS picks), and a
+    taken port exits with one clean line instead of a traceback."""
+    if getattr(args, "metrics_port", None) is None:
+        return
+    from ..telemetry.server import MetricsPortBusy, start_metrics_server
+
+    try:
+        srv = start_metrics_server(args.metrics_port)
+    except MetricsPortBusy as e:
+        raise SystemExit(f"error: {e}")
+    # honest readiness from the first bind: /healthz says the process
+    # is alive, /readyz says "starting" until the command's own setup
+    # (cluster build, backend probe) completes and _mark_ready flips it
+    from ..telemetry.server import register_readiness
+
+    ready = {"v": False, "detail": "starting: cluster/backend setup in progress"}
+    args._readiness = ready
+    register_readiness(lambda: (ready["v"], ready["detail"]))
+    print(f"telemetry: metrics on {srv.url}/metrics (port {srv.port})")
+
+
+def _mark_ready(args, detail: str) -> None:
+    """Flip the /readyz answer registered by _start_metrics (no-op when
+    no metrics server was requested)."""
+    r = getattr(args, "_readiness", None)
+    if r is not None:
+        r["v"] = True
+        r["detail"] = detail
+
+
+def _start_trace(args) -> None:
+    """Shared --trace-out hookup for probe/generate: start recording
+    span enter/exit events under a fresh trace id (the worker side joins
+    it through the batch wire context)."""
+    if not getattr(args, "trace_out", ""):
+        return
+    from ..telemetry import events, state
+
+    if not state.ENABLED:
+        print(
+            "trace: telemetry is disabled (CYCLONUS_TELEMETRY=0) — "
+            "--trace-out will record an empty timeline"
+        )
+    tid = events.enable()
+    print(f"trace: recording timeline (trace_id {tid})")
+
+
+def _write_trace(args) -> None:
+    """Write the merged driver+worker timeline at exit (Chrome
+    trace-event JSON — open in https://ui.perfetto.dev)."""
+    if not getattr(args, "trace_out", ""):
+        return
+    from ..telemetry import trace_export
+
+    path = trace_export.write_chrome_trace(args.trace_out)
+    print(
+        f"trace: wrote {path} "
+        "(load in https://ui.perfetto.dev or chrome://tracing)"
+    )
+
+
 def setup_probe(sub) -> None:
     cmd = sub.add_parser("probe", help="run a connectivity probe against a cluster")
     cmd.add_argument("--mock", action="store_true", help="use an in-memory mock cluster")
@@ -101,24 +165,67 @@ def setup_probe(sub) -> None:
         action="store_true",
         help="ignore loopback cells in correctness verification",
     )
+    add_telemetry_flags(cmd)
     cmd.set_defaults(func=run_probe)
 
 
+def add_telemetry_flags(cmd) -> None:
+    """--metrics-port, --trace-out and the --torch-profile / --trace-dir
+    pair, shared by probe and generate."""
+    cmd.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        metavar="PORT",
+        help="serve Prometheus /metrics (+ /telemetry.json, /profile) on "
+        "127.0.0.1:PORT for the run (0 = ephemeral port)",
+    )
+    cmd.add_argument(
+        "--trace-out",
+        default="",
+        metavar="PATH",
+        help="record span enter/exit events and write the merged "
+        "driver+worker timeline as Chrome trace-event JSON to PATH at "
+        "exit (open in Perfetto / chrome://tracing)",
+    )
+    cmd.add_argument(
+        "--torch-profile",
+        "--trace-dir",
+        dest="torch_profile",
+        default="",
+        metavar="DIR",
+        help="write a torch.profiler Chrome trace of the run (CPU activity, "
+        "plus CUDA on the card) to DIR/torch-profile.trace.json",
+    )
+
+
 def run_probe(args) -> int:
+    _start_metrics(args)
+    _start_trace(args)
     namespaces = args.server_namespace or ["x", "y", "z"]
     pods = args.server_pod or ["a", "b", "c"]
     ports = args.server_port or [80, 81]
     protocols = [p.upper() for p in (args.server_protocol or ["TCP", "UDP", "SCTP"])]
 
+    from ..utils.tracing import torch_profile
     from ._cluster import close_cluster, make_cluster
 
     kubernetes, protocols = make_cluster(args, protocols)
+    _mark_ready(args, "cluster up; probing")
     # pod servers (loopback subprocesses) exist from new_default onward;
     # an exception anywhere past this point must still close the cluster
     try:
-        return _run_probe_cases(args, kubernetes, namespaces, pods, ports, protocols)
+        with torch_profile(args.torch_profile):
+            return _run_probe_cases(args, kubernetes, namespaces, pods, ports, protocols)
     finally:
-        close_cluster(kubernetes)
+        # the trace is written FIRST: it is the artifact the user asked
+        # for and is most valuable exactly when the run ended abnormally
+        # — a cleanup failure must not discard it (and a failed write
+        # must not skip cleanup)
+        try:
+            _write_trace(args)
+        finally:
+            close_cluster(kubernetes)
 
 
 def _run_probe_cases(args, kubernetes, namespaces, pods, ports, protocols) -> int:
@@ -190,19 +297,23 @@ def _run_probe_cases(args, kubernetes, namespaces, pods, ports, protocols) -> in
     # case 1 and would error on re-apply), so they need no settle wait
     interpreter_settled = Interpreter(kubernetes, resources, make_config(0))
     printer = Printer(noisy=args.noisy, ignore_loopback=args.ignore_loopback)
-    for i, (description, probe_config) in enumerate(probe_configs):
-        test_case = TestCase(
-            description=description,
-            tags=StringSet(),
-            steps=[
-                TestStep(
-                    probe=probe_config,
-                    actions=[read] + creates if i == 0 else [read],
-                )
-            ],
-        )
-        result = (
-            interpreter if i == 0 else interpreter_settled
-        ).execute_test_case(test_case)
-        printer.print_test_case_result(result)
+    from ..telemetry.spans import span
+
+    # the timeline's root: every case/step/probe span nests under it
+    with span("probe.run", configs=len(probe_configs), engine=args.engine):
+        for i, (description, probe_config) in enumerate(probe_configs):
+            test_case = TestCase(
+                description=description,
+                tags=StringSet(),
+                steps=[
+                    TestStep(
+                        probe=probe_config,
+                        actions=[read] + creates if i == 0 else [read],
+                    )
+                ],
+            )
+            result = (
+                interpreter if i == 0 else interpreter_settled
+            ).execute_test_case(test_case)
+            printer.print_test_case_result(result)
     return 0

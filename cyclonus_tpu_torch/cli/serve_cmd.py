@@ -4,8 +4,9 @@ the reference's cli/serve_cmd.py).
 Boot a cluster (policies from YAML plus a synthesized or synthetic pod
 set), then answer a JSON-lines stream of Batch envelopes on stdin —
 Deltas patch the live engine on the device, Queries answer from it — one
-reply object per line, until EOF.  The reference's --metrics-port HTTP
-surface is left out."""
+reply object per line, until EOF.  With --metrics-port, /state and /query
+make the engine curl-able alongside /metrics, and /readyz answers 503
+while the prewarm runs."""
 
 from __future__ import annotations
 
@@ -75,6 +76,14 @@ def setup_serve(sub) -> None:
         help="exit after N input lines (smoke tests)",
     )
     cmd.add_argument(
+        "--metrics-port",
+        type=int,
+        default=None,
+        metavar="PORT",
+        help="serve /metrics plus the serve-specific /state and /query "
+        "on 127.0.0.1:PORT (0 = ephemeral; bound port printed)",
+    )
+    cmd.add_argument(
         "--no-prewarm",
         action="store_true",
         help="skip the startup prewarm of the query path.  "
@@ -116,7 +125,8 @@ def synthetic_cluster(n_pods: int, n_ns: int, seed: int):
 def run_serve(args) -> int:
     from ..kube.yaml_io import load_policies_from_path
     from ..serve import VerdictService, run_stdio
-    from ..serve.service import prewarm_enabled
+    from ..serve.service import prewarm_enabled, register_http
+    from ..telemetry.server import MetricsPortBusy, start_metrics_server
 
     policies = load_policies_from_path(args.policies) if args.policies else []
     tiers = None
@@ -148,6 +158,25 @@ def run_serve(args) -> int:
         defer_ready=prewarm_on,
         device=args.device,
     )
+    if args.metrics_port is not None:
+        try:
+            srv = start_metrics_server(args.metrics_port)
+        except MetricsPortBusy as e:
+            raise SystemExit(f"error: {e}")
+        register_http(service)
+        # readiness rides /readyz from here on: while the prewarm below
+        # runs, a router probing /readyz sees 503 warming (and /query
+        # answers degraded from the scalar oracle); /healthz stays pure
+        # liveness
+        from ..telemetry.server import register_readiness
+
+        register_readiness(service.readiness)
+        print(
+            f"serve: metrics on {srv.url}/metrics, state on "
+            f"{srv.url}/state, queries on {srv.url}/query, readiness "
+            f"on {srv.url}/readyz (port {srv.port})",
+            file=sys.stderr,
+        )
     if prewarm_on:
         pw = service.prewarm()
         print(

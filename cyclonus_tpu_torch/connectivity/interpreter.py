@@ -20,6 +20,7 @@ from ..probe.runner import (
     new_kube_runner,
     new_simulated_runner,
 )
+from ..telemetry.spans import span
 from .comparison import COMPARISON_DIFFERENT
 from .result import Result
 from .state import TestCaseState
@@ -84,22 +85,35 @@ class Interpreter:
             result.err = e
             return result
 
-        for step_index, step in enumerate(test_case.steps):
-            for action_index, action in enumerate(step.actions):
-                try:
-                    self._apply_action(state, action)
-                except Exception as e:
-                    logger.error(
-                        "action failed at step %d, action %d: %s",
-                        step_index,
-                        action_index,
-                        e,
-                    )
-                    result.err = e
-                    return result
-            if self.config.perturbation_wait_seconds > 0:
-                time.sleep(self.config.perturbation_wait_seconds)
-            result.steps.append(self._run_probe(state, step.probe))
+        with span(
+            "interpreter.case",
+            description=test_case.description,
+            steps=len(test_case.steps),
+        ):
+            for step_index, step in enumerate(test_case.steps):
+                # per-step annotation: on a trace timeline the case span
+                # divides into its steps (actions + settle wait + probe),
+                # so a 216-case conformance run stays navigable
+                with span(
+                    "interpreter.step",
+                    step=step_index,
+                    actions=len(step.actions),
+                ):
+                    for action_index, action in enumerate(step.actions):
+                        try:
+                            self._apply_action(state, action)
+                        except Exception as e:
+                            logger.error(
+                                "action failed at step %d, action %d: %s",
+                                step_index,
+                                action_index,
+                                e,
+                            )
+                            result.err = e
+                            return result
+                    if self.config.perturbation_wait_seconds > 0:
+                        time.sleep(self.config.perturbation_wait_seconds)
+                    result.steps.append(self._run_probe(state, step.probe))
         return result
 
     def _apply_action(self, state: TestCaseState, action) -> None:
@@ -147,20 +161,27 @@ class Interpreter:
         sim_runner = new_simulated_runner(
             parsed_policy, engine=self.config.simulated_engine, device=self.config.device
         )
-        step_result = StepResult(
-            simulated_probe=sim_runner.run_probe_for_config(
-                probe_config, state.resources
-            ),
-            policy=parsed_policy,
-            kube_policies=list(state.policies),
-        )
-        for _try in range(self.config.kube_probe_retries + 1):
-            step_result.add_kube_probe(
-                self.kube_runner.run_probe_for_config(probe_config, state.resources)
+        with span(
+            "interpreter.probe",
+            engine=self.config.simulated_engine,
+            policies=len(state.policies),
+            pods=len(state.resources.pods),
+        ) as s:
+            step_result = StepResult(
+                simulated_probe=sim_runner.run_probe_for_config(
+                    probe_config, state.resources
+                ),
+                policy=parsed_policy,
+                kube_policies=list(state.policies),
             )
-            counts = step_result.last_comparison().value_counts(
-                self.config.ignore_loopback
-            )
-            if counts[COMPARISON_DIFFERENT] == 0:
-                break
+            for _try in range(self.config.kube_probe_retries + 1):
+                step_result.add_kube_probe(
+                    self.kube_runner.run_probe_for_config(probe_config, state.resources)
+                )
+                counts = step_result.last_comparison().value_counts(
+                    self.config.ignore_loopback
+                )
+                if counts[COMPARISON_DIFFERENT] == 0:
+                    break
+            s.set(kube_tries=len(step_result.kube_probes))
         return step_result

@@ -77,6 +77,19 @@ that a patch moved no untouched leaf.
 The reference's packed tile autotune, AOT cache and plan recording are
 compile machinery that change no result; the port has one tile shape per
 kernel and nothing to compile ahead.
+
+Telemetry (cyclonus_tpu_torch/telemetry) hooks in at the reference's
+steps with the reference's names: the spans engine.encode (with
+engine.compact, engine.partition, engine.classify nested),
+engine.device_put, engine.slab_plan, engine.autotune, engine.dispatch,
+engine.execute, engine.dispatch_sharded and grid.fetch; one eval_flight
+per evaluation (paths grid, grid.classes, pairs, counts.pallas, and the
+tile loop's and the mesh's in tiled.py and sharded.py); the cache,
+class, slab and autotune instruments.  Every hook is host-side: the
+flight of a counts call ends at the call's own readback, and a grid's
+flight times the enqueue only (dispatch_only).  The reference's steps
+that the port does not have (the unpack program, AOT adoption, program
+compiles) have no phase.
 """
 
 from __future__ import annotations
@@ -92,6 +105,8 @@ import torch
 from .. import carry
 from ..carry import resolve_device
 from ..matcher.core import Policy
+from ..telemetry import instruments as ti
+from ..utils.tracing import phase
 from . import autotune, cidrspace, dense_kernel, host, sharded, tiled
 from .encoding import (
     PEER_IP,
@@ -172,7 +187,10 @@ class GridVerdict:
 
     def _materialize(self, name: str) -> np.ndarray:
         if name not in self._np:
-            self._np[name] = getattr(self, name + "_dev").cpu().numpy()
+            # the copy waits for the device: it absorbs whatever of the
+            # grid's execution the dispatch left running (engine.dispatch)
+            with phase("grid.fetch"):
+                self._np[name] = getattr(self, name + "_dev").cpu().numpy()
         return self._np[name]
 
     @property
@@ -268,6 +286,30 @@ class TorchPolicyEngine:
         self.tiers = tiers if tiers else None
         if self.tiers is not None:
             self.tiers.validate()
+        with phase("engine.encode"):
+            # the compaction-time selector pass, reused by the slab plan
+            self._selpod_prebucket = self._build(
+                policy, pods, namespaces, compact, class_compress, pack, slab
+            )
+        cluster = self.encoding.cluster
+        self._has_ip_peers = bool(
+            np.any(self.encoding.ingress.peer_kind == PEER_IP)
+            or np.any(self.encoding.egress.peer_kind == PEER_IP)
+        )
+        # pod_ip_valid=True already proves parseability, so only the
+        # residue — IPv6 pods and garbage — pays ipaddress.ip_address
+        self._unparseable_ips = [
+            ip
+            for ip, v4 in zip(cluster.pod_ips, cluster.pod_ip_valid)
+            if not v4 and not host._parseable_ip(ip)
+        ]
+        self.encode_s = time.perf_counter() - t0
+
+    def _build(self, policy, pods, namespaces, compact, class_compress, pack, slab):
+        """The constructor pipeline: encode -> dead-target compaction ->
+        rule partition compression -> pod classes -> ns-sort -> shape
+        buckets.  Returns the compaction's selector pass (None when
+        compaction was off)."""
         self.encoding: PolicyEncoding = encode_policy(
             policy, pods, namespaces, tiers=self.tiers
         )
@@ -280,8 +322,9 @@ class TorchPolicyEngine:
             host._compaction_enabled(tensors) if compact is None else bool(compact)
         )
         if compact_on:
-            selpod = host._selector_pod_matches_host(tensors)
-            tensors = host._compact_dead_targets(tensors, selpod=selpod)
+            with phase("engine.compact"):
+                selpod = host._selector_pod_matches_host(tensors)
+                tensors = host._compact_dead_targets(tensors, selpod=selpod)
         mode = (
             host._class_compress_mode()
             if class_compress is None
@@ -296,10 +339,11 @@ class TorchPolicyEngine:
         self._partition_stats = None
         if mode != "0":
             self._partition_stats = {}
-            for direction in ("ingress", "egress"):
-                tensors[direction], self._partition_stats[direction] = compress_rule_axes(
-                    tensors[direction]
-                )
+            with phase("engine.partition"):
+                for direction in ("ingress", "egress"):
+                    tensors[direction], self._partition_stats[direction] = compress_rule_axes(
+                        tensors[direction]
+                    )
             classes, space, classify_s = self._maybe_classify(tensors, selpod, mode)
             if classes is not None:
                 ctensors = host._bucket_tensors(
@@ -323,20 +367,7 @@ class TorchPolicyEngine:
             cidr=space,
             classify_s=classify_s,
         )
-        # the compaction-time selector pass, reused by the slab plan
-        self._selpod_prebucket = selpod
-        self._has_ip_peers = bool(
-            np.any(self.encoding.ingress.peer_kind == PEER_IP)
-            or np.any(self.encoding.egress.peer_kind == PEER_IP)
-        )
-        # pod_ip_valid=True already proves parseability, so only the
-        # residue — IPv6 pods and garbage — pays ipaddress.ip_address
-        self._unparseable_ips = [
-            ip
-            for ip, v4 in zip(cluster.pod_ips, cluster.pod_ip_valid)
-            if not v4 and not host._parseable_ip(ip)
-        ]
-        self.encode_s = time.perf_counter() - t0
+        return selpod
 
     def _maybe_classify(self, tensors: Dict, selpod, mode: str):
         """(PodClasses, CidrSpace or None, classify seconds), or (None,
@@ -362,7 +393,8 @@ class TorchPolicyEngine:
             tensors, mode=self._opt_cidr_tss, n_pods=n, device=self.device
         )
         t0 = time.perf_counter()
-        pc = compute_pod_classes(tensors, selpod, cidr=space)
+        with phase("engine.classify"):
+            pc = compute_pod_classes(tensors, selpod, cidr=space)
         classify_s = time.perf_counter() - t0
         if mode != "1" and pc.n_classes > int(0.9 * n):
             return None, None, None  # no real reduction
@@ -450,6 +482,7 @@ class TorchPolicyEngine:
         self._autotune_stats = None
         self._steady_counts = {"hits": 0, "misses": 0, "precomputes": 0,
                                "autotune_searches": 0}
+        self._counts_setup = False  # the dense route's first call ran
         self._last_counts_mode = None
         if classes is not None:
             n = len(self._pod_keys)
@@ -474,6 +507,10 @@ class TorchPolicyEngine:
                 "cidr": cidr,
                 "classify_s": classify_s,
             }
+            ti.CLASS_PODS.set(n)
+            ti.CLASS_COUNT.set(classes.n_classes)
+            ti.CLASS_RATIO.set(self._class_state["ratio"])
+            ti.CLASS_AUX_BYTES.set(self._class_state["aux_bytes"])
 
     @property
     def n_pods(self) -> int:
@@ -565,14 +602,16 @@ class TorchPolicyEngine:
         """The device views of the host tensors: uploaded whole once,
         then patched in place by the verdict service."""
         if self._device_tensors is None:
-            self._device_tensors = carry.tensors_from_reference(self._tensors, self.device)
+            with phase("engine.device_put"):
+                self._device_tensors = carry.tensors_from_reference(self._tensors, self.device)
             TRANSFERS["tensors"] += 1
         return self._device_tensors
 
     def _class_dev(self) -> Dict:
         st = self._class_state
         if st["device_tensors"] is None:
-            st["device_tensors"] = carry.tensors_from_reference(st["ctensors"], self.device)
+            with phase("engine.device_put"):
+                st["device_tensors"] = carry.tensors_from_reference(st["ctensors"], self.device)
             TRANSFERS["class_tensors"] += 1
         return st["device_tensors"]
 
@@ -617,7 +656,12 @@ class TorchPolicyEngine:
         if self._class_state is not None:
             grid = self._evaluate_grid_classes(cases)
         else:
-            out = evaluate_grid_kernel(self._with_cases(self._dev(), cases), pack=self._pack)
+            # dispatch-only timing: the kernels are enqueued on the stream;
+            # the device time lands in grid.fetch / allow_stats
+            with ti.eval_flight("grid", n, len(cases), dispatch_only=True):
+                tensors = self._with_cases(self._dev(), cases)
+                with phase("engine.dispatch"):
+                    out = evaluate_grid_kernel(tensors, pack=self._pack)
             # bucketing pads the pod axis; strip the pad rows
             grid = GridVerdict(
                 self.pod_keys,
@@ -634,12 +678,19 @@ class TorchPolicyEngine:
         """Class-compressed grid: the C x C x Q class grid, broadcast back
         to pod axes with the gather epilogue."""
         st = self._class_state
-        if st["class_of"] is None:
-            st["class_of"] = carry.to_torch(st["classes"].class_of_pod, self.device)
-        out = gather_class_grids(
-            evaluate_grid_kernel(self._with_cases(self._class_dev(), cases), pack=self._pack),
-            st["class_of"],
-        )
+        with ti.eval_flight(
+            "grid.classes", self.n_pods, len(cases), classes=st["classes"].n_classes,
+            dispatch_only=True,
+        ):
+            tensors = self._with_cases(self._class_dev(), cases)
+            if st["class_of"] is None:
+                with phase("engine.device_put"):
+                    st["class_of"] = carry.to_torch(st["classes"].class_of_pod, self.device)
+            with phase("engine.dispatch"):
+                out = gather_class_grids(
+                    evaluate_grid_kernel(tensors, pack=self._pack), st["class_of"]
+                )
+            ti.CLASS_EVALS.inc(path="grid")
         return GridVerdict(
             self.pod_keys, list(cases), out["ingress"], out["egress"], out["combined"]
         )
@@ -655,8 +706,11 @@ class TorchPolicyEngine:
         self._check_ips()
         if not cases or len(pairs) == 0:
             return np.zeros((len(pairs), len(cases), 3), dtype=bool)
-        idx = torch.from_numpy(np.asarray(pairs, dtype=np.int64).reshape(-1, 2)).to(self.device)
-        out = tiled.evaluate_pairs_kernel(self._with_cases(self._dev(), cases), idx[:, 0], idx[:, 1])
+        with ti.eval_flight("pairs", self.n_pods, len(cases), k=len(pairs)):
+            idx = torch.from_numpy(np.asarray(pairs, dtype=np.int64).reshape(-1, 2)).to(self.device)
+            out = tiled.evaluate_pairs_kernel(
+                self._with_cases(self._dev(), cases), idx[:, 0], idx[:, 1]
+            )
         return torch.stack([out["ingress"], out["egress"], out["combined"]], dim=2).cpu().numpy()
 
     def firing_components(
@@ -788,7 +842,7 @@ class TorchPolicyEngine:
     def _counts_classes(self, cases, kernel: str, block: int = 1024) -> Dict[str, int]:
         st = self._class_state
         pc = st["classes"]
-        return evaluate_grid_counts_classes(
+        counts, gather_s = evaluate_grid_counts_classes(
             self._with_cases(self._class_dev(), cases),
             pc.n_classes,
             pc.class_size,
@@ -797,6 +851,9 @@ class TorchPolicyEngine:
             pack=self._pack,
             kernel=kernel,
         )
+        ti.CLASS_GATHER_SECONDS.set(gather_s)
+        ti.CLASS_EVALS.inc(path="counts")
+        return counts
 
     def _pod_order(self) -> torch.Tensor:
         """The ns-order pod permutation of the dense counts route, built
@@ -806,7 +863,8 @@ class TorchPolicyEngine:
             ns = self._tensors["pod_ns_id"]
             key = np.where(ns < 0, np.iinfo(np.int32).max, ns)
             self._pod_perm_host = np.argsort(key, kind="stable")
-            self._pod_perm = torch.from_numpy(self._pod_perm_host).to(self.device)
+            with phase("engine.device_put"):
+                self._pod_perm = torch.from_numpy(self._pod_perm_host).to(self.device)
         return self._pod_perm
 
     def _dense_counts_tensors(self, cases: Sequence[PortCase]) -> Dict:
@@ -901,23 +959,55 @@ class TorchPolicyEngine:
           * fused — anything else: the last key recorded, and the second
             miss in a row evicts the pin and the slab operands with it.
 
-        plain=True runs the fused call's plain versions and leaves the
-        steady state as it is."""
+        One flight-recorder entry ("counts.pallas") per call, as the
+        reference's telemetry shell records it; its seconds end at the
+        partials' readback, the call's own barrier.  plain=True runs the
+        fused call's plain versions and leaves the steady state and the
+        telemetry as they are."""
         if not self._pack and "tiers" in self._tensors:
             raise ValueError("the dense dtype plan has no tiered counts kernel")
         q = len(cases)
-        key, slab_ok, slab = self._steady_state_args(cases)
         if plain:
+            _key, _slab_ok, slab = self._steady_state_args(cases)
             return sum_partials(self._counts_fused(cases, slab, plain=True), q, self.n_pods)
+        with ti.eval_flight("counts.pallas", self.n_pods, q) as fl:
+            counts = self._counts_dispatch(cases, fl)
+            fl.set(cells=counts["cells"])
+            return counts
+
+    def _counts_dispatch(self, cases, fl) -> Dict[str, int]:
+        """The body of _counts_dense: the reference's per-engine setup
+        (the ns-order permutation, the slab plan), the three-way machine,
+        and the readback."""
+        q = len(cases)
+        self._dev()  # the upload, ahead of the dispatch (the reference's _ensure_packed)
+        if not self._counts_setup:
+            # the reference builds its per-engine counts programs here
+            # (api._build_counts_jits): the port's counterpart is the
+            # per-engine state of the route, set up once
+            self._counts_setup = True
+            ti.ENGINE_PROGRAMS_BUILT.inc()
+        self._pod_order()
+        if self._slab_plan_state == "unset":
+            with phase("engine.slab_plan"):
+                self._slab_plan()
+        key, slab_ok, slab = self._steady_state_args(cases)
         counts = self._steady_counts
+        t_dispatch = time.perf_counter()
+        autotuned = False
         if self._pre_cache is not None and self._pre_cache[0] == key:
             counts["hits"] += 1
             self._pre_cache_misses = 0
             mode = "steady"
+            ti.PRE_CACHE_HITS.inc()
+            fl.set(mode="steady", slab=slab)
             if slab_ok and self._slab_choice is None and self._autotune_enabled():
-                partials = self._autotune_slab(key)
+                autotuned = True
+                with phase("engine.autotune"):
+                    partials = self._autotune_slab(key)
             else:
-                partials = self._dispatch_steady(key, slab)
+                with phase("engine.dispatch"):
+                    partials = self._dispatch_steady(key, slab)
         elif (
             self._last_counts_key == key
             and key != self._pre_cache_declined
@@ -926,11 +1016,17 @@ class TorchPolicyEngine:
         ):
             counts["misses"] += 1
             mode = "split"
-            partials = self._counts_split(cases, key, slab_ok, slab)
+            ti.PRE_CACHE_MISSES.inc()
+            ti.PRE_CACHE_BUDGET_BYTES.set(_PRE_CACHE_MAX_BYTES)
+            fl.set(mode="split")
+            with phase("engine.dispatch"):
+                partials = self._counts_split(cases, key, slab_ok, slab)
         else:
             counts["misses"] += 1
             mode = "fused"
             self._last_counts_key = key
+            ti.PRE_CACHE_MISSES.inc()
+            fl.set(mode="fused")
             if self._pre_cache is not None:
                 # one call of another set between two of the pinned one
                 # (A, B, A, B) must not evict it; two in a row do
@@ -938,8 +1034,20 @@ class TorchPolicyEngine:
                 if self._pre_cache_misses >= 2:
                     self._pre_cache = None
                     self._slab_ops_cache = None
-            partials = self._counts_fused(cases, slab)
+                    ti.PRE_CACHE_BYTES.set(0)
+            with phase("engine.dispatch"):
+                partials = self._counts_fused(cases, slab)
         self._last_counts_mode = mode
+        if not autotuned:
+            # the autotune runs timed, synchronised rounds: recording them
+            # as the enqueue would poison the dispatch-vs-device split
+            ti.EVAL_DISPATCH_SECONDS.set(time.perf_counter() - t_dispatch)
+        # the partials' readback is the execution barrier: the device's
+        # run time lands here, not in the enqueue above
+        t_execute = time.perf_counter()
+        with phase("engine.execute"):
+            partials = partials.cpu()
+        ti.EVAL_EXECUTE_SECONDS.set(time.perf_counter() - t_execute)
         return sum_partials(partials, q, self.n_pods)
 
     def _dense_pre(self, cases) -> Dict:
@@ -997,10 +1105,12 @@ class TorchPolicyEngine:
         ops = self._kernel_operands(pre)
         open_choice = slab_ok and self._slab_choice is None
         pin = {"ops": None if slab else ops, "pre": pre if slab or open_choice else None}
-        if _tensor_bytes(pin) <= _PRE_CACHE_MAX_BYTES:
+        nbytes = _tensor_bytes(pin)
+        if nbytes <= _PRE_CACHE_MAX_BYTES:
             self._pre_cache = (key, pin)  # evicts any other set
             self._slab_ops_cache = None
             self._pre_cache_misses = 0
+            ti.PRE_CACHE_BYTES.set(nbytes)
         else:
             self._pre_cache_declined = key
         return self._launch(ops)
@@ -1011,12 +1121,17 @@ class TorchPolicyEngine:
         with it).  Once the slab kernel is chosen, the pin's default
         operands and precompute are read no more and are dropped."""
         cached = self._slab_ops_cache
-        if cached is None or cached[0] != key:
+        if cached is not None and cached[0] == key:
+            ti.SLAB_OPS_CACHE_HITS.inc()
+        else:
+            ti.SLAB_OPS_CACHE_MISSES.inc()
             plan = self._slab_plan()
             ops = dense_kernel.slab_operands(
                 *self._dense_args(self._pre_cache[1]["pre"]), plan["egress"], plan["ingress"],
                 self.n_pods, w=plan["w"],
             )
+            # the actual pinned bytes supersede the plan's q=2 estimate
+            ti.SLAB_HBM_BYTES.set(_tensor_bytes(ops))
             self._slab_ops_cache = cached = (key, ops)
         if self._slab_choice is True:
             self._pre_cache = (key, {"ops": None, "pre": None})
@@ -1101,9 +1216,13 @@ class TorchPolicyEngine:
         if persisted is not None:
             chose_slab = persisted["kernel"] == "slab"
             self._settle_slab_choice(key, chose_slab)
+            ti.AUTOTUNE_CACHE.inc(outcome="hit")
             self._autotune_stats = {"source": "cache", "winner": dict(persisted),
                                     "search_s": 0.0, "candidates": []}
             return self._dispatch_steady(key, chose_slab)
+        if autotune.cache_path() is not None:
+            ti.AUTOTUNE_CACHE.inc(outcome="miss")
+        ti.AUTOTUNE_SEARCHES.inc()
         self._steady_counts["autotune_searches"] += 1
         t0 = time.perf_counter()
         default_ops = self._pre_cache[1]["ops"]
@@ -1128,7 +1247,9 @@ class TorchPolicyEngine:
                 {"kernel": "slab", "s": t_slab, "rounds": rounds_slab},
             ],
         }
-        autotune.store_winner(akey, winner, {"default_s": t_default, "slab_s": t_slab})
+        if autotune.store_winner(akey, winner, {"default_s": t_default, "slab_s": t_slab}):
+            ti.AUTOTUNE_CACHE.inc(outcome="store")
+        ti.AUTOTUNE_OUTCOMES.inc(outcome=winner["kernel"])
         return out_slab if chose_slab else out_default
 
     def _settle_slab_choice(self, key, chose_slab: bool) -> None:
@@ -1161,7 +1282,16 @@ class TorchPolicyEngine:
         outs = [self._dispatch_steady(key, slab) for _ in range(reps)]
         partials = outs[-1].cpu()
         dt = (time.perf_counter() - t0) / reps
-        return dt, sum_partials(partials, len(cases), self.n_pods)
+        return self._pipelined_gauges(dt, sum_partials(partials, len(cases), self.n_pods))
+
+    @staticmethod
+    def _pipelined_gauges(dt: float, counts: Dict[str, int]):
+        """The pipelined rate as a gauge beside the sync call's: what a
+        batched caller sustains.  Returns (dt, counts)."""
+        if dt > 0:
+            ti.EVAL_DEVICE_SECONDS.set(dt)
+            ti.EVAL_PIPELINED_CELLS_PER_SEC.set(counts["cells"] / dt)
+        return dt, counts
 
     def _pipelined_classes(self, cases: Sequence[PortCase], reps: int):
         """The class route's twin of counts_pipelined_eval_s: `reps` runs
@@ -1181,7 +1311,9 @@ class TorchPolicyEngine:
         outs = [run() for _ in range(reps)]
         rs = outs[-1].cpu().numpy()
         dt = (time.perf_counter() - t0) / reps
-        return dt, class_counts_finish(rs, pc.class_size, pc.n_classes, len(cases), self.n_pods)
+        return self._pipelined_gauges(
+            dt, class_counts_finish(rs, pc.class_size, pc.n_classes, len(cases), self.n_pods)
+        )
 
     # --- the pod-axis mesh ------------------------------------------------
 
@@ -1203,15 +1335,19 @@ class TorchPolicyEngine:
         st = self._class_state
         if st is not None:
             pc = st["classes"]
-            grids = sharded.evaluate_class_grid_sharded(
-                self._with_host_cases(cases, st["ctensors"]), pc.n_classes, pc.class_of_pod,
-                mesh=mesh, schedule=schedule, pack=self._pack,
-            )
+            tensors = self._with_host_cases(cases, st["ctensors"])
+            with phase("engine.dispatch_sharded"):
+                grids = sharded.evaluate_class_grid_sharded(
+                    tensors, pc.n_classes, pc.class_of_pod,
+                    mesh=mesh, schedule=schedule, pack=self._pack,
+                )
+            ti.CLASS_EVALS.inc(path="sharded")
         else:
-            grids = sharded.evaluate_grid_sharded(
-                self._with_host_cases(cases), self.n_pods, mesh=mesh, schedule=schedule,
-                pack=self._pack,
-            )
+            tensors = self._with_host_cases(cases)
+            with phase("engine.dispatch_sharded"):
+                grids = sharded.evaluate_grid_sharded(
+                    tensors, self.n_pods, mesh=mesh, schedule=schedule, pack=self._pack,
+                )
         return GridVerdict(self.pod_keys, list(cases), *(torch.movedim(g, -1, 0) for g in grids))
 
     def evaluate_grid_counts_sharded(
@@ -1230,10 +1366,13 @@ class TorchPolicyEngine:
         mesh = self._mesh(mesh)
         if self._class_counts_eligible(len(cases)):
             pc = self._class_state["classes"]
-            return tiled.evaluate_grid_counts_classes_sharded(
+            counts, gather_s = tiled.evaluate_grid_counts_classes_sharded(
                 self._with_host_cases(cases, self._class_state["ctensors"]), pc.n_classes,
                 pc.class_size, n, block=block, mesh=mesh, pack=self._pack,
             )
+            ti.CLASS_GATHER_SECONDS.set(gather_s)
+            ti.CLASS_EVALS.inc(path="sharded")
+            return counts
         if "tiers" in self._tensors and kernel != "xla":
             if kernel is not None:
                 raise ValueError(
@@ -1325,6 +1464,7 @@ class TorchPolicyEngine:
         self._pre_cache_misses = 0
         self._pre_cache_declined = None
         self._last_counts_key = None
+        ti.PRE_CACHE_BYTES.set(0)
         self._slab_choice = None
         self._slab_plan_state = None
         self._selpod_prebucket = None

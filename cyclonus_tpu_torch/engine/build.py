@@ -9,6 +9,11 @@ its source, the headers under csrc/ and the flags, so an edited source or
 header rebuilds and an unchanged one is reused.
 
 Nothing here runs at import time; the first launch builds.
+
+note_trace feeds cyclonus_tpu_kernel_traces_total: the reference counts
+one Pallas trace per (kernel, static shape), and the port counts the
+first run of each (kernel, device type, operand shapes) in the process,
+so that "dispatches - traces = hits" keeps its meaning.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Set, Tuple
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -33,6 +38,21 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+#: (kernel label, device type, operand shapes) already run in this process
+_TRACED: Set[Tuple] = set()
+
+
+def note_trace(kernel: str, device_type: str, shapes: Tuple) -> None:
+    """Count KERNEL_TRACES{kernel} at the first run of this kernel label
+    at this device type and these operand shapes."""
+    key = (kernel, device_type, shapes)
+    if key in _TRACED:
+        return
+    _TRACED.add(key)
+    from ..telemetry import instruments as ti
+
+    ti.KERNEL_TRACES.inc(kernel=kernel)
 
 
 def build_dir() -> Path:

@@ -59,6 +59,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from . import build
+
 #: the largest target-axis chunk (rows); the per-direction chunk is
 #: _kt_for of the augmented target count.  Read at call time.
 KT = 1024
@@ -362,7 +364,13 @@ def counts_from_ops(ops: Dict, plain: bool = False) -> torch.Tensor:
     with_nz_maps, or built now).  A CPU tensor (or plain=True) takes the
     plain version; a CUDA tensor the kernel."""
     kind = ops["a_e"].device.type
-    if plain or kind == "cpu":
+    if plain:
+        return _counts_plain(ops)
+    # the reference's rect program and its chunk kernel trace together
+    shapes = tuple(tuple(ops[k].shape) for k in ("a_e", "b_e", "b_i", "a_i"))
+    build.note_trace("counts_rect", kind, shapes)
+    build.note_trace("counts_1chunk" if single_chunk(ops) else "counts_chunked", kind, shapes)
+    if kind == "cpu":
         return _counts_plain(ops)
     if kind == "cuda":
         if single_chunk(ops):
@@ -575,7 +583,10 @@ def verdict_counts_slab_from_ops(ops: Dict, plain: bool = False) -> torch.Tensor
         raise ValueError("slab operands disagree in shape")
     _check_int32_partials(bs, nd_pad)
     kind = a_e.device.type
-    if plain or kind == "cpu":
+    if plain:
+        return _slab_counts_plain(ops)
+    build.note_trace("counts_slab", kind, tuple(tuple(ops[k].shape) for k in ("a_e", "b_e", "b_i", "a_i")))
+    if kind == "cpu":
         return _slab_counts_plain(ops)
     if kind == "cuda":
         return _launch("dense_counts_slab", ops, n_i=n_i, n_j=n_j, tile_rows=bs, tile_cols=bd,

@@ -667,6 +667,12 @@ def _slab_plan(
     n_tiles = -(-n_b // dk.SLAB_BS) + -(-n_b // dk.SLAB_BD)
     bytes_per_case = n_tiles * dk.slab_w_aug() * n_b  # int8 slabs
     budget = _slab_max_bytes()
+    # watermark gauges: planned slab bytes (q=2 budget point) vs the
+    # budget — set before the gate so a rejected plan is visible too
+    from ..telemetry import instruments as ti
+
+    ti.SLAB_HBM_BYTES.set(2 * bytes_per_case + aux_bytes)
+    ti.SLAB_HBM_BUDGET_BYTES.set(budget)
     if 2 * bytes_per_case + aux_bytes > budget:
         return None
     if selpod is None:

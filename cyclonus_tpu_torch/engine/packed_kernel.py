@@ -80,6 +80,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from . import build
 from .encoding import TIER_KEY_NONE
 from .kernel import pack_bool_words_torch, resolve_tier_lattice
 
@@ -547,7 +548,17 @@ def counts_from_packed_ops(ops: Dict, plain: bool = False) -> torch.Tensor:
     CPU tensor (or plain=True) takes the plain version, a CUDA tensor
     launches the kernel, or raises."""
     kind = ops["a_e"].device.type
-    if plain or kind == "cpu":
+    if plain:
+        return _counts_plain(ops, ops["bs"])
+    t = ops["tier"]
+    build.note_trace(
+        "counts_packed" + ("_tiered" if t is not None else "")
+        + ("_weighted" if ops["w"] is not None else ""),
+        kind,
+        tuple(tuple(ops[k].shape) for k in ("a_e", "b_e", "b_i", "a_i"))
+        + ((tuple(t["key_e"].shape), tuple(t["key_i"].shape)) if t is not None else ()),
+    )
+    if kind == "cpu":
         return _counts_plain(ops, ops["bs"])
     if kind == "cuda":
         return _counts_cuda(ops, ops["bs"])

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import carry
+from ..telemetry import instruments as ti
 from . import host
 from .encoding import packed_words
 from .kernel import (
@@ -366,15 +367,22 @@ def evaluate_grid_sharded(
     devices = mesh.flat
     tensors, padded = host._pad_pod_arrays(tensors, n_pods, len(devices))
     shard = padded // len(devices)
-    shards = shard_tensors(tensors, devices, shard)
-    if schedule == "ring":
-        rows = _ring_grid_eval(shards, devices, shard, pack)
-    else:
-        rows = _allgather_eval(shards, devices)
-    home = devices[0]
-    ingress_rows, egress, combined = (
-        _gather([r[k] for r in rows], 0, home)[:n_pods, :n_pods] for k in range(3)
+    ti.MESH_PEER_BYTES.set(
+        peer_buffer_bytes(tensors, len(devices), schedule, pack=pack), schedule=schedule
     )
+    with ti.eval_flight(
+        "grid.sharded", n_pods, int(tensors["q_port"].shape[0]),
+        devices=len(devices), schedule=schedule, dispatch_only=True,
+    ):
+        shards = shard_tensors(tensors, devices, shard)
+        if schedule == "ring":
+            rows = _ring_grid_eval(shards, devices, shard, pack)
+        else:
+            rows = _allgather_eval(shards, devices)
+        home = devices[0]
+        ingress_rows, egress, combined = (
+            _gather([r[k] for r in rows], 0, home)[:n_pods, :n_pods] for k in range(3)
+        )
     return ingress_rows.transpose(0, 1), egress, combined
 
 

@@ -22,6 +22,13 @@ tile loop), the class-axis split of the class route, and the ring counts
 (both pod axes sharded, the dst-side bundle rotating one hop a step: the
 sync ring, its pipelined twin and the 2-D ring).  Every shard's partial
 counts are int32 (_int32_safe_block) and summed on the host in int64.
+
+Each counts entry point records one telemetry flight, under the
+reference's path names: counts.xla (the tile loop), counts.classes,
+counts.classes.sharded, counts.sharded, counts.ring,
+counts.ring.pipelined and counts.ring2d, with engine.dispatch /
+engine.execute spans where the reference has them.  A flight's seconds
+end at the path's own readback.
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ import numpy as np
 import torch
 
 from .. import carry
+from ..telemetry import instruments as ti
+from ..utils.tracing import phase
 from . import dense_kernel, host
 from .encoding import TIER_KEY_NONE
 from .kernel import (
@@ -196,24 +205,34 @@ def evaluate_grid_counts_classes(
     *,
     pack: bool,
     kernel: str,
-) -> Dict[str, int]:
+) -> Tuple[Dict[str, int], float]:
     """Allow counts over the FULL N x N x Q grid, evaluated on the
-    compressed C x C class grid and weighted back exactly.
+    compressed C x C class grid and weighted back exactly.  Returns
+    (counts, gather_s), gather_s the exact host weighting (the broadcast-
+    back epilogue).
 
     kernel="pallas" runs the packed counts kernel's weighted epilogue
     (K2, tiered K3); kernel="xla" the tile loop (_class_rowsums_kernel)
     over the `pack` precompute.  Identical row sums either way."""
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"unknown class counts kernel {kernel!r} (want 'pallas' or 'xla')")
+    q = int(tensors["q_port"].shape[0])
     w, block, n_tiles = class_rowsums_plan(tensors, n_classes, class_size, block)
-    w_dev = torch.from_numpy(w).to(tensors["pod_ns_id"].device)
-    if kernel == "pallas":
-        rs = class_rowsums(tensors, w_dev)
-    else:
-        rs = _class_rowsums_kernel(tensors, w_dev, block, n_tiles, pack)
-    return class_counts_finish(
-        rs.cpu().numpy(), class_size, n_classes, int(tensors["q_port"].shape[0]), n_pods
-    )
+    with ti.eval_flight("counts.classes", n_pods, q, classes=n_classes, block=block) as fl:
+        with phase("engine.dispatch"):
+            w_dev = torch.from_numpy(w).to(tensors["pod_ns_id"].device)
+            if kernel == "pallas":
+                rs = class_rowsums(tensors, w_dev)
+            else:
+                rs = _class_rowsums_kernel(tensors, w_dev, block, n_tiles, pack)
+        # the readback is the execution barrier
+        with phase("engine.execute"):
+            rs = rs.cpu().numpy()
+        t0 = time.perf_counter()
+        counts = class_counts_finish(rs, class_size, n_classes, q, n_pods)
+        gather_s = time.perf_counter() - t0
+        fl.set(cells=counts["cells"])
+    return counts, gather_s
 
 
 # --- the tile loop ---------------------------------------------------------
@@ -408,11 +427,16 @@ def evaluate_grid_counts(
     q = int(tensors["q_port"].shape[0])
     # per-tile counts are int32: keep block * N * Q below 2^31
     block = _int32_safe_block(min(block, max(n_pods, 1)), n_pods, q)
-    tensors, n_tiles = _pad_pod_axis(tensors, n_pods, block)
-    out = _counts_kernel(
-        carry.tensors_from_reference(tensors, device), block, n_tiles, n_pods, pack
-    )
-    counts = out.cpu().numpy().astype(np.int64).sum(axis=0)
+    with ti.eval_flight("counts.xla", n_pods, q, block=block) as fl:
+        tensors, n_tiles = _pad_pod_axis(tensors, n_pods, block)
+        with phase("engine.dispatch"):
+            out = _counts_kernel(
+                carry.tensors_from_reference(tensors, device), block, n_tiles, n_pods, pack
+            )
+        # the readback is the execution barrier
+        with phase("engine.execute"):
+            counts = out.cpu().numpy().astype(np.int64).sum(axis=0)
+        fl.set(cells=q * n_pods * n_pods)
     return {
         "ingress": int(counts[0]),
         "egress": int(counts[1]),
@@ -467,12 +491,15 @@ def _mesh_counts_setup(tensors: Dict, n_pods: int, block: int, mesh):
     return mesh, n_dev, q, block, tensors, n_padded
 
 
-def _run_mesh_counts(parts: Sequence[torch.Tensor], q: int, n_pods: int) -> Dict[str, int]:
+def _run_mesh_counts(parts: Sequence[torch.Tensor], q: int, n_pods: int, fl=None) -> Dict[str, int]:
     """The tail of every mesh counts path: the shards' [*, 3] int32
-    partials summed on the host in int64."""
+    partials summed on the host in int64 (the readback is the barrier),
+    and the cells on the path's flight `fl` when one is given."""
     counts = np.zeros(3, dtype=np.int64)
     for p in parts:
         counts += p.cpu().numpy().astype(np.int64).reshape(-1, 3).sum(axis=0)
+    if fl is not None:
+        fl.set(cells=q * n_pods * n_pods)
     return {
         "ingress": int(counts[0]),
         "egress": int(counts[1]),
@@ -501,8 +528,6 @@ def evaluate_grid_counts_sharded(
     mesh and "xla" on a CPU mesh (where the kernels' plain versions run).
     `tensors` is the engine's host (numpy) tensor dict with the port-case
     arrays; tiered counts take kernel="xla" (the engine resolves it)."""
-    from .sharded import replicate
-
     mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(tensors, n_pods, block, mesh)
     if kernel is None:
         kernel = "pallas" if mesh.flat[0].type == "cuda" else "xla"
@@ -510,6 +535,17 @@ def evaluate_grid_counts_sharded(
         raise ValueError(f"unknown sharded counts kernel {kernel!r} (want 'pallas' or 'xla')")
     shard = n_padded // n_dev
     devices = mesh.flat
+    with ti.eval_flight("counts.sharded", n_pods, q, devices=n_dev) as fl:
+        return _run_mesh_counts(
+            _sharded_parts(tensors, devices, shard, n_padded, n_pods, block, kernel, pack),
+            q, n_pods, fl,
+        )
+
+
+def _sharded_parts(tensors, devices, shard, n_padded, n_pods, block, kernel, pack):
+    """Each shard's partials of evaluate_grid_counts_sharded."""
+    from .sharded import replicate
+
     parts = []
     for d, t in enumerate(replicate(tensors, devices)):
         pre = _precompute(t, pack)
@@ -536,7 +572,7 @@ def evaluate_grid_counts_sharded(
                 ig["tmatch"], ig["has_target"], ig["tallow_bf"][:, rows],
                 valid_src=valid[rows], valid_dst=valid,
             ))
-    return _run_mesh_counts(parts, q, n_pods)
+    return parts
 
 
 def evaluate_grid_counts_classes_sharded(
@@ -548,12 +584,13 @@ def evaluate_grid_counts_classes_sharded(
     mesh=None,
     *,
     pack: bool,
-) -> Dict[str, int]:
+) -> Tuple[Dict[str, int], float]:
     """Mesh-parallel compressed counts: the CLASS axis splits over the
     mesh, each shard computes the f32 class-weighted row sums of its class
     shard against the replicated dst view (the tile loop's row sums), and
     the gathered [C, Q, 3] row sums go to the same exact host finish as
-    the single-device route (class_counts_finish)."""
+    the single-device route (class_counts_finish).  Returns (counts,
+    gather_s) as evaluate_grid_counts_classes does."""
     from .sharded import replicate
 
     mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(
@@ -563,15 +600,22 @@ def evaluate_grid_counts_classes_sharded(
     w = np.zeros((n_padded,), dtype=np.float32)
     w[:n_classes] = np.asarray(class_size, dtype=np.float32)
     rows = []
-    for d, t in enumerate(replicate(dict(tensors, class_w=w), mesh.flat)):
-        src, dst = _split_pre(_precompute(t, pack))
-        row0 = d * shard
-        rows.append(torch.cat([
-            _class_tile_rowsums(src, dst, t["class_w"], start, block)
-            for start in range(row0, row0 + shard, block)
-        ]))
-    rs = np.concatenate([r.cpu().numpy() for r in rows])
-    return class_counts_finish(rs, class_size, n_classes, q, n_pods)
+    with ti.eval_flight(
+        "counts.classes.sharded", n_pods, q, classes=n_classes, devices=n_dev
+    ) as fl:
+        for d, t in enumerate(replicate(dict(tensors, class_w=w), mesh.flat)):
+            src, dst = _split_pre(_precompute(t, pack))
+            row0 = d * shard
+            rows.append(torch.cat([
+                _class_tile_rowsums(src, dst, t["class_w"], start, block)
+                for start in range(row0, row0 + shard, block)
+            ]))
+        rs = np.concatenate([r.cpu().numpy() for r in rows])
+        t0 = time.perf_counter()
+        counts = class_counts_finish(rs, class_size, n_classes, q, n_pods)
+        gather_s = time.perf_counter() - t0
+        fl.set(cells=counts["cells"])
+    return counts, gather_s
 
 
 def ring_counts_pipeline(tensors: Dict, n_pods: int, block: int, devices, *, pack: bool):
@@ -645,8 +689,9 @@ def evaluate_grid_counts_ring(
     words."""
     mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(tensors, n_pods, block, mesh)
     seed, step, _meta = ring_counts_pipeline(tensors, n_pods, block, mesh.flat, pack=pack)
-    parts, _rings = step(*seed(tensors))
-    return _run_mesh_counts(parts, q, n_pods)
+    with ti.eval_flight("counts.ring", n_pods, q, devices=n_dev) as fl:
+        parts, _rings = step(*seed(tensors))
+        return _run_mesh_counts(parts, q, n_pods, fl)
 
 
 def evaluate_grid_counts_ring_pipelined(
@@ -659,14 +704,19 @@ def evaluate_grid_counts_ring_pipelined(
     counts)."""
     mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(tensors, n_pods, block, mesh)
     seed, step, _meta = ring_counts_pipeline(tensors, n_pods, block, mesh.flat, pack=pack)
-    srcs, rings = seed(tensors)
-    partials, rings = step(srcs, rings)
-    _run_mesh_counts(partials, q, n_pods)  # warm; the readback is the barrier
-    t0 = time.perf_counter()
-    for _ in range(max(reps, 1)):
+    with ti.eval_flight("counts.ring.pipelined", n_pods, q, devices=n_dev, reps=reps) as fl:
+        srcs, rings = seed(tensors)
         partials, rings = step(srcs, rings)
-    counts = _run_mesh_counts(partials, q, n_pods)  # the streams run in order: one barrier
-    return (time.perf_counter() - t0) / max(reps, 1), counts
+        _run_mesh_counts(partials, q, n_pods)  # warm; the readback is the barrier
+        t0 = time.perf_counter()
+        for _ in range(max(reps, 1)):
+            partials, rings = step(srcs, rings)
+        # the streams run in order: one barrier
+        counts = _run_mesh_counts(partials, q, n_pods, fl)
+        dt = (time.perf_counter() - t0) / max(reps, 1)
+    if dt > 0:
+        ti.MESH_RING_STEP_SECONDS.set(dt / max(n_dev, 1))
+    return dt, counts
 
 
 def evaluate_grid_counts_ring2d(
@@ -689,6 +739,15 @@ def evaluate_grid_counts_ring2d(
     n_dcn, n_ici = grid.shape
     devices = list(grid.flat)
     mesh, n_dev, q, block, tensors, n_padded = _mesh_counts_setup(tensors, n_pods, block, mesh)
+    with ti.eval_flight("counts.ring2d", n_pods, q, devices=n_dev) as fl:
+        return _run_mesh_counts(
+            _ring2d_parts(tensors, n_pods, block, devices, n_dcn, n_ici, pack), q, n_pods, fl
+        )
+
+
+def _ring2d_parts(tensors, n_pods, block, devices, n_dcn, n_ici, pack):
+    """Each shard's partials of evaluate_grid_counts_ring2d."""
+    n_dev = len(devices)
     seed, _step, meta = ring_counts_pipeline(tensors, n_pods, block, devices, pack=pack)
     srcs, rings = seed(tensors)
     ici = [h * n_ici + (c + 1) % n_ici for h in range(n_dcn) for c in range(n_ici)]
@@ -708,7 +767,7 @@ def evaluate_grid_counts_ring2d(
                     srcs[d], rings[d], valid_local, counts[d], o * n_ici + j
                 )
             rings = nxt
-    return _run_mesh_counts(counts, q, n_pods)
+    return counts
 
 
 # --- streamed blocks and point pairs ----------------------------------------

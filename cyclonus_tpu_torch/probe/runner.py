@@ -16,6 +16,8 @@ pool of 9.
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
@@ -26,6 +28,9 @@ from ..carry import resolve_device
 from ..engine import PortCase, TorchPolicyEngine
 from ..kube.ikubernetes import IKubernetes, KubeError
 from ..matcher.core import Policy
+from ..telemetry import instruments as ti
+from ..telemetry import spans
+from ..telemetry.spans import span
 from .connectivity import (
     CONNECTIVITY_ALLOWED,
     CONNECTIVITY_BLOCKED,
@@ -45,6 +50,38 @@ ENGINE_CHOICES = ["oracle", "cuda", "cuda-sharded"]
 
 # grid bit -> verdict
 _VERDICT = (CONNECTIVITY_BLOCKED, CONNECTIVITY_ALLOWED)
+
+# parity with the reference's logrus trace level (jobrunner.go:80 logs
+# every simulated verdict): CYCLONUS_TRACE_VERDICTS=1 logs each verdict
+# as it is scattered out of the grid.  Checked per probe (not cached) so
+# tests can flip it; the per-verdict work is guarded so the off path
+# costs one boolean.
+_verdict_logger = logging.getLogger("cyclonus.trace.verdicts")
+
+
+def _trace_verdicts() -> bool:
+    on = os.environ.get("CYCLONUS_TRACE_VERDICTS", "") == "1"
+    if on and _verdict_logger.level == logging.NOTSET:
+        # the flag is an explicit opt-in: without this, the logger would
+        # inherit the CLI's default INFO root level and the DEBUG-level
+        # verdict lines would silently vanish (the root handler's own
+        # level is NOTSET, so lowering just this logger is enough)
+        _verdict_logger.setLevel(logging.DEBUG)
+    return on
+
+
+def _log_verdict(engine: str, job, ingress: str, egress: str, combined: str) -> None:
+    _verdict_logger.debug(
+        "verdict [%s] %s -> %s %s/%s: ingress=%s egress=%s combined=%s",
+        engine,
+        job.from_key,
+        job.to_key,
+        job.resolved_port,
+        job.protocol,
+        ingress,
+        egress,
+        combined,
+    )
 
 
 class JobRunner:
@@ -132,12 +169,16 @@ class SimulatedJobRunner(JobRunner):
 
     def run_job(self, job: Job) -> JobResult:
         allowed = self.policies.is_traffic_allowed(job.traffic())
-        return JobResult(
+        result = JobResult(
             job=job,
             ingress=_VERDICT[allowed.ingress.is_allowed],
             egress=_VERDICT[allowed.egress.is_allowed],
             combined=_VERDICT[allowed.is_allowed],
         )
+        ti.VERDICTS.inc(engine="oracle")
+        if _trace_verdicts():
+            _log_verdict("oracle", job, result.ingress, result.egress, result.combined)
+        return result
 
     # --- grid path ---
 
@@ -159,14 +200,22 @@ class SimulatedJobRunner(JobRunner):
                 qi = case_index[key] = len(cases)
                 cases.append(PortCase(*key))
             q[i] = qi
-        engine = TorchPolicyEngine(
-            self.policies, pods, resources.namespaces, device=self.device
-        )
-        t1 = time.perf_counter()
-        if self.engine == "cuda-sharded":
-            grid = engine.evaluate_grid_sharded(cases)
-        else:
-            grid = engine.evaluate_grid(cases)
+        with span(
+            "probe.simulated",
+            engine=self.engine,
+            sharded=self.engine == "cuda-sharded",
+            pods=len(pods),
+            cases=len(cases),
+            jobs=len(jobs),
+        ):
+            engine = TorchPolicyEngine(
+                self.policies, pods, resources.namespaces, device=self.device
+            )
+            t1 = time.perf_counter()
+            if self.engine == "cuda-sharded":
+                grid = engine.evaluate_grid_sharded(cases)
+            else:
+                grid = engine.evaluate_grid(cases)
         # one copy of each grid to the host: never a device read per job
         ingress, egress, combined = grid.ingress, grid.egress, grid.combined
         t2 = time.perf_counter()
@@ -182,6 +231,10 @@ class SimulatedJobRunner(JobRunner):
                 combined[q, s, d].tolist(),
             )
         ]
+        if _trace_verdicts():
+            for r in results:
+                _log_verdict(self.engine, r.job, r.ingress, r.egress, r.combined)
+        ti.VERDICTS.inc(len(jobs), engine=self.engine)
         self.seconds = {
             "build": t1 - t0,
             "grid": t2 - t1,
@@ -232,6 +285,7 @@ class KubeBatchJobRunner(JobRunner):
         self.workers = workers
 
     def run_jobs(self, jobs: List[Job]) -> List[JobResult]:
+        from ..telemetry import events
         from ..worker.model import Batch, Request
 
         job_map: Dict[str, Job] = {}
@@ -253,6 +307,15 @@ class KubeBatchJobRunner(JobRunner):
             )
             job_map[job.key()] = job
 
+        if events.enabled():
+            # trace context crosses the wire on the batch: the parent
+            # path is captured HERE (the issuing step's thread) because
+            # the pool threads below have no span state of their own
+            parent = spans.current_path()
+            for batch in batches.values():
+                batch.trace_id = events.trace_id() or ""
+                batch.parent_span = parent
+
         results: List[JobResult] = []
         if not batches:
             return results
@@ -264,9 +327,33 @@ class KubeBatchJobRunner(JobRunner):
 
     def _run_batch(self, batch):
         try:
-            results = self.client.batch(batch)
+            # re-adopt the issuing step's path on this pool thread so
+            # the driver-side exec span — and, through the refreshed
+            # parent_span, the remote worker's spans — nest under it
+            with spans.adopt(batch.parent_span):
+                with span(
+                    "probe.kube_batch",
+                    pod=batch.key(),
+                    requests=len(batch.requests),
+                ):
+                    if batch.trace_id:
+                        batch.parent_span = spans.current_path()
+                    results = self.client.batch(batch)
         except KubeError:
             return [(r.key, CONNECTIVITY_CHECK_FAILED) for r in batch.requests]
+        for r in results:
+            # workers report per-probe latency (worker/model.py
+            # latency_ms, optional for old workers): the driver-side
+            # histogram is the real-probe latency data source.  Blocked/
+            # failed probes carry retry+timeout time, so they land in a
+            # separate outcome series and never distort the ok-latency
+            # percentiles.
+            if r.latency_ms is not None:
+                ti.PROBE_LATENCY.observe(
+                    r.latency_ms / 1000.0,
+                    source="batch",
+                    outcome="ok" if r.is_success() else "error",
+                )
         return [
             (
                 r.request.key,

@@ -79,6 +79,7 @@ from ..engine.encoding import (
     pod_signatures,
 )
 from ..matcher.core import Policy
+from ..telemetry import instruments as ti
 
 PodTuple = Tuple[str, str, Dict[str, str], str]
 
@@ -593,6 +594,10 @@ class IncrementalEngine:
         )
         st["device_tensors"] = None
         st["class_of"] = None
+        ti.CLASS_PODS.set(n)
+        ti.CLASS_COUNT.set(pc.n_classes)
+        ti.CLASS_RATIO.set(st["ratio"])
+        ti.CLASS_AUX_BYTES.set(st["aux_bytes"])
 
     # --- rule-slab patches ----------------------------------------------
 
@@ -786,6 +791,7 @@ class IncrementalEngine:
         self._natural_buckets = needed_buckets
         if saved:
             self.headroom_saves += 1
+            ti.SERVE_HEADROOM_SAVES.inc()
         # the raw encoding and the derived host state follow
         enc.ingress = ingress
         enc.egress = egress
@@ -827,6 +833,8 @@ class IncrementalEngine:
             return 0
         nbytes = patch.flush()
         self.patch_bytes += nbytes
+        if nbytes:
+            ti.SERVE_PATCH_BYTES.inc(nbytes)
         return nbytes
 
     def finish(self) -> None:

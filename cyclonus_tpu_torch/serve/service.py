@@ -26,17 +26,19 @@ changed the engine; `staleness_s` is how long the OLDEST pending
 (submitted, unapplied) delta has been waiting — 0 when the queue is
 empty.  Every Verdict carries the epoch it was computed at.
 
-Of the reference service the SLO controller, the audit plane, the chaos
-hooks, the HTTP routes and the telemetry instruments are not ported:
-with their defaults (CYCLONUS_SLO_ENFORCE and CYCLONUS_AUDIT off) the
-reference admits every batch and routes every ready query live, as this
-service does.  Query latency quantiles come from this service's own
-recent per-query latencies, not from a process-wide histogram.
+The HTTP surface (register_http: /state and /query on the process
+metrics server, /readyz through readiness()) and the cyclonus_tpu_serve_*
+instruments are the reference's; state()'s query-latency quantiles and
+degraded count read the process-wide histogram and counter, as the
+reference's do.  The SLO controller, the audit plane and the chaos hooks
+are not ported: with their defaults (CYCLONUS_SLO_ENFORCE and
+CYCLONUS_AUDIT off) the reference admits every batch and routes every
+ready query live, as this service does, and /slo and /audit answer 503
+(no provider registered).
 """
 
 from __future__ import annotations
 
-import collections
 import logging
 import os
 import threading
@@ -53,8 +55,11 @@ from ..kube.yaml_io import parse_policy_dict
 from ..matcher.builder import build_network_policies
 from ..oracle import traffic_for_cell
 from ..matcher.tiered import TieredPolicy, tiered_oracle_verdicts
+from ..telemetry import instruments as ti
+from ..telemetry.metrics import histogram_quantile
 from ..tiers.model import AdminNetworkPolicy, BaselineAdminNetworkPolicy, TierSet
 from ..utils import guards
+from ..utils.tracing import phase
 from ..worker.model import Delta, FlowQuery, Verdict
 from . import stateregistry
 from .incremental import IncrementalEngine, Ineligible, PodTuple
@@ -66,10 +71,6 @@ VERIFY_CASES = (
     PortCase(80, "serve-80-tcp", "TCP"),
     PortCase(81, "serve-81-udp", "UDP"),
 )
-
-#: per-query latencies the state() quantiles are read from
-_LATENCY_WINDOW = 65536
-
 
 def _env_int(name: str, default: int) -> int:
     """An integer serve flag, the reference's default when unset or
@@ -98,6 +99,49 @@ def _churn_frac_limit() -> float:
 def prewarm_enabled() -> bool:
     """CYCLONUS_SERVE_PREWARM (default on; "0" turns it off)."""
     return os.environ.get("CYCLONUS_SERVE_PREWARM", "1") != "0"
+
+
+def register_http(service: "VerdictService") -> None:
+    """Expose the service on the process metrics server
+    (telemetry/server.py extension routes):
+
+        /state                        epoch, pending-delta depth,
+                                      staleness seconds, apply counters
+        /query?src=x/a&dst=y/b&port=80&protocol=TCP[&portName=...]
+                                      one curl-able flow verdict
+
+    /readyz reads service.readiness() once the caller registers it
+    (cli/serve_cmd.py does).  /slo and /audit keep answering 503: the
+    SLO controller and the audit plane are not ported."""
+    from ..telemetry import server as tserver
+
+    def state_route(_query):
+        return service.state(), 200
+
+    def query_route(query):
+        def one(key, default=""):
+            vals = query.get(key) or [default]
+            return vals[0]
+
+        try:
+            port = int(one("port", "0"))
+        except ValueError:
+            return {"error": "port must be an integer"}, 400
+        src, dst = one("src"), one("dst")
+        if not src or not dst:
+            return {"error": "src and dst query params are required"}, 400
+        fq = FlowQuery(
+            src=src,
+            dst=dst,
+            port=port,
+            protocol=one("protocol", "TCP"),
+            port_name=one("portName"),
+        )
+        verdict = service.query([fq])[0]
+        return verdict.to_dict(), (400 if verdict.error else 200)
+
+    tserver.register_route("/state", state_route)
+    tserver.register_route("/query", query_route)
 
 
 @guards.checked
@@ -153,9 +197,6 @@ class VerdictService:
         self._counts = {"incremental": 0, "full": 0, "noop": 0, "class_rebuild": 0}
         self._last_full_rebuild_s: Optional[float] = None
         self._last_apply_s: Optional[float] = None
-        self._latencies = collections.deque(maxlen=_LATENCY_WINDOW)
-        self._n_queries = 0
-        self._degraded = 0
         self._patch_bytes = 0
         self._headroom_saves = 0
         self._policy = None
@@ -163,6 +204,10 @@ class VerdictService:
         self._pod_idx: Dict[str, int] = {}
         with self._lock:
             self._rebuild()
+        # pull-style gauge refresh at scrape time: staleness/pending age
+        # continuously between delta events.  WeakMethod-registered — a
+        # garbage-collected service drops out of the scrape path on its own
+        ti.REGISTRY.register_collector(self._refresh_gauges)
 
     # --- engine lifecycle -------------------------------------------------
 
@@ -221,7 +266,10 @@ class VerdictService:
             if deltas and self._pending_since is None:
                 self._pending_since = time.monotonic()
             self._queue.extend(deltas)
-            return len(self._queue)
+            depth = len(self._queue)
+        ti.SERVE_PENDING.set(depth)
+        ti.SERVE_DELTAS.inc(len(deltas))
+        return depth
 
     def apply(self, deltas: Sequence[Delta]) -> Dict:
         self.submit(deltas)
@@ -364,6 +412,7 @@ class VerdictService:
         with self._lock:
             deltas, self._queue = self._queue, []
             self._pending_since = None
+            ti.SERVE_PENDING.set(0)
             if not deltas:
                 return {"applied": 0, "mode": None, "epoch": self._epoch, "seconds": 0.0}
             # validate the WHOLE batch before touching any state
@@ -375,6 +424,8 @@ class VerdictService:
                     valid.append((d, pol))
                 else:
                     rejected.append(f"{d.kind}/{d.namespace}/{d.name}: {reason}")
+            if rejected:
+                ti.SERVE_REJECTED.inc(len(rejected))
             # rollback point: every _apply_to_state mutation REPLACES
             # values wholesale, so shallow copies make the batch atomic
             snap = stateregistry.snapshot(self)
@@ -386,12 +437,16 @@ class VerdictService:
                         ops.append(op)
                 if not ops:
                     self._counts["noop"] += 1
+                    ti.SERVE_APPLIES.inc(mode="noop")
                     return {
                         "applied": len(valid), "mode": "noop",
                         "rejected": rejected, "epoch": self._epoch,
                         "seconds": round(time.perf_counter() - t0, 6),
                     }
-                mode = self._apply_ops(ops)
+                # the delta-application span: the nested engine spans
+                # (the full rebuild's encode) land under it
+                with phase("serve.apply"):
+                    mode = self._apply_ops(ops)
             except Exception:
                 # an unexpected raise must not leave the engine diverged
                 # from the dicts or poison them: roll the batch back,
@@ -404,11 +459,15 @@ class VerdictService:
                         "rebuild after rolled-back apply failed; engine may "
                         "be stale until the next apply"
                     )
+                ti.SERVE_FALLBACKS.inc(reason="apply_error")
                 raise
             self._epoch += 1
             self._counts[mode] += 1
+            ti.SERVE_APPLIES.inc(mode=mode)
+            ti.SERVE_EPOCH.set(self._epoch)
             dt = time.perf_counter() - t0
             self._last_apply_s = dt
+            ti.SERVE_APPLY_SECONDS.observe(dt, mode=mode)
             return {
                 "applied": len(valid), "mode": mode,
                 "rejected": rejected, "epoch": self._epoch,
@@ -426,6 +485,7 @@ class VerdictService:
         try:
             return self._apply_ops_incremental(ops)
         except Ineligible as e:
+            ti.SERVE_FALLBACKS.inc(reason="ineligible")
             logger.info("incremental apply ineligible (%s): full rebuild", e)
             self._rebuild()
             return "full"
@@ -518,6 +578,13 @@ class VerdictService:
     def mark_ready(self) -> None:
         self._ready.set()
 
+    def readiness(self) -> Tuple[bool, str]:
+        """The (ready, detail) pair telemetry/server.py's /readyz route
+        consumes."""
+        if self._ready.is_set():
+            return True, f"serving at epoch {self.epoch}"
+        return False, "prewarming the query path (queries degrade to the scalar oracle)"
+
     def prewarm(self, case: PortCase = VERIFY_CASES[0]) -> Dict:
         """Warm the query path BEFORE the service marks itself ready: one
         evaluate_pairs call, which uploads the device views (eager torch
@@ -550,7 +617,9 @@ class VerdictService:
             return self._query_degraded(queries)
         t0 = time.perf_counter()
         with self._lock:
-            out = self._query_locked(queries)
+            # host-side span only (serve.query): no device sync inside
+            with phase("serve.query"):
+                out = self._query_locked(queries)
         per = (time.perf_counter() - t0) / max(len(queries), 1)
         for v in out:
             if v is not None and not v.error:
@@ -558,11 +627,13 @@ class VerdictService:
         self._observe(per, len(queries))
         return [v for v in out if v is not None]
 
-    def _observe(self, per_query_s: float, n: int) -> None:
-        """Record a batch's amortized per-query latency, once per query."""
-        with self._lock:
-            self._latencies.extend([per_query_s] * n)
-            self._n_queries += n
+    @staticmethod
+    def _observe(per_query_s: float, n: int) -> None:
+        """Batch-amortized per-query latency, observed once per query:
+        what a caller of this batch size experienced per flow."""
+        for _ in range(n):
+            ti.SERVE_QUERY_LATENCY.observe(per_query_s)
+        ti.SERVE_QUERIES.inc(n)
 
     @guards.holds("self._lock")
     def _query_locked(self, queries: Sequence[FlowQuery]) -> List[Optional[Verdict]]:
@@ -629,17 +700,42 @@ class VerdictService:
             if not v.error:
                 v.latency_ms = round(per * 1000.0, 4)
         self._observe(per, len(queries))
-        with self._lock:
-            self._degraded += len(queries)
+        ti.SERVE_DEGRADED.inc(len(queries))
         return out
 
     # --- observability ----------------------------------------------------
 
+    def _refresh_gauges(self) -> None:
+        """Scrape-time collector (MetricRegistry.register_collector):
+        recompute the event-independent gauges so a scrape between delta
+        events sees the oldest pending delta's CURRENT age.  Try-locks
+        with a short timeout: an apply can hold the lock for a full
+        rebuild, and a scrape landing then must keep /metrics responsive
+        — it skips the refresh (counted in
+        cyclonus_tpu_serve_gauge_refresh_skipped_total)."""
+        if not self._lock.acquire(timeout=0.2):
+            ti.SERVE_GAUGE_REFRESH_SKIPPED.inc()
+            return
+        try:
+            pending = len(self._queue)
+            staleness = (
+                time.monotonic() - self._pending_since
+                if self._pending_since is not None
+                else 0.0
+            )
+            epoch = self._epoch
+        finally:
+            self._lock.release()
+        ti.SERVE_PENDING.set(pending)
+        ti.SERVE_STALENESS.set(staleness)
+        ti.SERVE_EPOCH.set(epoch)
+
     def state(self) -> Dict:
-        """Epoch, pending-delta depth, staleness seconds, the state
-        registry's counts, apply counters, engine shape, and query
-        latency quantiles (the reference's /state payload without its
-        slo and audit blocks)."""
+        """The /state payload: epoch, pending-delta depth, staleness
+        seconds, the state registry's counts, apply counters, engine
+        shape, and the query-latency quantiles of
+        cyclonus_tpu_serve_query_latency_seconds (the reference's payload
+        without its slo and audit blocks)."""
         with self._lock:
             eng = self._inc.engine
             pending = len(self._queue)
@@ -648,12 +744,13 @@ class VerdictService:
                 if self._pending_since is not None
                 else 0.0
             )
+            ti.SERVE_STALENESS.set(staleness)
+            hist = ti.SERVE_QUERY_LATENCY.snapshot()
             cc = eng.class_compression_stats()
-            lat = np.asarray(self._latencies, dtype=np.float64)
             return {
                 "epoch": self._epoch,
                 "ready": self._ready.is_set(),
-                "degraded_queries": self._degraded,
+                "degraded_queries": int(ti.SERVE_DEGRADED.value()),
                 "pending_deltas": pending,
                 "staleness_s": round(staleness, 3),
                 **stateregistry.state_counts(self),
@@ -667,9 +764,9 @@ class VerdictService:
                 },
                 "tiers": eng.tier_stats(),
                 "query_latency": {
-                    "count": self._n_queries,
-                    "p50_s": float(np.quantile(lat, 0.50)) if lat.size else None,
-                    "p99_s": float(np.quantile(lat, 0.99)) if lat.size else None,
+                    "count": sum(s.get("count", 0) for s in hist.get("samples") or []),
+                    "p50_s": histogram_quantile(hist, 0.50),
+                    "p99_s": histogram_quantile(hist, 0.99),
                 },
             }
 

@@ -28,9 +28,24 @@ class ContractViolation(AssertionError):
     """A wire field disagreed with its declared contract."""
 
 
+_COUNTER = None
+
+
 def _count(n: int) -> None:
-    global CHECKS
+    """Contract-check telemetry.  The counter is created ON FIRST CHECK,
+    as in the reference, so with CYCLONUS_SHAPE_CHECK unset it never
+    enters the metric registry."""
+    global CHECKS, _COUNTER
     CHECKS += n
+    if _COUNTER is None:
+        from ..telemetry.metrics import REGISTRY
+
+        _COUNTER = REGISTRY.counter(
+            "cyclonus_tpu_contract_checks_total",
+            "Tensor-contract validations performed (only exists under "
+            "CYCLONUS_SHAPE_CHECK=1).",
+        )
+    _COUNTER.inc(n)
 
 
 # --- wire contracts (worker/model.py JSON payloads) ----------------------

@@ -1,7 +1,6 @@
 """Driver-side worker client (reference: worker/client.go): marshal a
 batch, kubectl-exec the in-pod worker, parse its stdout.  A copy of the
-reference package's worker/client.py without its chaos points and its
-retry counter.
+reference package's worker/client.py without its chaos points.
 
 Wire robustness: each batch issue is BOUNDED (CYCLONUS_WORKER_TIMEOUT_S;
 a worker pod that dies mid-exec must cost a timeout, never a wedged
@@ -9,8 +8,9 @@ driver thread) and RETRIED with the full-jitter backoff of
 utils/retry.py, CYCLONUS_WORKER_RETRIES extra attempts
 (CYCLONUS_WORKER_BACKOFF_S the base pause).  Probes are idempotent
 connection attempts, so a re-issued batch re-measures, it never
-double-commits.  The final failure raises KubeError carrying the last
-error.
+double-commits.  Every retry counts into
+cyclonus_tpu_worker_retries_total; the final failure raises KubeError
+carrying the last error.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import time
 from typing import List
 
 from ..kube.ikubernetes import IKubernetes, KubeError
+from ..telemetry import instruments as ti
 from ..utils import contracts
 from ..utils.bounded import run_bounded
 from ..utils.retry import full_jitter_pause
@@ -53,7 +54,10 @@ def _backoff_s() -> float:
 
 class Client:
     """Stateless per call: probe runners issue batches from a thread
-    pool, so the client holds no mutable state of its own."""
+    pool, so the client holds no mutable state of its own — the only
+    shared structure the batch path touches is the trace-event ring,
+    whose BoundedRing lock (and pid-dedup in events.ingest) makes
+    concurrent ingestion safe."""
 
     def __init__(self, kubernetes: IKubernetes):
         self.kubernetes = kubernetes
@@ -85,7 +89,8 @@ class Client:
 
     def batch(self, batch: Batch) -> List[Result]:
         """Issue one batch with the timeout + jittered-backoff retry
-        envelope."""
+        envelope; trace events ingest from the SUCCESSFUL attempt only
+        (a half-dead attempt's events would duplicate the retry's)."""
         timeout = _timeout_s()
         attempts = _retries() + 1
         rng = random.Random()  # jitter must differ across drivers
@@ -96,7 +101,8 @@ class Client:
                     lambda: self._issue_once(batch), timeout
                 )
                 if status == "ok":
-                    return value
+                    results = value
+                    break
                 last_error = (
                     value
                     if status == "error"
@@ -107,12 +113,24 @@ class Client:
                 )
             else:
                 try:
-                    return self._issue_once(batch)
+                    results = self._issue_once(batch)
+                    break
                 except Exception as e:
                     last_error = e
             if attempt < attempts:
+                ti.WORKER_RETRIES.inc()
                 time.sleep(full_jitter_pause(_backoff_s(), attempt, rng))
-        raise KubeError(
-            f"worker batch failed after {attempts} attempt(s): "
-            f"{type(last_error).__name__}: {last_error}"
-        )
+        else:
+            raise KubeError(
+                f"worker batch failed after {attempts} attempt(s): "
+                f"{type(last_error).__name__}: {last_error}"
+            )
+        if batch.trace_id:
+            # merge the worker's recorded events into the driver's
+            # timeline (in-process workers are deduped by pid in ingest)
+            from ..telemetry import events
+
+            for r in results:
+                if r.trace_events:
+                    events.ingest(r.trace_events)
+        return results

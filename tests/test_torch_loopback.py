@@ -383,3 +383,45 @@ class TestCli:
         assert rc == ref_rc == 0
         assert out == ref_out
         assert out.count("0 wrong") == 2 and "total: 2 test cases" in out
+
+    def test_generate_trace_out_merges_worker_processes(self, tmp_path, capsys):
+        """`generate --loopback --batch-jobs --trace-out F --metrics-port 0
+        --phase-stats`: F holds the driver's events and those of at least
+        one worker subprocess under one trace id, `trace --input F`
+        summarises it, and a scrape of /metrics shows the probe latency
+        histogram."""
+        import urllib.request
+
+        from cyclonus_tpu_torch.telemetry import events
+        from cyclonus_tpu_torch.telemetry import server as tserver
+
+        out = str(tmp_path / "trace.json")
+        same_addresses()
+        try:
+            rc = main(["generate", "--loopback", "--batch-jobs", "--include", "conflict",
+                       "--retries", "0", "--max-cases", "1", "--device", "cpu",
+                       "--metrics-port", "0", "--trace-out", out, "--phase-stats"])
+            text = capsys.readouterr().out
+            assert rc == 0 and "0 wrong" in text
+            assert "phase timers:" in text and "engine.encode" in text
+            srv = tserver.active_server()
+            with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as resp:
+                body = resp.read().decode()
+            assert 'cyclonus_tpu_probe_latency_seconds_count{source="batch",outcome=' in body
+        finally:
+            events.disable()
+            events.reset()
+            tserver.register_readiness(None)
+            tserver.stop_metrics_server()
+        trace = json.load(open(out))
+        evts = [e for e in trace["traceEvents"] if e["ph"] != "M"]
+        assert len(trace["otherData"]["trace_ids"]) == 1
+        roles = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"] if e["ph"] == "M"}
+        assert len({e["pid"] for e in evts}) >= 2
+        assert any("worker" in r for r in roles.values())
+        assert any("driver" in r for r in roles.values())
+        assert {"generate.run", "probe.kube_batch", "worker.batch", "worker.probe"} <= {
+            e["name"] for e in evts}
+        assert main(["trace", "--input", out]) == 0
+        summary = capsys.readouterr().out
+        assert "process(es)" in summary and "worker.probe" in summary

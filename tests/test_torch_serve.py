@@ -53,6 +53,7 @@ from cyclonus_tpu.worker.model import Batch as RefBatch
 from cyclonus_tpu.worker.model import Delta as RefDelta
 from cyclonus_tpu.worker.model import FlowQuery as RefQuery
 from cyclonus_tpu_torch import carry
+from cyclonus_tpu_torch import telemetry as port_telemetry
 from cyclonus_tpu_torch.cli import main
 from cyclonus_tpu_torch.engine import api
 from cyclonus_tpu_torch.engine import packed_kernel as pk
@@ -520,6 +521,9 @@ class TestQueries:
         policies = port_policies([mk_policy("pol0", "x", random.Random(1))])
         warm = VerdictService(pods, namespaces, policies, device="cpu", defer_ready=True)
         live = VerdictService(pods, namespaces, policies, device="cpu")
+        # degraded_queries reads the process-wide counter, as the
+        # reference's state() does: start this worker's count at zero
+        port_telemetry.reset()
         qs = [FlowQuery(src=f"{pods[i][0]}/{pods[i][1]}", dst=f"{pods[j][0]}/{pods[j][1]}",
                         port=80, protocol="TCP", port_name="serve-80-tcp")
               for i in range(10) for j in (0, 3, 7)]
@@ -533,7 +537,12 @@ class TestQueries:
         assert [(v.ingress, v.egress, v.combined) for v in warm.query(qs)] == verdicts
 
     def test_latency_quantiles(self):
+        """query_latency reads cyclonus_tpu_serve_query_latency_seconds,
+        a process-wide histogram (as the reference's state() does): reset
+        the port's telemetry so earlier queries in this worker drop out;
+        the quantiles are bucket interpolations (histogram_quantile)."""
         svc = VerdictService(*mk_cluster(6), [], device="cpu")
+        port_telemetry.reset()
         svc.query([FlowQuery(src="x/p0", dst="y/p1", port=80, protocol="TCP")] * 3)
         lat = svc.state()["query_latency"]
         assert lat["count"] == 3 and 0 <= lat["p50_s"] <= lat["p99_s"]
@@ -668,6 +677,152 @@ class TestCli:
         assert outs[0].out == outs[1].out
         assert f"{len(pods)} pods" in outs[0].err and f"{len(pods)} pods" in outs[1].err
 
+
+
+def http(url):
+    """(status, decoded JSON or text) of a GET; error statuses read."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            status, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read().decode()
+    try:
+        return status, json.loads(body)
+    except ValueError:
+        return status, body
+
+
+@pytest.fixture
+def both_servers(monkeypatch, tmp_path):
+    """The reference's and the port's process metrics servers on ephemeral
+    ports, with their routes and readiness callbacks unregistered after."""
+    from cyclonus_tpu.telemetry import server as ref_server
+    from cyclonus_tpu_torch.telemetry import server as port_server
+
+    monkeypatch.setenv("CYCLONUS_FLIGHT_RECORDER_PATH", str(tmp_path / "flight.json"))
+    mods = (ref_server, port_server)
+    for m in mods:
+        m.stop_metrics_server()
+    srvs = tuple(m.start_metrics_server(0) for m in mods)
+    try:
+        yield srvs
+    finally:
+        for m in mods:
+            for route in ("/state", "/query"):
+                m.unregister_route(route)
+            m.register_readiness(None)
+            m.register_slo(None)
+            m.register_audit(None)
+            m.stop_metrics_server()
+
+
+class TestHttp:
+    """register_http: /state and /query over HTTP, as the reference's."""
+
+    def test_state_and_query_equal_reference(self, both_servers):
+        ref_srv, srv = both_servers
+        pods, namespaces = mk_cluster(12)
+        rng = random.Random(4)
+        twin = Twin(pods, namespaces, [mk_policy(f"pol{i}", NS[i % 3], rng) for i in range(3)])
+        ref_service_mod.register_http(twin.ref)
+        service_mod.register_http(twin.port)
+        twin.apply([RefDelta(kind="pod_labels", namespace="x", name="p0",
+                             labels={"app": "a1", "tier": "db"})])
+        keys = list(twin.ref.pods) + ["zz/ghost"]
+        for _ in range(24):
+            src, dst = rng.choice(keys), rng.choice(keys)
+            port, name, proto = rng.choice(PORT_CASES)
+            q = f"/query?src={src}&dst={dst}&port={port}&protocol={proto}"
+            if name:
+                q += f"&portName={name}"
+            want, got = http(ref_srv.url + q), http(srv.url + q)
+            for _status, body in (want, got):
+                body.pop("LatencyMs", None)
+            assert got == want, q
+            assert got[0] == (400 if dst == "zz/ghost" or src == "zz/ghost" else 200)
+        want, got = http(ref_srv.url + "/state")[1], http(srv.url + "/state")[1]
+        assert got == json.loads(json.dumps(twin.port.state(), default=str)) | {
+            k: got[k] for k in VOLATILE & set(got)}
+        for st in (want, got):
+            for k in VOLATILE:
+                st.pop(k, None)
+            st["tiers"].pop("resolve_s")
+        assert got == want
+
+    def test_query_bad_requests(self, both_servers):
+        ref_srv, srv = both_servers
+        pods, namespaces = mk_cluster(6)
+        ref_service_mod.register_http(RefService(pods, namespaces, []))
+        service_mod.register_http(VerdictService(pods, namespaces, [], device="cpu"))
+        for q in ("/query?src=x/p0&dst=y/p1&port=eighty", "/query?src=x/p0&port=80",
+                  "/query?dst=x/p0", "/query"):
+            want, got = http(ref_srv.url + q), http(srv.url + q)
+            assert got == want and got[0] == 400, q
+        assert http(srv.url + "/slo")[0] == 503 and http(srv.url + "/audit")[0] == 503
+
+    def test_readyz_across_prewarm_and_metrics(self, both_servers):
+        """/readyz answers 503 while the service warms (queries then
+        degrade to the oracle) and 200 after the prewarm; the queries
+        move cyclonus_tpu_serve_queries_total and the /state latency."""
+        from cyclonus_tpu_torch.telemetry import server as port_server
+
+        _ref_srv, srv = both_servers
+        pods, namespaces = mk_cluster(10)
+        svc = VerdictService(pods, namespaces, port_policies([mk_policy("pol0", "x", random.Random(1))]),
+                             device="cpu", defer_ready=True)
+        service_mod.register_http(svc)
+        port_server.register_readiness(svc.readiness)
+        status, body = http(srv.url + "/readyz")
+        assert status == 503 and body.startswith("warming")
+        port_telemetry.reset()
+        q = "/query?src=x/p0&dst=y/p1&port=80&protocol=TCP"
+        degraded = http(srv.url + q)
+        assert degraded[0] == 200
+        svc.prewarm()
+        status, body = http(srv.url + "/readyz")
+        assert status == 200 and "serving at epoch 0" in body
+        live = http(srv.url + q)
+        for _s, b in (degraded, live):
+            b.pop("LatencyMs", None)
+        assert live == degraded
+        st = http(srv.url + "/state")[1]
+        assert st["ready"] and st["degraded_queries"] == 1 and st["query_latency"]["count"] == 2
+        metrics = http(srv.url + "/metrics")[1]
+        assert "cyclonus_tpu_serve_queries_total 2" in metrics
+        assert "cyclonus_tpu_serve_degraded_queries_total 1" in metrics
+
+    def test_cli_metrics_port(self, monkeypatch, capsys, tmp_path):
+        """`serve --metrics-port 0` binds, prints the bound routes, and
+        serves /state while the stdio loop runs."""
+        from cyclonus_tpu_torch.telemetry import server as port_server
+
+        monkeypatch.setenv("CYCLONUS_FLIGHT_RECORDER_PATH", str(tmp_path / "flight.json"))
+        port_server.stop_metrics_server()
+        seen = {}
+
+        class Stdin(io.StringIO):
+            def __iter__(self):
+                srv = port_server.active_server()
+                seen["state"] = http(srv.url + "/state")
+                seen["ready"] = http(srv.url + "/readyz")
+                return super().__iter__()
+
+        monkeypatch.setattr(sys, "stdin", Stdin(""))
+        try:
+            assert main(["serve", "--synthetic-pods", "8", "--device", "cpu",
+                         "--metrics-port", "0"]) == 0
+        finally:
+            port_server.register_readiness(None)
+            for route in ("/state", "/query"):
+                port_server.unregister_route(route)
+            port_server.stop_metrics_server()
+        err = capsys.readouterr().err
+        assert "serve: metrics on http://127.0.0.1:" in err and "/readyz" in err
+        assert seen["state"][0] == 200 and seen["state"][1]["pods"] == 8
+        assert seen["ready"][0] == 200
 
 class TestNoFallback:
     def test_service_raises_without_card(self, monkeypatch):

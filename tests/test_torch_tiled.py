@@ -109,7 +109,7 @@ class TestTileLoop:
         counts = {
             k: tiled.evaluate_grid_counts_classes(
                 port_t, pc.n_classes, pc.class_size, port.n_pods, pack=pack, kernel=k
-            )
+            )[0]
             for k in ("xla", "pallas")
         }
         assert counts["xla"] == counts["pallas"]
