@@ -200,15 +200,38 @@ Phases, each raising on failure:
                 200, its Chrome trace names packed_counts_kernel among the
                 device events, and a second /profile during the first gets
                 409.  Prints one {"telemetry": ...} line.
+ 12. chaos    — run after `telemetry`, the kernel launch counts zeroed
+                before it and read after it: (a) `python -m
+                cyclonus_tpu_torch chaos --json` on the card, all seven
+                scenarios ok (serve_kill_restart's time to first verdict,
+                the torch import and CUDA's start included,
+                printed against its 150 s bound; audit_divergence's
+                corruption found within 32 checks); (b) a VerdictService
+                on the card at the serve phase's 1,024-pod cluster, untiered
+                and tiered, with CYCLONUS_AUDIT=1 and rate 1.0, under
+                bench.py's 32-delta stream beside a CPU twin: verdicts equal
+                to the twin's, every answered query checked and none
+                diverged, one digest per epoch equal to the twin's, and the
+                final packed counts (K1; tiered K3) equal to the twin's; (c)
+                scenario_poisoned_caches at that cluster with the autotune
+                on "auto": K4 and K6 launch, every poisoned winners file is
+                searched again and the counts stay equal; (d)
+                CYCLONUS_SLO_ENFORCE=1 with query_p99 and freshness forced
+                to exhausted: every query shed (SLO_SHED), a delta batch
+                refused with Admission; forced back to ok, the verdicts are
+                live and equal to the oracle; (e) `recipes --engine cuda`:
+                the 15 recipes' tables equal to `--engine oracle`'s.
+                Prints one {"chaos": ...} line.
 
 Every comparison is exact.  Prints a JSON line of the probe phase, the
 loopback line, the cidr and analyze lines, the serve lines, the mesh lines, a JSON line of
 the main path's
-end-to-end numbers (per route and dense-plan leg), the telemetry line, a
-line of each phase's seconds, a JSON line of per-kernel numbers (with
-each kernel's launches on the serve path, on the CIDR legs, on the
-mesh's sharded calls, on the loopback phase and on the telemetry
-phase), then as its last line {"ok": true, "device": {...}}.
+end-to-end numbers (per route and dense-plan leg), the telemetry line, the
+chaos line, a line of each phase's seconds, a JSON line of per-kernel
+numbers (with each kernel's launches on the serve path, on the CIDR legs,
+on the mesh's sharded calls, on the loopback phase, on the telemetry
+phase and on the chaos phase), then as its last line {"ok": true,
+"device": {...}}.
 A crash dumps the flight recorder into the temporary directory.
 Exits non-zero, with no result line, when there is no CUDA device or any
 phase fails.  The port's CPU paths are covered by tests/test_torch_*.py.
@@ -3118,6 +3141,270 @@ def phase_telemetry(device, headline):
     return out["launches"]
 
 
+#: chaos phase: the audited stream keeps every epoch's digest (the
+#: default ring holds 8), and the divergence budget of audit_divergence
+CHAOS_EPOCHS, CHAOS_CHECK_BUDGET = 64, 32
+
+
+def chaos_suite():
+    """(a) the `chaos` command on the card (its default device), all seven
+    scenarios; every one must hold.  It runs in a subprocess of its own,
+    so its launches are not this process's."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "cyclonus_tpu_torch", "chaos", "--json"],
+        capture_output=True, text=True, timeout=900, cwd=HERE,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"chaos: the suite failed (exit {proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    failed = [n for n, r in report["scenarios"].items() if not r.get("ok")]
+    if len(report["scenarios"]) != 7 or failed:
+        raise AssertionError(f"chaos: scenarios failed {failed}: {report}")
+    restart = report["scenarios"]["serve_kill_restart"]
+    audit = report["scenarios"]["audit_divergence"]
+    if audit["detected_after_checks"] > CHAOS_CHECK_BUDGET:
+        raise AssertionError(f"chaos: divergence found after {audit['detected_after_checks']}")
+    log(f"chaos (a): serve_kill_restart ttfv {restart['ttfv_s']} s against the "
+        f"{restart['ttfv_bound_s']} s bound; audit_divergence detected after "
+        f"{audit['detected_after_checks']} checks (budget {CHAOS_CHECK_BUDGET})")
+    return {
+        "seconds": {n: r["seconds"] for n, r in report["scenarios"].items()},
+        "ttfv_s": restart["ttfv_s"], "ttfv_bound_s": restart["ttfv_bound_s"],
+        "slo_ttfv_s": report["scenarios"]["slo_ttfv"]["restart"]["ttfv_s"],
+        "detected_after_checks": audit["detected_after_checks"],
+        "poisoned_rejected": report["scenarios"]["poisoned_caches"]["rejected"],
+        "worker_retries": report["scenarios"]["worker_wire"]["retries"],
+    }
+
+
+def audited_leg(device, tiers):
+    """(b) one audited service on the card (CYCLONUS_AUDIT=1, rate 1.0)
+    and its CPU twin (digests only) under bench.py's serve stream: every
+    verdict equal to the twin's, every answered query checked with no
+    divergence, one digest per epoch equal to the twin's, and the final
+    packed counts equal to the twin's with the packed kernel launched."""
+    from cyclonus_tpu_torch.audit import AuditController
+    from cyclonus_tpu_torch.engine import PortCase
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.serve import VerdictService
+    from cyclonus_tpu_torch.synthetic import build_synthetic
+    from cyclonus_tpu_torch.telemetry import instruments as ti
+    from cyclonus_tpu_torch.worker.model import Delta
+
+    label = "chaos (b) audited" + (" tiered" if tiers else "")
+    rng = random.Random(SERVE_SEED)
+    pods, namespaces, policies = build_synthetic(SERVE_PODS, SERVE_POLICIES, rng)
+    checked0, diverged0 = ti.AUDIT_CHECKED.value(), ti.AUDIT_DIVERGED.value()
+    t0 = time.perf_counter()
+    with env(CYCLONUS_AUDIT="1", CYCLONUS_AUDIT_RATE="1.0", CYCLONUS_AUDIT_EPOCHS=str(CHAOS_EPOCHS)):
+        card = VerdictService(pods, namespaces, policies, device=device, tiers=tiers)
+        twin = VerdictService(pods, namespaces, policies, device="cpu", tiers=tiers,
+                              audit=AuditController(rate=0.0))
+    try:
+        keys = list(card.pods)
+        answered, query_s = 0, []
+
+        def bits(vs):
+            return [(v.ingress, v.egress, v.combined, v.error, v.epoch) for v in vs]
+
+        for step in range(SERVE_DELTAS):
+            key = keys[rng.randrange(len(keys))]
+            ns, name = key.split("/", 1)
+            if step % 5 == 4:
+                pod = card.pods[key]
+                deltas = [Delta(kind="pod_remove", namespace=ns, name=name),
+                          Delta(kind="pod_add", namespace=ns, name=name, labels=dict(pod[2]),
+                                ip=pod[3])]
+            else:
+                deltas = [Delta(kind="pod_labels", namespace=ns, name=name, labels={
+                    "pod": f"p{rng.randrange(100)}", "app": f"app{rng.randrange(20)}",
+                    "tier": f"tier{rng.randrange(5)}"})]
+            a, b = card.apply(deltas), twin.apply(deltas)
+            if (a["mode"], a["epoch"]) != (b["mode"], b["epoch"]) or a["mode"] == "full":
+                raise AssertionError(f"{label}: apply {a} against the twin's {b}")
+            qs = serve_queries(rng, keys, SERVE_QUERIES)
+            t1 = time.perf_counter()
+            got = card.query(qs)
+            query_s.append(time.perf_counter() - t1)
+            if bits(got) != bits(twin.query(qs)) or any(v.error for v in got):
+                raise AssertionError(f"{label}: step {step}: verdicts differ from the twin's")
+            answered += len(qs)
+        if not (card.audit.flush(timeout=120) and twin.audit.flush(timeout=120)):
+            raise AssertionError(f"{label}: the audit queue did not drain")
+        snap = card.audit.snapshot()
+        checked = ti.AUDIT_CHECKED.value() - checked0
+        diverged = ti.AUDIT_DIVERGED.value() - diverged0
+        if checked != answered or diverged != 0 or snap["sampled"] != answered:
+            raise AssertionError(f"{label}: checked {checked} and diverged {diverged} of "
+                                 f"{answered} answered queries ({snap})")
+        digests, twin_digests = card.audit.digests(), twin.audit.digests()
+        epochs = list(range(card.epoch + 1))
+        if sorted(digests) != epochs or sorted(twin_digests) != epochs:
+            raise AssertionError(f"{label}: digests of epochs {sorted(digests)}, "
+                                 f"twin {sorted(twin_digests)}, want {epochs}")
+        differ = [e for e in epochs if digests[e]["digest"] != twin_digests[e]["digest"]]
+        if differ:
+            raise AssertionError(f"{label}: digests of epochs {differ} differ from the twin's")
+        cases = [PortCase(80, "serve-80-tcp", "TCP"), PortCase(81, "serve-81-udp", "UDP")]
+        kernel = "packed_counts_tiered" if tiers else "packed_counts"
+        launched = pk.LAUNCHES[kernel]
+        counts = card.engine.evaluate_grid_counts(cases)
+        k_launches = pk.LAUNCHES[kernel] - launched
+        twin_counts = twin.engine.evaluate_grid_counts(cases)
+        if counts != twin_counts or k_launches != 1:
+            raise AssertionError(f"{label}: counts {counts} against the twin's {twin_counts}, "
+                                 f"{kernel} launched {k_launches}")
+        out = {
+            "pods": SERVE_PODS, "policies": SERVE_POLICIES, "deltas": SERVE_DELTAS,
+            "tiers": card.state()["tiers"]["active"], "answered": answered,
+            "checked": checked, "diverged": diverged, "epochs": len(epochs),
+            "digests_equal_twin": True, "last_digest": digests[epochs[-1]]["digest"],
+            "digest_s_max": max(d["seconds"] for d in digests.values()),
+            "query_batch_p50_ms": 1e3 * statistics.median(query_s),
+            "counts": counts, "counts_equal_twin": True, "kernel": kernel,
+            "seconds": time.perf_counter() - t0,
+        }
+    finally:
+        card.audit.close()
+        twin.audit.close()
+    log(f"{label}: {answered} queries checked, 0 diverged, {len(epochs)} epoch digests "
+        f"equal to the CPU twin's, {kernel} counts equal")
+    return out
+
+
+def poisoned_leg(device):
+    """(c) scenario_poisoned_caches on the card at the serve phase's
+    cluster with the autotune on "auto": the dense kernel (K4) and the
+    slab kernel (K6) launch, and every poisoned mode searches again and
+    gives equal counts."""
+    from cyclonus_tpu_torch.chaos import harness
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+
+    before = dict(dk.LAUNCHES)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-poison-") as tmp:
+        report = harness.scenario_poisoned_caches(seed=SERVE_SEED, workdir=tmp, n_pods=SERVE_PODS,
+                                                  n_policies=SERVE_POLICIES, device=device)
+    launched = {k: dk.LAUNCHES[k] - before[k] for k in dk.LAUNCHES}
+    if not (report["ok"] and report["rejected"] == 3):
+        raise AssertionError(f"chaos (c): {report}")
+    if launched["dense_counts_1chunk"] < 1 or launched["dense_counts_slab"] < 1:
+        raise AssertionError(f"chaos (c): K4 and K6 must launch: {launched}")
+    log(f"chaos (c): poisoned winners searched again in every mode, counts {report['counts']}, "
+        f"launches {launched}")
+    return {"rejected": report["rejected"], "counts": report["counts"], "launches": launched,
+            "seconds": time.perf_counter() - t0}
+
+
+def slo_leg(device):
+    """(d) SLO enforcement on the card: query_p99 and freshness forced to
+    exhausted shed every query (SLO_SHED moves) and refuse a delta batch
+    with Admission; forced back to ok, the verdicts are live and equal
+    to the scalar oracle."""
+    from cyclonus_tpu_torch.engine import PortCase
+    from cyclonus_tpu_torch.matcher.tiered import tiered_oracle_verdicts
+    from cyclonus_tpu_torch.oracle import traffic_for_cell
+    from cyclonus_tpu_torch.serve import VerdictService
+    from cyclonus_tpu_torch.serve.loop import handle_line
+    from cyclonus_tpu_torch.synthetic import build_synthetic
+    from cyclonus_tpu_torch.telemetry import instruments as ti
+    from cyclonus_tpu_torch.worker.model import Batch, Delta
+
+    t0 = time.perf_counter()
+    rng = random.Random(SERVE_SEED + 1)
+    pods, namespaces, policies = build_synthetic(SERVE_PODS, SERVE_POLICIES, random.Random(SERVE_SEED))
+    with env(CYCLONUS_SLO_ENFORCE="1"):
+        svc = VerdictService(pods, namespaces, policies, device=device)
+    if not svc.slo.enforce:
+        raise AssertionError("chaos (d): CYCLONUS_SLO_ENFORCE=1 did not arm the controller")
+    keys = list(svc.pods)
+    qs = serve_queries(rng, keys, 64)
+    for objective in ("query_p99", "freshness"):
+        svc.slo.force_state(objective, "exhausted")
+    shed0, rejects0 = ti.SLO_SHED.value(), ti.SLO_ADMISSION_REJECTS.value()
+    shed = svc.query(qs)
+    ns, name = keys[0].split("/", 1)
+    line = Batch(namespace="", pod="", container="",
+                 deltas=[Delta(kind="pod_labels", namespace=ns, name=name, labels={"app": "slo"})],
+                 queries=qs[:4]).to_json()
+    reply = handle_line(svc, line)
+    if not all(v.shed and v.error for v in shed) or ti.SLO_SHED.value() - shed0 != len(qs) + 4:
+        raise AssertionError(f"chaos (d): queries not shed ({ti.SLO_SHED.value() - shed0})")
+    if reply.get("Applied") != 0 or "freshness" not in reply.get("Admission", "") or \
+            ti.SLO_ADMISSION_REJECTS.value() - rejects0 != 1 or svc.epoch != 0:
+        raise AssertionError(f"chaos (d): the delta batch was not refused: {reply}")
+    state = svc.state()["slo"]["objectives"]
+    for objective in ("query_p99", "freshness"):
+        svc.slo.force_state(objective, "ok")
+    live = svc.query(qs)
+    pods_list = list(svc.pods.values())
+    index = {k: i for i, k in enumerate(svc.pods)}
+    for q, v in zip(qs, live):
+        want = tiered_oracle_verdicts(svc._policy, None, traffic_for_cell(
+            pods_list, svc.namespaces, PortCase(q.port, q.port_name, q.protocol),
+            index[q.src], index[q.dst]))
+        if v.shed or v.error or (v.ingress, v.egress, v.combined) != tuple(want):
+            raise AssertionError(f"chaos (d): {q} answered {v} against the oracle's {want}")
+    log(f"chaos (d): {len(qs) + 4} queries shed, one batch refused ({reply['Admission']!r}); "
+        f"{len(qs)} live verdicts equal to the oracle after recovery")
+    return {"shed": len(qs) + 4, "admission_rejects": 1,
+            "states_when_forced": {k: state[k]["state"] for k in ("query_p99", "freshness")},
+            "live_equal_oracle": len(qs), "seconds": time.perf_counter() - t0}
+
+
+def recipes_leg():
+    """(e) `recipes --engine cuda` on the card: the 15 recipes' tables
+    equal to `--engine oracle`'s."""
+    import io
+
+    from cyclonus_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    out = {}
+    for engine in ("cuda", "oracle"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli_main(["recipes", "--engine", engine]) != 0:
+                raise AssertionError(f"chaos (e): recipes --engine {engine} failed")
+        out[engine] = buf.getvalue().split("=== recipe ")[1:]
+    if len(out["cuda"]) != 15 or out["cuda"] != out["oracle"]:
+        bad = [c.split(" ===")[0] for c, o in zip(out["cuda"], out["oracle"]) if c != o]
+        raise AssertionError(f"chaos (e): {len(out['cuda'])} recipes, differing: {bad}")
+    log("chaos (e): the 15 recipe tables on the card equal the oracle's")
+    return {"recipes": 15, "equal_oracle": True, "seconds": time.perf_counter() - t0}
+
+
+def phase_chaos(device):
+    """The SLO controller, the audit plane and the chaos suite on the
+    card, legs (a)-(e), one {"chaos": ...} line.  Returns the kernel
+    launches of the phase, counted from zero."""
+    import torch
+
+    from cyclonus_tpu_torch.engine import dense_kernel as dk
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+    from cyclonus_tpu_torch.synthetic import bench_tiers
+
+    pk.reset_launches()
+    dk.reset_launches()
+    out = {"card": card_info()}
+    t = time.perf_counter()
+    out["a_suite"] = chaos_suite()
+    out["a_suite"]["wall_s"] = time.perf_counter() - t
+    out["b_audited"] = [audited_leg(device, tiers) for tiers in (None, bench_tiers())]
+    out["c_poisoned"] = poisoned_leg(device)
+    out["d_slo"] = slo_leg(device)
+    out["e_recipes"] = recipes_leg()
+    torch.cuda.empty_cache()
+    out["launches"] = launch_counts()
+    for kernel in ("packed_counts", "packed_counts_tiered", "dense_counts_1chunk",
+                   "dense_counts_slab"):
+        if out["launches"][kernel] < 1:
+            raise AssertionError(f"chaos: {kernel} never launched: {out['launches']}")
+    log(json.dumps({"chaos": out}))
+    return out["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -3162,6 +3449,7 @@ def main() -> int:
         records, main_counts, headline = timed("main_path", phase_main_path)
         mesh_launches = timed("mesh", lambda device: phase_mesh(device, headline))
         telemetry_launches = timed("telemetry", lambda device: phase_telemetry(device, headline))
+        chaos_launches = timed("chaos", phase_chaos)
     # the serve engine's counts of the headline cluster before its patch
     # are the main path's untiered counts of the same cluster
     if serve_counts != main_counts:
@@ -3174,6 +3462,7 @@ def main() -> int:
         r["mesh_launches"] = mesh_launches.get(r["name"], 0)
         r["loopback_launches"] = loopback_launches.get(r["name"], 0)
         r["telemetry_launches"] = telemetry_launches.get(r["name"], 0)
+        r["chaos_launches"] = chaos_launches.get(r["name"], 0)
     log(json.dumps({"phase_s": phase_s, "total_s": time.perf_counter() - t0}))
     log(card_info())
     log(json.dumps({"kernels": records}))

@@ -26,15 +26,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = parser.add_subparsers(dest="command", required=True)
 
     from .analyze import setup_analyze
+    from .chaos_cmd import setup_chaos
     from .fuzz_cmd import setup_fuzz
     from .generate import setup_generate
     from .probe_cmd import setup_probe
+    from .recipes_cmd import setup_recipes
     from .serve_cmd import setup_serve
 
     setup_analyze(sub)
+    setup_chaos(sub)
     setup_fuzz(sub)
     setup_generate(sub)
     setup_probe(sub)
+    setup_recipes(sub)
     setup_serve(sub)
 
     telemetry_cmd = sub.add_parser(

@@ -125,7 +125,7 @@ def synthetic_cluster(n_pods: int, n_ns: int, seed: int):
 def run_serve(args) -> int:
     from ..kube.yaml_io import load_policies_from_path
     from ..serve import VerdictService, run_stdio
-    from ..serve.service import prewarm_enabled, register_http
+    from ..serve.service import register_http
     from ..telemetry.server import MetricsPortBusy, start_metrics_server
 
     policies = load_policies_from_path(args.policies) if args.policies else []
@@ -147,7 +147,9 @@ def run_serve(args) -> int:
         pods, namespaces = synthesize_cluster(compiled)
     for p in policies:
         namespaces.setdefault(p.effective_namespace(), {})
-    prewarm_on = not args.no_prewarm and prewarm_enabled()
+    from ..utils import envflags
+
+    prewarm_on = not args.no_prewarm and envflags.get_bool("CYCLONUS_SERVE_PREWARM")
     service = VerdictService(
         pods,
         namespaces,
@@ -174,7 +176,8 @@ def run_serve(args) -> int:
         print(
             f"serve: metrics on {srv.url}/metrics, state on "
             f"{srv.url}/state, queries on {srv.url}/query, readiness "
-            f"on {srv.url}/readyz (port {srv.port})",
+            f"on {srv.url}/readyz, slo on {srv.url}/slo, audit on "
+            f"{srv.url}/audit (port {srv.port})",
             file=sys.stderr,
         )
     if prewarm_on:
@@ -190,9 +193,15 @@ def run_serve(args) -> int:
             f", {st['tiers']['anp_count']} ANPs"
             f"{' + BANP' if st['tiers']['banp'] else ''}"
         )
+    audit_note = ""
+    if service.audit is not None:
+        audit_note = (
+            f", audit armed (rate {service.audit.rate:g}, "
+            f"seed {service.audit.seed})"
+        )
     print(
         f"serve: engine ready on {service.engine.device} — {st['pods']} pods, "
-        f"{st['policies']} policies{tier_note} (epoch {st['epoch']}); "
+        f"{st['policies']} policies{tier_note} (epoch {st['epoch']}){audit_note}; "
         f"reading batches from stdin",
         file=sys.stderr,
     )

@@ -13,9 +13,10 @@ rebuild vs scalar oracle — is `VerdictService.verify_parity`.
 from . import stateregistry
 from .incremental import IncrementalEngine, Ineligible
 from .loop import run_stdio
-from .service import VerdictService
+from .service import AdmissionRejected, VerdictService
 
 __all__ = [
+    "AdmissionRejected",
     "IncrementalEngine",
     "Ineligible",
     "VerdictService",

@@ -58,7 +58,6 @@ cluster state, with the scalar oracle spot-checking both.
 
 from __future__ import annotations
 
-import os
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -80,6 +79,7 @@ from ..engine.encoding import (
 )
 from ..matcher.core import Policy
 from ..telemetry import instruments as ti
+from ..utils import envflags
 
 PodTuple = Tuple[str, str, Dict[str, str], str]
 
@@ -99,10 +99,7 @@ def serve_headroom() -> int:
     """CYCLONUS_SERVE_HEADROOM: extra rule-slab bucket steps the serve
     path reserves at engine build (default 1; 0 restores exact-fit
     buckets).  A malformed value reads as the default."""
-    try:
-        return max(0, int(os.environ.get("CYCLONUS_SERVE_HEADROOM", "1")))
-    except ValueError:
-        return 1
+    return max(0, envflags.get_int("CYCLONUS_SERVE_HEADROOM"))
 
 
 def _leaf(tree: Dict, path: tuple):

@@ -22,7 +22,7 @@ import json
 from typing import IO, Optional
 
 from ..worker.model import Batch
-from .service import VerdictService
+from .service import AdmissionRejected, VerdictService
 
 
 def run_stdio(
@@ -54,12 +54,20 @@ def handle_line(service: VerdictService, line: str) -> dict:
     batch = Batch.from_json(line)
     reply: dict = {}
     if batch.deltas:
-        report = service.apply(batch.deltas)
-        reply["Applied"] = report["applied"]
-        reply["Mode"] = report["mode"]
-        reply["Epoch"] = report["epoch"]
-        if report.get("rejected"):
-            reply["Rejected"] = report["rejected"]
+        try:
+            report = service.apply(batch.deltas)
+        except AdmissionRejected as e:
+            # SLO admission control refused the batch (nothing was
+            # enqueued): report the back-pressure, still answer the
+            # line's queries
+            reply["Applied"] = 0
+            reply["Admission"] = str(e)
+        else:
+            reply["Applied"] = report["applied"]
+            reply["Mode"] = report["mode"]
+            reply["Epoch"] = report["epoch"]
+            if report.get("rejected"):
+                reply["Rejected"] = report["rejected"]
     verdicts = service.query(batch.queries) if batch.queries else []
     if batch.queries:
         reply["Verdicts"] = [v.to_dict() for v in verdicts]

@@ -26,27 +26,30 @@ changed the engine; `staleness_s` is how long the OLDEST pending
 (submitted, unapplied) delta has been waiting — 0 when the queue is
 empty.  Every Verdict carries the epoch it was computed at.
 
-The HTTP surface (register_http: /state and /query on the process
-metrics server, /readyz through readiness()) and the cyclonus_tpu_serve_*
-instruments are the reference's; state()'s query-latency quantiles and
-degraded count read the process-wide histogram and counter, as the
-reference's do.  The SLO controller, the audit plane and the chaos hooks
-are not ported: with their defaults (CYCLONUS_SLO_ENFORCE and
-CYCLONUS_AUDIT off) the reference admits every batch and routes every
-ready query live, as this service does, and /slo and /audit answer 503
-(no provider registered).
+The HTTP surface (register_http: /state, /query, /slo and /audit on the
+process metrics server, /readyz through readiness()) and the
+cyclonus_tpu_serve_* instruments are the reference's; state()'s
+query-latency quantiles and degraded count read the process-wide
+histogram and counter, as the reference's do.
+
+The SLO controller (slo/), the audit plane (audit/) and the chaos point
+`delta_apply` sit where the reference has them.  SLO enforcement
+(CYCLONUS_SLO_ENFORCE) and auditing (CYCLONUS_AUDIT) are off by default:
+the controller then admits every batch and routes every ready query
+live, and the query path pays one `is None` check for the audit plane.
+Lock order: service -> slo and service -> audit, never the reverse.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import chaos
 from ..carry import resolve_device
 from ..engine.api import PortCase, TorchPolicyEngine
 from ..engine.host import _parseable_ip, _slab_max_bytes
@@ -55,14 +58,18 @@ from ..kube.yaml_io import parse_policy_dict
 from ..matcher.builder import build_network_policies
 from ..oracle import traffic_for_cell
 from ..matcher.tiered import TieredPolicy, tiered_oracle_verdicts
+from ..slo.engine import SloController
 from ..telemetry import instruments as ti
 from ..telemetry.metrics import histogram_quantile
 from ..tiers.model import AdminNetworkPolicy, BaselineAdminNetworkPolicy, TierSet
-from ..utils import guards
+from ..utils import envflags, guards
 from ..utils.tracing import phase
 from ..worker.model import Delta, FlowQuery, Verdict
 from . import stateregistry
 from .incremental import IncrementalEngine, Ineligible, PodTuple
+
+if TYPE_CHECKING:
+    from ..audit import AuditController
 
 logger = logging.getLogger("cyclonus.serve")
 
@@ -72,33 +79,20 @@ VERIFY_CASES = (
     PortCase(81, "serve-81-udp", "UDP"),
 )
 
-def _env_int(name: str, default: int) -> int:
-    """An integer serve flag, the reference's default when unset or
-    malformed."""
-    try:
-        return int(os.environ.get(name, str(default)))
-    except ValueError:
-        return default
-
-
-def _env_float(name: str, default: float) -> float:
-    try:
-        return float(os.environ.get(name, str(default)))
-    except ValueError:
-        return default
-
 
 def _churn_row_limit() -> int:
-    return _env_int("CYCLONUS_SERVE_CHURN_ROWS", 64)
+    return envflags.get_int("CYCLONUS_SERVE_CHURN_ROWS")
 
 
 def _churn_frac_limit() -> float:
-    return _env_float("CYCLONUS_SERVE_CHURN_FRAC", 0.25)
+    return envflags.get_float("CYCLONUS_SERVE_CHURN_FRAC")
 
 
-def prewarm_enabled() -> bool:
-    """CYCLONUS_SERVE_PREWARM (default on; "0" turns it off)."""
-    return os.environ.get("CYCLONUS_SERVE_PREWARM", "1") != "0"
+class AdmissionRejected(Exception):
+    """submit() refusal under freshness-budget admission control
+    (CYCLONUS_SLO_ENFORCE): the delta batch was NOT enqueued; str(e) is
+    the reason the SLO controller gave.  The wire loop reports it in the
+    reply envelope."""
 
 
 def register_http(service: "VerdictService") -> None:
@@ -109,10 +103,15 @@ def register_http(service: "VerdictService") -> None:
                                       staleness seconds, apply counters
         /query?src=x/a&dst=y/b&port=80&protocol=TCP[&portName=...]
                                       one curl-able flow verdict
+                                      (429 when the query was shed)
+        /slo                          per-objective budget remaining,
+                                      burn rates, enforcement state
+        /audit                        audit-plane snapshot: shadow-
+                                      oracle check counts, queue
+                                      accounting, epoch state digests
 
     /readyz reads service.readiness() once the caller registers it
-    (cli/serve_cmd.py does).  /slo and /audit keep answering 503: the
-    SLO controller and the audit plane are not ported."""
+    (cli/serve_cmd.py does)."""
     from ..telemetry import server as tserver
 
     def state_route(_query):
@@ -138,10 +137,14 @@ def register_http(service: "VerdictService") -> None:
             port_name=one("portName"),
         )
         verdict = service.query([fq])[0]
+        if verdict.shed:
+            return verdict.to_dict(), 429  # typed refusal, not an answer
         return verdict.to_dict(), (400 if verdict.error else 200)
 
     tserver.register_route("/state", state_route)
     tserver.register_route("/query", query_route)
+    tserver.register_slo(service.slo_snapshot)
+    tserver.register_audit(service.audit_snapshot)
 
 
 @guards.checked
@@ -167,9 +170,14 @@ class VerdictService:
         tiers: Optional[TierSet] = None,
         defer_ready: bool = False,
         device=None,
+        slo: Optional[SloController] = None,
+        audit: Optional[AuditController] = None,
     ):
         self._lock = guards.lock()
         self._device = resolve_device(device)
+        # created at construction so its clock anchors time-to-first-
+        # verdict at boot; accounting rides the scrape-time collector
+        self._slo = slo or SloController()
         # readiness: warming is not ready.  defer_ready=True starts the
         # service WARMING: queries answer from the scalar oracle over the
         # authoritative state until prewarm() or mark_ready() flips it
@@ -208,11 +216,43 @@ class VerdictService:
         # continuously between delta events.  WeakMethod-registered — a
         # garbage-collected service drops out of the scrape path on its own
         ti.REGISTRY.register_collector(self._refresh_gauges)
+        # audit plane: disabled leaves _audit None and every query path
+        # at one attribute check
+        if audit is None and envflags.get_bool("CYCLONUS_AUDIT"):
+            from ..audit import AuditController
+
+            audit = AuditController()
+        self._audit = audit
+        if self._audit is not None:
+            with self._lock:
+                self._note_epoch_locked()
 
     # --- engine lifecycle -------------------------------------------------
 
     def _compiled_policy(self):
         return build_network_policies(self._simplify, list(self.netpols.values()))
+
+    @guards.holds("self._lock")
+    def _note_epoch_locked(self) -> None:
+        """Hand the just-committed epoch's host state to the audit plane:
+        the state registry's field snapshot (stateregistry.audit_state),
+        the compiled policy and the tiers.  Shallow copies are stable
+        snapshots because every apply replaces values wholesale.  Digest
+        and shadow checks run on the audit worker, never here.
+
+        holds-lock: self._lock"""
+        self._audit.note_epoch(
+            self._epoch,
+            policy=self._policy,
+            tiers=self._tier_set(),
+            config={
+                "simplify": self._simplify,
+                "class_compress": self._class_compress,
+                "anps": len(self.anps),
+                "banp": self.banp is not None,
+            },
+            **stateregistry.audit_state(self),
+        )
 
     def _tier_set(self) -> Optional[TierSet]:
         """The authoritative tier dicts as the TierSet the engine
@@ -261,12 +301,23 @@ class VerdictService:
 
     def submit(self, deltas: Sequence[Delta]) -> int:
         """Enqueue deltas; returns the pending depth.  Cheap by design —
-        the wire loop can acknowledge intake before paying the apply."""
+        the wire loop can acknowledge intake before paying the apply.
+
+        Admission control (CYCLONUS_SLO_ENFORCE): while the freshness
+        error budget is burning the pending queue is capped, and with the
+        budget exhausted intake is rejected outright — AdmissionRejected,
+        with nothing enqueued."""
+        depth = 0
         with self._lock:
-            if deltas and self._pending_since is None:
-                self._pending_since = time.monotonic()
-            self._queue.extend(deltas)
-            depth = len(self._queue)
+            reason = self._slo.admit(len(self._queue), len(deltas))
+            if reason is None:
+                if deltas and self._pending_since is None:
+                    self._pending_since = time.monotonic()
+                self._queue.extend(deltas)
+                depth = len(self._queue)
+        if reason is not None:
+            ti.SLO_ADMISSION_REJECTS.inc()
+            raise AdmissionRejected(reason)
         ti.SERVE_PENDING.set(depth)
         ti.SERVE_DELTAS.inc(len(deltas))
         return depth
@@ -435,6 +486,10 @@ class VerdictService:
                     op = self._apply_to_state(d, pol)
                     if op is not None:
                         ops.append(op)
+                # chaos point `delta_apply`: after the authoritative dicts
+                # mutated, before the engine saw anything — it rides the
+                # rollback below like a real mid-apply failure
+                chaos.fire("delta_apply")
                 if not ops:
                     self._counts["noop"] += 1
                     ti.SERVE_APPLIES.inc(mode="noop")
@@ -465,6 +520,8 @@ class VerdictService:
             self._counts[mode] += 1
             ti.SERVE_APPLIES.inc(mode=mode)
             ti.SERVE_EPOCH.set(self._epoch)
+            if self._audit is not None:
+                self._note_epoch_locked()
             dt = time.perf_counter() - t0
             self._last_apply_s = dt
             ti.SERVE_APPLY_SECONDS.observe(dt, mode=mode)
@@ -612,9 +669,21 @@ class VerdictService:
         evaluate_pairs call per distinct port case.  While the service is
         still WARMING (defer_ready and prewarm in flight), queries answer
         from the scalar oracle over the authoritative state instead —
-        exact verdicts at host speed, counted as degraded."""
-        if not self._ready.is_set():
-            return self._query_degraded(queries)
+        exact verdicts at host speed, counted as degraded.
+
+        SLO enforcement (CYCLONUS_SLO_ENFORCE) routes ahead of the
+        warming check: query_p99 budget EXHAUSTED sheds the batch with
+        typed refusals (shed=True plus an error, never a wrong verdict);
+        BURNING routes onto the degraded path."""
+        route = self._slo.query_route()
+        if route == "shed":
+            return self._query_shed(queries)
+        if not self._ready.is_set() or route == "degraded":
+            out = self._query_degraded(queries)
+            self._slo.note_first_verdict()
+            if self._audit is not None:
+                self._offer_audit(out, "serve.query.degraded")
+            return out
         t0 = time.perf_counter()
         with self._lock:
             # host-side span only (serve.query): no device sync inside
@@ -625,7 +694,32 @@ class VerdictService:
             if v is not None and not v.error:
                 v.latency_ms = round(per * 1000.0, 4)
         self._observe(per, len(queries))
+        self._slo.note_first_verdict()
+        if self._audit is not None:
+            self._offer_audit(out, "serve.query.live")
         return [v for v in out if v is not None]
+
+    def _offer_audit(self, verdicts: Sequence[Optional[Verdict]], route: str) -> None:
+        """Feed answered (non-error, non-shed) verdicts to the audit
+        sampler, with the service lock RELEASED.  The per-verdict cost is
+        one seeded Bernoulli draw; the offer entry is built only for the
+        sampled minority, and everything else happens on the audit
+        worker."""
+        aud = self._audit
+        for v in verdicts:
+            if v is None or v.error or v.shed:
+                continue
+            if not aud.sample():
+                continue
+            q = v.query
+            aud.offer(
+                {"src": q.src, "dst": q.dst, "port": q.port, "port_name": q.port_name,
+                 "protocol": q.protocol},
+                (v.ingress, v.egress, v.combined),
+                route,
+                v.epoch,
+                presampled=True,
+            )
 
     @staticmethod
     def _observe(per_query_s: float, n: int) -> None:
@@ -703,6 +797,27 @@ class VerdictService:
         ti.SERVE_DEGRADED.inc(len(queries))
         return out
 
+    def _query_shed(self, queries: Sequence[FlowQuery]) -> List[Verdict]:
+        """Load-shed refusal: every query of the batch gets a typed Shed
+        verdict — shed=True AND an error, so a caller that ignores the
+        field still sees a non-answer.  No engine work, no latency
+        observation."""
+        epoch = self.epoch
+        out = [
+            Verdict(
+                query=q,
+                epoch=epoch,
+                shed=True,
+                error=(
+                    "shed: query_p99 error budget exhausted; retry "
+                    "after the budget recovers (/slo)"
+                ),
+            )
+            for q in queries
+        ]
+        ti.SLO_SHED.inc(len(queries))
+        return out
+
     # --- observability ----------------------------------------------------
 
     def _refresh_gauges(self) -> None:
@@ -712,9 +827,15 @@ class VerdictService:
         with a short timeout: an apply can hold the lock for a full
         rebuild, and a scrape landing then must keep /metrics responsive
         — it skips the refresh (counted in
-        cyclonus_tpu_serve_gauge_refresh_skipped_total)."""
+        cyclonus_tpu_serve_gauge_refresh_skipped_total).
+
+        Doubles as the SLO accounting cadence: every scrape advances the
+        burn-rate accountants (slo.tick after the service lock is
+        released).  A contended skip still ticks latency accounting; only
+        the freshness sample is missing that tick."""
         if not self._lock.acquire(timeout=0.2):
             ti.SERVE_GAUGE_REFRESH_SKIPPED.inc()
+            self._slo.tick()
             return
         try:
             pending = len(self._queue)
@@ -729,13 +850,14 @@ class VerdictService:
         ti.SERVE_PENDING.set(pending)
         ti.SERVE_STALENESS.set(staleness)
         ti.SERVE_EPOCH.set(epoch)
+        self._slo.tick(staleness_s=staleness)
 
     def state(self) -> Dict:
         """The /state payload: epoch, pending-delta depth, staleness
         seconds, the state registry's counts, apply counters, engine
-        shape, and the query-latency quantiles of
-        cyclonus_tpu_serve_query_latency_seconds (the reference's payload
-        without its slo and audit blocks)."""
+        shape, the query-latency quantiles of
+        cyclonus_tpu_serve_query_latency_seconds, and the slo and audit
+        blocks (the reference's payload)."""
         with self._lock:
             eng = self._inc.engine
             pending = len(self._queue)
@@ -768,7 +890,36 @@ class VerdictService:
                     "p50_s": histogram_quantile(hist, 0.50),
                     "p99_s": histogram_quantile(hist, 0.99),
                 },
+                "slo": {
+                    "enforce": self._slo.enforce,
+                    "objectives": {
+                        name: {"state": o["state"], "budget_remaining": o["budget_remaining"]}
+                        for name, o in self._slo.snapshot()["objectives"].items()
+                    },
+                },
+                "audit": self.audit_snapshot(),
             }
+
+    @property
+    def slo(self) -> SloController:
+        """The service's SLO controller (tests, drills, harnesses)."""
+        return self._slo
+
+    def slo_snapshot(self) -> Dict:
+        """The /slo payload (telemetry/server.py register_slo)."""
+        return self._slo.snapshot()
+
+    @property
+    def audit(self):
+        """The service's AuditController, or None when auditing is off."""
+        return self._audit
+
+    def audit_snapshot(self) -> Dict:
+        """The /audit payload (telemetry/server.py register_audit)."""
+        aud = self._audit
+        if aud is None:
+            return {"enabled": False}
+        return aud.snapshot()
 
     def patch_stats(self) -> Dict[str, int]:
         """Bytes of row values the incremental applies wrote to the

@@ -1,6 +1,6 @@
 """Driver-side worker client (reference: worker/client.go): marshal a
-batch, kubectl-exec the in-pod worker, parse its stdout.  A copy of the
-reference package's worker/client.py without its chaos points.
+batch, kubectl-exec the in-pod worker, parse its stdout (a copy of the
+reference package's worker/client.py).
 
 Wire robustness: each batch issue is BOUNDED (CYCLONUS_WORKER_TIMEOUT_S;
 a worker pod that dies mid-exec must cost a timeout, never a wedged
@@ -10,7 +10,8 @@ utils/retry.py, CYCLONUS_WORKER_RETRIES extra attempts
 connection attempts, so a re-issued batch re-measures, it never
 double-commits.  Every retry counts into
 cyclonus_tpu_worker_retries_total; the final failure raises KubeError
-carrying the last error.
+carrying the last error.  The chaos layer's `worker_wire` /
+`worker_wire_stall` points inject exactly these fault classes.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import random
 import time
 from typing import List
 
+from .. import chaos
 from ..kube.ikubernetes import IKubernetes, KubeError
 from ..telemetry import instruments as ti
 from ..utils import contracts
@@ -64,6 +66,8 @@ class Client:
 
     def _issue_once(self, batch: Batch) -> List[Result]:
         """client.go:14-41: one exec + parse attempt."""
+        chaos.fire("worker_wire")
+        chaos.stall("worker_wire_stall")
         command = ["/worker", "--jobs", batch.to_json()]
         stdout, _stderr, command_err = self.kubernetes.execute_remote_command(
             batch.namespace, batch.pod, batch.container, command

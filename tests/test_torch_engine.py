@@ -304,7 +304,14 @@ class TestPortBoundaries:
             "       'cyclonus_tpu_torch.utils.bounded', 'cyclonus_tpu_torch.worker.worker',\n"
             "       'cyclonus_tpu_torch.worker.client', 'cyclonus_tpu_torch.worker.__main__',\n"
             "       'cyclonus_tpu_torch.kube.kubectl', 'cyclonus_tpu_torch.kube.loopback',\n"
-            "       'cyclonus_tpu_torch.kube.loopback_server', 'cyclonus_tpu_torch.cli._cluster']\n"
+            "       'cyclonus_tpu_torch.kube.loopback_server', 'cyclonus_tpu_torch.cli._cluster',\n"
+            "       'cyclonus_tpu_torch.utils.envflags', 'cyclonus_tpu_torch.chaos',\n"
+            "       'cyclonus_tpu_torch.chaos.harness', 'cyclonus_tpu_torch.slo',\n"
+            "       'cyclonus_tpu_torch.slo.objectives', 'cyclonus_tpu_torch.slo.accounting',\n"
+            "       'cyclonus_tpu_torch.slo.engine', 'cyclonus_tpu_torch.audit',\n"
+            "       'cyclonus_tpu_torch.audit.digest', 'cyclonus_tpu_torch.audit.sampler',\n"
+            "       'cyclonus_tpu_torch.recipes', 'cyclonus_tpu_torch.recipes.recipes',\n"
+            "       'cyclonus_tpu_torch.cli.chaos_cmd', 'cyclonus_tpu_torch.cli.recipes_cmd']\n"
             "assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]\n"
             "print(len([m for m in sys.modules if m.startswith('cyclonus_tpu_torch')]))\n"
         )

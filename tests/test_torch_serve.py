@@ -69,8 +69,9 @@ from test_torch_tiers import port_tiers
 
 PORT_CASES = [(80, "serve-80-tcp", "TCP"), (81, "serve-81-udp", "UDP"), (79, "", "SCTP")]
 
-#: state() keys that read a clock or a process-wide counter on the
-#: reference (or its SLO and audit blocks, which the port leaves out)
+#: state() keys that read a clock or a process-wide counter (the SLO and
+#: audit blocks among them: tests/test_torch_slo.py and
+#: tests/test_torch_audit.py hold those against the reference)
 VOLATILE = {"slo", "audit", "degraded_queries", "query_latency", "last_apply_s",
             "last_full_rebuild_s", "staleness_s"}
 
@@ -552,7 +553,7 @@ class TestQueries:
         st = svc.state()
         for field in stateregistry.FIELDS:
             assert field.state_key in st
-        assert "slo" not in st and "audit" not in st
+        assert set(st["slo"]) == {"enforce", "objectives"} and st["audit"] == {"enabled": False}
 
 
 class TestWire:
@@ -761,7 +762,10 @@ class TestHttp:
                   "/query?dst=x/p0", "/query"):
             want, got = http(ref_srv.url + q), http(srv.url + q)
             assert got == want and got[0] == 400, q
-        assert http(srv.url + "/slo")[0] == 503 and http(srv.url + "/audit")[0] == 503
+        for path in ("/slo", "/audit"):
+            want, got = http(ref_srv.url + path), http(srv.url + path)
+            assert got[0] == want[0] == 200 and set(got[1]) == set(want[1]), path
+        assert http(srv.url + "/audit")[1] == {"enabled": False}
 
     def test_readyz_across_prewarm_and_metrics(self, both_servers):
         """/readyz answers 503 while the service warms (queries then

@@ -194,7 +194,9 @@ class TestFlightRecorder:
     def test_dump_on_crash_subprocess(self, tmp_path):
         """An unhandled crash leaves a dump through the chained excepthook
         (the reference's hook is installed too, and both run), and the
-        crash itself still reaches stderr."""
+        crash itself still reaches stderr.  The worker's import chain —
+        telemetry, the chaos points, envflags and the worker client with
+        its fault point fired — loads no torch."""
         dump_path = str(tmp_path / "crash.json")
         code = (
             "import sys\n"
@@ -203,6 +205,17 @@ class TestFlightRecorder:
             "sys.excepthook = lambda *a: (prev.append(1), sys.__excepthook__(*a))\n"
             "with ti.eval_flight('counts.pallas', 64, 2) as fl:\n"
             "    fl.set(cells=8192)\n"
+            "from cyclonus_tpu_torch import chaos\n"
+            "from cyclonus_tpu_torch.utils import envflags\n"
+            "from cyclonus_tpu_torch.worker import client\n"
+            "chaos.reset('worker_wire:1')\n"
+            "try:\n"
+            "    client.Client(None)._issue_once(None)\n"
+            "except chaos.ChaosError:\n"
+            "    pass\n"
+            "assert chaos.injected() == {'worker_wire': 1}\n"
+            "assert ti.CHAOS_INJECTIONS.value(point='worker_wire') == 1\n"
+            "assert envflags.get_float('CYCLONUS_WORKER_TIMEOUT_S') == 120.0\n"
             "assert 'torch' not in sys.modules\n"
             "raise RuntimeError('engine exploded')\n"
         )

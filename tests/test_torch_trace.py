@@ -369,20 +369,19 @@ class TestProfileEndpoint:
             assert status == 400 and "seconds" in body["error"]
 
     def test_profile_rejects_concurrent_capture(self):
+        """While one capture holds _PROFILE_LOCK, a second /profile
+        answers 409 instead of queueing behind it.  The test holds the
+        lock itself, as the reference's does: a real capture on a thread
+        raced a fixed wait for the lock (the 200 capture is
+        test_profile_writes_a_chrome_trace's)."""
         srv = tserver.start_metrics_server(0)
-        results = []
-        first = threading.Thread(
-            target=lambda: results.append(fetch(srv.url + "/profile?seconds=1.5")))
-        first.start()
+        assert tserver._PROFILE_LOCK.acquire(blocking=False)
         try:
-            for _ in range(200):  # wait for the first capture to take the lock
-                if tserver._PROFILE_LOCK.locked():
-                    break
-                threading.Event().wait(0.01)
             status, body = fetch(srv.url + "/profile?seconds=0.2", timeout=30)
+            assert status == 409 and "already running" in body["error"]
         finally:
-            first.join()
-        assert status == 409 and "already running" in body["error"]
-        assert results[0][0] == 200
+            tserver._PROFILE_LOCK.release()
+            tserver.stop_metrics_server()
+        # the refusal released nothing it did not take
         assert tserver._PROFILE_LOCK.acquire(blocking=False)
         tserver._PROFILE_LOCK.release()
