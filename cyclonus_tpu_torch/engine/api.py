@@ -107,7 +107,7 @@ from ..carry import resolve_device
 from ..matcher.core import Policy
 from ..telemetry import instruments as ti
 from ..utils.tracing import phase
-from . import autotune, cidrspace, dense_kernel, host, sharded, tiled
+from . import autotune, cidrspace, dense_kernel, host, packed_kernel, sharded, tiled
 from .encoding import (
     PEER_IP,
     PolicyEncoding,
@@ -771,13 +771,13 @@ class TorchPolicyEngine:
 
     # --- full-grid counts ------------------------------------------------
 
-    def _class_counts_eligible(self, q: int) -> bool:
-        """The class counts route must fit the device budget it protects:
-        aux/index tensors + the class precompute + row sums, estimated on
-        the host before any dispatch."""
+    def _class_counts_bytes(self, q: int) -> Optional[int]:
+        """The host-side estimate of the class counts route's device bytes
+        at q port cases: aux/index tensors + the class precompute + row
+        sums; None without class state."""
         st = self._class_state
         if st is None:
-            return False
+            return None
         ct = st["ctensors"]
         cb = int(ct["pod_ns_id"].shape[0])
         t = sum(int(ct[d]["target_ns"].shape[0]) for d in ("ingress", "egress"))
@@ -785,11 +785,15 @@ class TorchPolicyEngine:
             # packed plan: tallow_pk int32 [W, Cb, Q] + tmatch_pk [W, Cb]
             # + the bool tmatch
             w = sum(packed_words(int(ct[d]["target_ns"].shape[0])) for d in ("ingress", "egress"))
-            est = st["aux_bytes"] + cb * (4 * w * (q + 1) + t) + cb * q * 12
-        else:
-            # tallow bf16 [T, Cb, Q] per direction + tmatch + f32 row sums
-            est = st["aux_bytes"] + t * cb * (2 * q + 1) + cb * q * 12
-        return est <= host._slab_max_bytes()
+            return st["aux_bytes"] + cb * (4 * w * (q + 1) + t) + cb * q * 12
+        # tallow bf16 [T, Cb, Q] per direction + tmatch + f32 row sums
+        return st["aux_bytes"] + t * cb * (2 * q + 1) + cb * q * 12
+
+    def _class_counts_eligible(self, q: int) -> bool:
+        """The class counts route must fit the device budget it protects,
+        estimated on the host before any dispatch (_class_counts_bytes)."""
+        est = self._class_counts_bytes(q)
+        return est is not None and est <= host._slab_max_bytes()
 
     def evaluate_grid_counts(
         self, cases: Sequence[PortCase], block: int = 1024, backend: Optional[str] = None
@@ -966,6 +970,10 @@ class TorchPolicyEngine:
         telemetry as they are."""
         if not self._pack and "tiers" in self._tensors:
             raise ValueError("the dense dtype plan has no tiered counts kernel")
+        # the kernels' int32 partials bound the pod axis: raise on the
+        # shape, before the upload and the precompute allocate anything
+        n_pad = int(self._tensors["pod_ns_id"].shape[0])
+        (packed_kernel if self._pack else dense_kernel).check_tile_counts(n_pad)
         q = len(cases)
         if plain:
             _key, _slab_ok, slab = self._steady_state_args(cases)

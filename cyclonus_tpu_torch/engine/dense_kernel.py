@@ -66,6 +66,10 @@ from . import build
 KT = 1024
 #: src rows per int32 partial count (a multiple of CUDA_TILE on the card)
 BS = 1024
+#: the least src rows per partial count that dense_operands steps BS
+#: down to where BS x the dst axis would pass 2^31: the reference's
+#: default src tile (its _tiles_for grows the tile only within the bound)
+MIN_BS = 512
 #: the CUDA kernel's pod block: a consumer warpgroup's src rows, the
 #: granularity of K5's nz maps; the dst axis pads to it
 CUDA_TILE = 64
@@ -120,6 +124,23 @@ def _check_int32_partials(bs: int, nd_pad: int) -> None:
         raise ValueError(f"dst axis {nd_pad} too large for int32 tile counts at bs={bs}")
 
 
+def _int32_safe_bs(nd_pad: int) -> int:
+    """BS, halved while a partial count over bs src rows x the nd_pad dst
+    axis could pass 2^31, down to MIN_BS."""
+    bs = BS
+    while bs > MIN_BS and bs * nd_pad >= 2**31:
+        bs //= 2
+    return bs
+
+
+def check_tile_counts(n_dst: int) -> None:
+    """Raise, as dense_operands would, when the K4/K5 partials over an
+    n_dst-pod dst axis cannot stay within int32 at any src tile: a check
+    on the shape alone, before anything is allocated."""
+    nd_pad = -(-max(int(n_dst), 1) // CUDA_TILE) * CUDA_TILE
+    _check_int32_partials(_int32_safe_bs(nd_pad), nd_pad)
+
+
 def live_depth(n_rows: int) -> int:
     """The live depth of a direction: its first n_rows target rows plus
     the pseudo row, rounded up to DEPTH_STEP bytes."""
@@ -162,13 +183,16 @@ def dense_operands(
     valid_src=None, valid_dst=None, bs: Optional[int] = None,
 ) -> Dict:
     """The K4/K5 operand layout (module docstring) with its chunks and
-    live depths: {a_e, b_e, b_i, a_i, kt_e, kt_i, live_e, live_i, bs}."""
-    bs = BS if bs is None else int(bs)
-    if bs < 1 or bs % CUDA_TILE:
-        raise ValueError(f"bs={bs}: want a positive multiple of {CUDA_TILE}")
+    live depths: {a_e, b_e, b_i, a_i, kt_e, kt_i, live_e, live_i, bs}.
+    bs None takes BS, stepped down towards MIN_BS while the partials
+    could pass int32 (_int32_safe_bs)."""
     ns = tmatch_e.shape[1]
     nd = tmatch_i.shape[1]
-    _check_int32_partials(bs, -(-max(nd, 1) // CUDA_TILE) * CUDA_TILE)
+    nd_pad = -(-max(nd, 1) // CUDA_TILE) * CUDA_TILE
+    bs = _int32_safe_bs(nd_pad) if bs is None else int(bs)
+    if bs < 1 or bs % CUDA_TILE:
+        raise ValueError(f"bs={bs}: want a positive multiple of {CUDA_TILE}")
+    _check_int32_partials(bs, nd_pad)
     dev = tmatch_e.device
     if dev.type not in ("cpu", "cuda"):
         # the live depth is read from the operands' values

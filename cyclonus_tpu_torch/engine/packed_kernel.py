@@ -81,6 +81,7 @@ import numpy as np
 import torch
 
 from . import build
+from .dense_kernel import _check_int32_partials
 from .encoding import TIER_KEY_NONE
 from .kernel import pack_bool_words_torch, resolve_tier_lattice
 
@@ -210,6 +211,13 @@ def _tier_operands(tier: Dict, vs, vd, ns_pad: int, nd_pad: int) -> Dict[str, to
     return out
 
 
+def check_tile_counts(n_dst: int) -> None:
+    """Raise, as _packed_operands would at the default tiles, when the
+    partials over an n_dst-pod dst axis cannot stay within int32: a check
+    on the shape alone, before anything is allocated."""
+    _check_int32_partials(PACKED_BS, _round_up(n_dst, PACKED_BD))
+
+
 def _packed_operands(
     tmatch_e_pk, has_e, tallow_e_pk, tmatch_i_pk, has_i, tallow_i_pk,
     valid_src, valid_dst, tier, w_dst, bs, bd,
@@ -223,10 +231,7 @@ def _packed_operands(
     nd_pad = _round_up(nd, bd)
     de = _round_up(we, STEP_WORDS)
     di = _round_up(wi, STEP_WORDS)
-    if bs * nd_pad >= 2**31:
-        raise ValueError(
-            f"dst axis {nd_pad} too large for int32 tile counts at bs={bs}"
-        )
+    _check_int32_partials(bs, nd_pad)
     zero = torch.zeros((), dtype=torch.int32, device=tmatch_e_pk.device)
     vs = valid_src[None, :]
     vd = valid_dst[None, :]

@@ -56,10 +56,12 @@ def build() -> float:
     gxx = shutil.which("g++")
     if gxx is None:
         raise NativeUnavailable("g++ not found on PATH")
+    from ..engine.build import temp_path
+
     out.parent.mkdir(parents=True, exist_ok=True)
     # pid-unique temp so concurrent builders can't interleave writes; the
     # final os.replace is atomic
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tmp = temp_path(out)
     cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(_SRC), *GXX_LINK]
     t0 = time.perf_counter()
     try:

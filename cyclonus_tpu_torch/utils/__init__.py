@@ -1,5 +1,6 @@
 """Small utilities (reference: pkg/utils)."""
 
 from .table import render_table
+from .text import json_string, yaml_string
 
-__all__ = ["render_table"]
+__all__ = ["json_string", "yaml_string", "render_table"]

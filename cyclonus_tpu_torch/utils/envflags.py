@@ -285,3 +285,28 @@ def get_str(name: str) -> str:  # never-raises (registered names)
     flag = REGISTRY[name]
     raw = os.environ.get(name)
     return str(flag.default) if raw is None else raw
+
+
+def _render_default(flag: Flag) -> str:
+    if flag.kind == "bool":
+        return "on" if flag.default else "off"
+    if flag.name == "CYCLONUS_SLAB_MAX_BYTES":
+        return "6 GiB"
+    if flag.default == "":
+        return "(unset)"
+    return str(flag.default)
+
+
+def markdown_table(owner: Optional[str] = None) -> str:
+    """The env-var table of the registry as Markdown, one row a flag (all
+    of them, or those of one `owner`), as the reference renders its
+    README table."""
+    rows = [f for f in _FLAGS if owner is None or f.owner == owner]
+    out = ["| Variable | Type | Default | Subsystem | Meaning |",
+           "| --- | --- | --- | --- | --- |"]
+    for f in rows:
+        out.append(
+            f"| `{f.name}` | {f.kind} | {_render_default(f)} | "
+            f"{f.owner} | {f.description} |"
+        )
+    return "\n".join(out)

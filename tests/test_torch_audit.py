@@ -224,6 +224,9 @@ class TestShadowChecks:
             assert 0 < sum(pattern[1]) < 64
 
     def test_audited_verdicts_equal_an_unaudited_service(self):
+        # the snapshot's diverged count is process-wide (other files, such
+        # as test_torch_slo.py, raise it in this process): count from zero
+        port_telemetry.reset()
         svc = VerdictService(*mk_cluster(10), [], device="cpu", audit=mk_audit())
         twin = VerdictService(*mk_cluster(10), [], device="cpu")
         keys = list(svc.pods)

@@ -178,3 +178,47 @@ class TestSwitchedReads:
             monkeypatch.setenv("CYCLONUS_SERVE_PREWARM", raw)
         assert envflags.get_bool("CYCLONUS_SERVE_PREWARM") is want
         assert ref.get_bool("CYCLONUS_SERVE_PREWARM") is want
+
+
+def _owners():
+    return sorted({f.owner for f in envflags._FLAGS} & {f.owner for f in ref._FLAGS})
+
+
+class TestMarkdownTable:
+    """utils/envflags.markdown_table and _render_default against the
+    reference's (cyclonus_tpu/utils/envflags.py:291-311)."""
+
+    @pytest.mark.parametrize("name", sorted(set(ref.REGISTRY) & set(envflags.REGISTRY)))
+    def test_render_default(self, name):
+        assert envflags._render_default(envflags.REGISTRY[name]) == ref._render_default(
+            ref.REGISTRY[name])
+
+    @pytest.mark.parametrize("owner", [None] + _owners())
+    def test_table_of_the_reference_registry(self, owner, monkeypatch):
+        """The port's renderer over the reference's flags prints the
+        reference's table, byte for byte."""
+        monkeypatch.setattr(envflags, "_FLAGS", [
+            envflags.Flag(f.name, f.kind, f.default, f.owner, f.description, f.choices)
+            for f in ref._FLAGS])
+        assert envflags.markdown_table(owner) == ref.markdown_table(owner)
+
+    @pytest.mark.parametrize("owner", _owners())
+    def test_table_of_the_port_registry(self, owner):
+        """The port's own table of an owner: the reference's rows of the
+        flags both register, in its order, apart from the meaning column
+        (the port words some meanings for itself), plus the port's own
+        flags."""
+        def rows(table, names):
+            lines = table.splitlines()
+            out = [ln.rsplit("|", 2)[0] for ln in lines[2:] if ln.split("`")[1] in names]
+            return lines[:2], out
+
+        shared = set(ref.REGISTRY) & set(envflags.REGISTRY)
+        head, got = rows(envflags.markdown_table(owner), shared)
+        want_head, want = rows(ref.markdown_table(owner), shared)
+        assert head == want_head
+        assert got == want and got
+        port_rows = envflags.markdown_table(owner).splitlines()[2:]
+        names = [ln.split("`")[1] for ln in port_rows]
+        assert names == [f.name for f in envflags._FLAGS if f.owner == owner]
+        assert set(names) - shared <= PORT_ONLY
