@@ -274,17 +274,40 @@ Phases, each raising on failure:
                 case's sums equal to evaluate_grid_counts on both engines,
                 the dense grids fetched to the host (timed) and 2,000
                 cells equal to the oracle.  The phase must end within
-                240 s.  Prints one {"scale": ...} line.
+                240 s.  Prints one {"scale": ...} line;
+ 15. guards   — the runtime guards on the card, each leg a process of its
+                own (the guard flags are read at import): (a)
+                torch_tools/planharness.py's HEADLINE sequence at the
+                headline cluster (100,000 pods x 10,000 policies, seed
+                20260729; the class route and class_compress="0" on the
+                packed plan, untiered and tiered, three calls each on the
+                dense route, then pack=False with slab "1"), once with
+                CYCLONUS_SHAPE_CHECK=1 CYCLONUS_GUARD_CHECK=1
+                CYCLONUS_PLANHARNESS=1 and once with the three set to 0:
+                every call's counts equal the main path's, armed and
+                unarmed alike; the armed run's contract counter above 0
+                and its drained routes equal to HEADLINE (counts.classes,
+                counts.pallas then counts.steady.default, and
+                counts.steady.slab for slab "1": the list
+                tests/test_torch_planspec.py holds both packages to); the
+                unarmed run records no route and checks no contract; (b)
+                torch_tools/raceharness.py --device cuda on engine_cache
+                and worker_ingest under CYCLONUS_GUARD_CHECK=1 (50 seeded
+                schedules, 8 threads); (c) torch_tools/skewharness.py
+                --device cuda (the serve loop on the card's engine); (d)
+                torch_tools/planharness.py --device cuda.  Each call's
+                seconds armed and unarmed are reported.  The phase must
+                end within 180 s.  Prints one {"guards": ...} line.
 
 Every comparison is exact.  Prints a JSON line of the probe phase, the
 loopback line, the cidr and analyze lines, the serve lines, the mesh lines, a JSON line of
 the main path's
 end-to-end numbers (per route and dense-plan leg), the telemetry line, the
-chaos line, the native line, the scale line, a line of each phase's seconds, a JSON
-line of per-kernel numbers (with each kernel's launches on the serve path, on
-the CIDR legs, on the mesh's sharded calls, on the loopback phase, on the
-telemetry phase, on the chaos phase, on the native phase and on the scale
-phase), then as its last
+chaos line, the native line, the scale line, the guards line, a line of each
+phase's seconds, a JSON line of per-kernel numbers (with each kernel's launches
+on the serve path, on the CIDR legs, on the mesh's sharded calls, on the
+loopback phase, on the telemetry phase, on the chaos phase, on the native
+phase, on the scale phase and on the guards phase), then as its last
 line {"ok": true,
 "device": {...}}.
 A crash dumps the flight recorder into the temporary directory.
@@ -2597,7 +2620,7 @@ def phase_main_path(device):
     # the main path's end-to-end numbers in one line, next to the kernels
     # line at the end of the output
     log(json.dumps({"main_path": summary}))
-    return records, plain, (policy, pods, namespaces, cases, plain)
+    return records, plain, tiered, (policy, pods, namespaces, cases, plain)
 
 
 #: bench.py's mesh leg (bench.py:707-895): its synthetic cluster and tile
@@ -3997,6 +4020,128 @@ def phase_scale(device, legs=tuple(SCALE_LEGS)):
         raise AssertionError(f"scale: {out['total_s']:.1f} s past its bound of {SCALE_BOUND_S} s")
     return out["launches"]
 
+#: the guards phase's bound, seconds
+GUARDS_BOUND_S = 180.0
+#: the flags the armed run of leg (a) sets
+GUARD_FLAGS = {"CYCLONUS_SHAPE_CHECK": "1", "CYCLONUS_GUARD_CHECK": "1",
+               "CYCLONUS_PLANHARNESS": "1"}
+
+
+def guards_headline_child(device_name: str = "cuda", n_pods: int = N_PODS,
+                          n_policies: int = N_POLICIES) -> int:
+    """Leg (a)'s child process: planharness.drive_headline on the
+    headline cluster with whatever guard flags its environment sets.
+    Prints one JSON line: the drained routes, each call's counts and
+    seconds, the contract checks made, whether each flag was read on,
+    and the kernel launches."""
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "torch_tools"))
+    import planharness
+
+    from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine, planspec
+    from cyclonus_tpu_torch.matcher import build_network_policies
+    from cyclonus_tpu_torch.synthetic import bench_tiers, build_synthetic
+    from cyclonus_tpu_torch.utils import contracts, guards
+
+    device = torch.device(device_name)
+    t0 = time.perf_counter()
+    pods, namespaces, policies = build_synthetic(n_pods, n_policies, random.Random(SEED))
+    policy = build_network_policies(True, policies)
+    tiers = bench_tiers()
+    cases = [PortCase(80, "serve-80-tcp", "TCP"), PortCase(81, "serve-81-udp", "UDP")]
+
+    def make(**options):
+        if options.pop("tiers", False):
+            options["tiers"] = tiers
+        return TorchPolicyEngine(policy, pods, namespaces, device=device, **options)
+
+    def clock():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter()
+
+    routes, counts, seconds = planharness.drive_headline(make, cases, planspec.drain,
+                                                         clock=clock)
+    print(json.dumps({
+        "routes": routes, "counts": counts, "seconds": seconds,
+        "checks": contracts.CHECKS,
+        "armed": {"shape": contracts.CHECK, "guard": guards.CHECK, "plan": planspec.ACTIVE},
+        "launches": launch_counts(), "total_s": time.perf_counter() - t0,
+    }))
+    return 0
+
+
+def guards_subprocess(argv, what, env=None, timeout=300):
+    """One leg of the guards phase as a process of its own: its last
+    stdout line, parsed; raises with its output when it fails."""
+    run = subprocess.run([sys.executable, *argv], cwd=HERE, capture_output=True, text=True,
+                         timeout=timeout, env={**os.environ, **(env or {})})
+    if run.returncode != 0:
+        raise AssertionError(f"guards {what}: exited {run.returncode}: "
+                             f"{run.stdout[-3000:]} {run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def phase_guards(device, want_plain, want_tiered):
+    """Phase 15 (main()'s docstring): legs (a)-(d), one {"guards": ...}
+    line.  Returns the kernel launches of the phase's processes, each
+    counted from zero."""
+    sys.path.insert(0, os.path.join(HERE, "torch_tools"))
+    import planharness
+
+    t0 = time.perf_counter()
+    child = ["-c", f"import sys, chip_smoke; sys.exit(chip_smoke.guards_headline_child("
+                   f"{device.type!r}))"]
+    runs = {"armed": guards_subprocess(child, "(a) armed", env=GUARD_FLAGS),
+            "unarmed": guards_subprocess(child, "(a) unarmed",
+                                         env={k: "0" for k in GUARD_FLAGS})}
+    want = {"class": want_plain, "packed": want_plain, "dense slab": want_plain,
+            "tiered class": want_tiered, "tiered packed": want_tiered}
+    for key, run in runs.items():
+        for label, calls in run["counts"].items():
+            if any(c != want[label] for c in calls):
+                raise AssertionError(f"guards (a) {key}, {label}: counts {calls} != main path "
+                                     f"{want[label]}")
+    armed, unarmed = runs["armed"], runs["unarmed"]
+    if armed["armed"] != {"shape": True, "guard": True, "plan": True} or any(
+            unarmed["armed"].values()):
+        raise AssertionError(f"guards (a): flags read {armed['armed']} / {unarmed['armed']}")
+    if armed["checks"] <= 0 or unarmed["checks"] != 0:
+        raise AssertionError(f"guards (a): contract checks armed {armed['checks']}, "
+                             f"unarmed {unarmed['checks']}")
+    if armed["routes"] != planharness.HEADLINE or unarmed["routes"]:
+        raise AssertionError(f"guards (a): routes {armed['routes']} != {planharness.HEADLINE}"
+                             f" (unarmed {unarmed['routes']})")
+    log(f"guards (a): counts equal to the main path's armed and unarmed; "
+        f"{armed['checks']} contract checks; routes {armed['routes']}")
+    tools = os.path.join(HERE, "torch_tools")
+    dev = ["--device", device.type]
+    race = guards_subprocess(
+        [os.path.join(tools, "raceharness.py"), *dev, "--scenario", "engine_cache",
+         "--scenario", "worker_ingest", "--schedules", "50", "--threads", "8", "--seed", "1234"],
+        "(b) raceharness", env={"CYCLONUS_GUARD_CHECK": "1"})
+    skew = guards_subprocess([os.path.join(tools, "skewharness.py"), *dev], "(c) skewharness")
+    plan = guards_subprocess([os.path.join(tools, "planharness.py"), *dev], "(d) planharness")
+    for what, out in (("(b)", race), ("(c)", skew), ("(d)", plan)):
+        if not out.get("ok") or out.get("device") != device.type:
+            raise AssertionError(f"guards {what}: {out}")
+    legs = [armed, unarmed, race, skew, plan]
+    launches = {k: sum(leg["launches"].get(k, 0) for leg in legs) for k in launch_counts()}
+    total = time.perf_counter() - t0
+    log(json.dumps({"guards": {
+        "card": card_info() if device.type == "cuda" else None,
+        "headline": {"pods": N_PODS, "policies": N_POLICIES, "seed": SEED,
+                     "routes": armed["routes"], "contract_checks": armed["checks"],
+                     "armed_s": armed["seconds"], "unarmed_s": unarmed["seconds"],
+                     "armed_total_s": armed["total_s"], "unarmed_total_s": unarmed["total_s"]},
+        "race": race["results"], "skew": skew["results"], "plan": plan["results"],
+        "launches": launches, "total_s": total,
+    }}))
+    if total > GUARDS_BOUND_S:
+        raise AssertionError(f"guards: {total:.1f} s past its bound of {GUARDS_BOUND_S} s")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -4039,12 +4184,14 @@ def main() -> int:
         CYCLONUS_AUTOTUNE_CACHE=os.path.join(tmp, "autotune.json"),
     ):
         serve_launches, serve_counts = timed("serve", phase_serve)
-        records, main_counts, headline = timed("main_path", phase_main_path)
+        records, main_counts, main_tiered, headline = timed("main_path", phase_main_path)
         mesh_launches = timed("mesh", lambda device: phase_mesh(device, headline))
         telemetry_launches = timed("telemetry", lambda device: phase_telemetry(device, headline))
         chaos_launches = timed("chaos", phase_chaos)
     native_launches = timed("native", phase_native)
     scale_launches = timed("scale", phase_scale)
+    guards_launches = timed("guards", lambda device: phase_guards(device, main_counts,
+                                                                  main_tiered))
     # the serve engine's counts of the headline cluster before its patch
     # are the main path's untiered counts of the same cluster
     if serve_counts != main_counts:
@@ -4060,6 +4207,7 @@ def main() -> int:
         r["chaos_launches"] = chaos_launches.get(r["name"], 0)
         r["native_launches"] = native_launches.get(r["name"], 0)
         r["scale_launches"] = scale_launches.get(r["name"], 0)
+        r["guards_launches"] = guards_launches.get(r["name"], 0)
     log(json.dumps({"phase_s": phase_s, "total_s": time.perf_counter() - t0}))
     log(card_info())
     log(json.dumps({"kernels": records}))

@@ -293,9 +293,11 @@ class AuditController:
         """One shadow-oracle re-evaluation: the divergence edge of the
         whole audit plane."""
         from ..oracle import traffic_for_cell
+        from ..engine import planspec
         from ..engine.api import PortCase
         from ..matcher.tiered import tiered_oracle_verdicts
 
+        planspec.record("serve.audit.check")
         t0 = time.perf_counter()
         q = entry["query"]
         pods_list = list(snap["pods"].values())

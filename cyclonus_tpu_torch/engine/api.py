@@ -74,9 +74,12 @@ invalidate_after_patch then drops what was derived from the old values.
 TRANSFERS counts the uploads of a whole tensor set, so a caller can show
 that a patch moved no untouched leaf.
 
-The reference's packed tile autotune, AOT cache and plan recording are
-compile machinery that change no result; the port has one tile shape per
-kernel and nothing to compile ahead.
+The reference's packed tile autotune and AOT cache are compile
+machinery that change no result; the port has one tile shape per kernel
+and nothing to compile ahead.  Its dispatch records the reference's
+routes at the reference's points (engine/planspec.py, armed by
+CYCLONUS_PLANHARNESS=1) and resolves the tiers x backend decision off the
+same compatibility matrix.
 
 Telemetry (cyclonus_tpu_torch/telemetry) hooks in at the reference's
 steps with the reference's names: the spans engine.encode (with
@@ -106,8 +109,9 @@ from .. import carry
 from ..carry import resolve_device
 from ..matcher.core import Policy
 from ..telemetry import instruments as ti
+from ..utils import guards
 from ..utils.tracing import phase
-from . import autotune, cidrspace, dense_kernel, host, packed_kernel, sharded, tiled
+from . import autotune, cidrspace, dense_kernel, host, packed_kernel, planspec, sharded, tiled
 from .encoding import (
     PEER_IP,
     PolicyEncoding,
@@ -244,6 +248,7 @@ class GridVerdict:
         }
 
 
+@guards.checked
 class TorchPolicyEngine:
     """Compile once per (policy set, cluster state); evaluate many port
     cases.  Pods are (namespace, name, labels, ip) tuples.
@@ -258,9 +263,20 @@ class TorchPolicyEngine:
     tiers.model.TierSet) layers AdminNetworkPolicy / BaselineAdmin-
     NetworkPolicy precedence tiers over the policies; absent or empty, the
     tensor set is byte-identical to the tier-free engine's.
+
+    The gathered slab operands are guarded by _slab_lock, as the
+    reference's are: the operand build checks the slab choice and fills
+    the cache under the lock that a rejection of the slab kernel clears
+    it under, so a rejected kernel keeps no operands pinned
+    (torch_tools/raceharness.py, scenario engine_cache).
+
     `slab_headroom` steps the rule-slab row buckets that many buckets up
     (host._bucket_tensors): 0 for batch engines, CYCLONUS_SERVE_HEADROOM
     for the verdict service's."""
+
+    # the guarded-by contract (tools/locklint.py statically; under
+    # CYCLONUS_GUARD_CHECK=1 guards.Guarded asserts it at runtime)
+    _slab_ops_cache = guards.Guarded("_slab_lock")
 
     def __init__(
         self,
@@ -472,7 +488,9 @@ class TorchPolicyEngine:
         # the pin was last hit, the key the byte check declined, and the
         # key of the last fused call
         self._pre_cache = None
-        self._slab_ops_cache = None
+        self._slab_lock = guards.lock()
+        with self._slab_lock:
+            self._slab_ops_cache = None
         self._pre_cache_misses = 0
         self._pre_cache_declined = None
         self._last_counts_key = None
@@ -656,6 +674,7 @@ class TorchPolicyEngine:
         if self._class_state is not None:
             grid = self._evaluate_grid_classes(cases)
         else:
+            planspec.record("grid.dense")
             # dispatch-only timing: the kernels are enqueued on the stream;
             # the device time lands in grid.fetch / allow_stats
             with ti.eval_flight("grid", n, len(cases), dispatch_only=True):
@@ -677,6 +696,7 @@ class TorchPolicyEngine:
     def _evaluate_grid_classes(self, cases: Sequence[PortCase]) -> GridVerdict:
         """Class-compressed grid: the C x C x Q class grid, broadcast back
         to pod axes with the gather epilogue."""
+        planspec.record("grid.classes")
         st = self._class_state
         with ti.eval_flight(
             "grid.classes", self.n_pods, len(cases), classes=st["classes"].n_classes,
@@ -706,6 +726,7 @@ class TorchPolicyEngine:
         self._check_ips()
         if not cases or len(pairs) == 0:
             return np.zeros((len(pairs), len(cases), 3), dtype=bool)
+        planspec.record("pairs.aot")
         with ti.eval_flight("pairs", self.n_pods, len(cases), k=len(pairs)):
             idx = torch.from_numpy(np.asarray(pairs, dtype=np.int64).reshape(-1, 2)).to(self.device)
             out = tiled.evaluate_pairs_kernel(
@@ -729,6 +750,7 @@ class TorchPolicyEngine:
         mask over (target-side pod n, peer-side pod m, case q) is
         rule_tmatch[p, n] & peer_match[p, m] & pport[p, q]."""
         self._check_ips()
+        planspec.record("firing.raw")
         if self.encoding is None:
             raise ValueError("firing_components needs an engine built from a policy")
         raw = host._build_tensors(self.encoding)
@@ -760,6 +782,7 @@ class TorchPolicyEngine:
         n = self.n_pods
         if not cases or n == 0:
             return iter(())
+        planspec.record("grid.blocks")
         return self._grid_blocks(cases, n, block)
 
     def _grid_blocks(self, cases: Sequence[PortCase], n: int, block: int):
@@ -813,25 +836,32 @@ class TorchPolicyEngine:
             backend = "pallas"
         if backend not in ("xla", "pallas"):
             raise ValueError(f"unknown counts backend {backend!r} (want 'xla' or 'pallas')")
-        if "tiers" in self._tensors and backend == "pallas" and not self._pack:
-            if explicit:
-                raise ValueError(
-                    "counts backend 'pallas' cannot evaluate the precedence-tier "
-                    "lattice under the dense dtype plan (pack off); use "
-                    "backend='xla' or backend=None (auto)"
-                )
-            backend = "xla"
+        # tiers x pallas: a declared cell of the compatibility matrix
+        # (planspec), resolved there so the declaration and the dispatch
+        # cannot drift: legal under the packed plan (K3), else fallback to
+        # the tile loop on auto and a loud failure on an explicit request
+        backend = planspec.resolve_counts_backend(
+            backend=backend,
+            explicit=explicit,
+            tiers="tiers" in self._tensors,
+            pack=self._pack,
+            # K3 walks any number of tier rows in staged passes: unlike the
+            # reference's unrolled epilogue it has no row ceiling
+            packed_tier_ok=lambda: True,
+        )
         self._check_ips()
         n = self.n_pods
         if not cases or n == 0:
             return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
         if self._class_counts_eligible(len(cases)):
             return self._counts_classes(
-                cases, kernel="pallas" if self._pack and backend == "pallas" else "xla",
+                cases,
+                kernel=planspec.resolve_class_counts_kernel(backend=backend, pack=self._pack),
                 block=block,
             )
         if backend == "pallas":
             return self._counts_dense(cases)
+        planspec.record("counts.xla")
         return tiled.evaluate_grid_counts(
             self._with_host_cases(cases), n, block=block, pack=self._pack, device=self.device
         )
@@ -844,6 +874,7 @@ class TorchPolicyEngine:
         return t
 
     def _counts_classes(self, cases, kernel: str, block: int = 1024) -> Dict[str, int]:
+        planspec.record("counts.classes")
         st = self._class_state
         pc = st["classes"]
         counts, gather_s = evaluate_grid_counts_classes(
@@ -978,6 +1009,7 @@ class TorchPolicyEngine:
         if plain:
             _key, _slab_ok, slab = self._steady_state_args(cases)
             return sum_partials(self._counts_fused(cases, slab, plain=True), q, self.n_pods)
+        planspec.record("counts.pallas")
         with ti.eval_flight("counts.pallas", self.n_pods, q) as fl:
             counts = self._counts_dispatch(cases, fl)
             fl.set(cells=counts["cells"])
@@ -1041,7 +1073,8 @@ class TorchPolicyEngine:
                 self._pre_cache_misses += 1
                 if self._pre_cache_misses >= 2:
                     self._pre_cache = None
-                    self._slab_ops_cache = None
+                    with self._slab_lock:
+                        self._slab_ops_cache = None  # the operands go with the pin
                     ti.PRE_CACHE_BYTES.set(0)
             with phase("engine.dispatch"):
                 partials = self._counts_fused(cases, slab)
@@ -1116,7 +1149,8 @@ class TorchPolicyEngine:
         nbytes = _tensor_bytes(pin)
         if nbytes <= _PRE_CACHE_MAX_BYTES:
             self._pre_cache = (key, pin)  # evicts any other set
-            self._slab_ops_cache = None
+            with self._slab_lock:
+                self._slab_ops_cache = None  # stale for the new set
             self._pre_cache_misses = 0
             ti.PRE_CACHE_BYTES.set(nbytes)
         else:
@@ -1127,27 +1161,47 @@ class TorchPolicyEngine:
         """The gathered slab operands of the pinned case set, built once
         from the pinned precompute and cached beside the pin (evicted
         with it).  Once the slab kernel is chosen, the pin's default
-        operands and precompute are read no more and are dropped."""
-        cached = self._slab_ops_cache
+        operands and precompute are read no more and are dropped.
+
+        The build runs outside _slab_lock; the fill checks the choice
+        under it, so a rejection of the slab kernel between the two
+        leaves no operands pinned."""
+        with self._slab_lock:
+            cached = self._slab_ops_cache
         if cached is not None and cached[0] == key:
             ti.SLAB_OPS_CACHE_HITS.inc()
         else:
             ti.SLAB_OPS_CACHE_MISSES.inc()
             plan = self._slab_plan()
+            pin = self._pre_cache  # read once: the build reads one pin
             ops = dense_kernel.slab_operands(
-                *self._dense_args(self._pre_cache[1]["pre"]), plan["egress"], plan["ingress"],
+                *self._dense_args(pin[1]["pre"]), plan["egress"], plan["ingress"],
                 self.n_pods, w=plan["w"],
             )
             # the actual pinned bytes supersede the plan's q=2 estimate
             ti.SLAB_HBM_BYTES.set(_tensor_bytes(ops))
-            self._slab_ops_cache = cached = (key, ops)
+            cached = (key, ops)
+            with self._slab_lock:
+                if self._slab_choice is not False:
+                    self._slab_ops_cache = cached
         if self._slab_choice is True:
             self._pre_cache = (key, {"ops": None, "pre": None})
         return cached[1]
 
     def _dispatch_steady(self, key, slab: bool) -> torch.Tensor:
-        """One steady-state launch of the chosen kernel: K6 from the
-        cached slab operands, else the default kernel from the pin."""
+        """One steady-state launch of the chosen kernel, its route
+        recorded: K6 from the cached slab operands, else the default
+        kernel from the pin."""
+        if slab:
+            planspec.record("counts.steady.slab")
+        else:
+            planspec.record("counts.steady.default")
+        return self._launch_steady(key, slab)
+
+    def _launch_steady(self, key, slab: bool) -> torch.Tensor:
+        """The launch of _dispatch_steady, unrecorded: the autotune's
+        adoption of a persisted winner launches it too, and records no
+        route (the reference's autotune runs its programs directly)."""
         if slab:
             return dense_kernel.verdict_counts_slab_from_ops(self._slab_ops_for(key))
         return self._launch(self._pre_cache[1]["ops"])
@@ -1227,7 +1281,7 @@ class TorchPolicyEngine:
             ti.AUTOTUNE_CACHE.inc(outcome="hit")
             self._autotune_stats = {"source": "cache", "winner": dict(persisted),
                                     "search_s": 0.0, "candidates": []}
-            return self._dispatch_steady(key, chose_slab)
+            return self._launch_steady(key, chose_slab)
         if autotune.cache_path() is not None:
             ti.AUTOTUNE_CACHE.inc(outcome="miss")
         ti.AUTOTUNE_SEARCHES.inc()
@@ -1263,11 +1317,13 @@ class TorchPolicyEngine:
     def _settle_slab_choice(self, key, chose_slab: bool) -> None:
         """Record the slab choice and keep pinned only what its kernel
         reads: K6's gathered operands, or the default kernel's."""
-        self._slab_choice = chose_slab
+        with self._slab_lock:
+            self._slab_choice = chose_slab
+            if not chose_slab:
+                self._slab_ops_cache = None
         if chose_slab:
             self._slab_ops_for(key)
         else:
-            self._slab_ops_cache = None
             self._pre_cache = (key, {"ops": self._pre_cache[1]["ops"], "pre": None})
 
     # --- measurement and invalidation ---------------------------------------
@@ -1342,6 +1398,7 @@ class TorchPolicyEngine:
         mesh = self._mesh(mesh)
         st = self._class_state
         if st is not None:
+            planspec.record("grid.sharded.classes")
             pc = st["classes"]
             tensors = self._with_host_cases(cases, st["ctensors"])
             with phase("engine.dispatch_sharded"):
@@ -1351,6 +1408,12 @@ class TorchPolicyEngine:
                 )
             ti.CLASS_EVALS.inc(path="sharded")
         else:
+            # recorded at the dispatch leaf, not inside the shared sharded
+            # program (the class route reuses it over the class axis)
+            if sharded.mesh_schedule(schedule) == "ring":
+                planspec.record("grid.sharded.ring")
+            else:
+                planspec.record("grid.sharded.allgather")
             tensors = self._with_host_cases(cases)
             with phase("engine.dispatch_sharded"):
                 grids = sharded.evaluate_grid_sharded(
@@ -1373,6 +1436,7 @@ class TorchPolicyEngine:
             return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
         mesh = self._mesh(mesh)
         if self._class_counts_eligible(len(cases)):
+            planspec.record("counts.sharded.classes")
             pc = self._class_state["classes"]
             counts, gather_s = tiled.evaluate_grid_counts_classes_sharded(
                 self._with_host_cases(cases, self._class_state["ctensors"]), pc.n_classes,
@@ -1381,14 +1445,12 @@ class TorchPolicyEngine:
             ti.CLASS_GATHER_SECONDS.set(gather_s)
             ti.CLASS_EVALS.inc(path="sharded")
             return counts
-        if "tiers" in self._tensors and kernel != "xla":
-            if kernel is not None:
-                raise ValueError(
-                    f"sharded counts kernel {kernel!r} cannot evaluate the "
-                    "precedence-tier lattice; use kernel='xla' or kernel=None "
-                    "(auto) on a tiered engine"
-                )
-            kernel = "xla"
+        # tiers x per-shard kernel: the same matrix discipline as
+        # evaluate_grid_counts (auto takes the tile loop, an explicit
+        # kernel raises with the declared message)
+        kernel = planspec.resolve_sharded_counts_kernel(
+            kernel=kernel, tiers="tiers" in self._tensors
+        )
         return tiled.evaluate_grid_counts_sharded(
             self._with_host_cases(cases), n, block=block, mesh=mesh, kernel=kernel,
             pack=self._pack,
@@ -1403,6 +1465,7 @@ class TorchPolicyEngine:
         n = self.n_pods
         if not cases or n == 0:
             return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
+        planspec.record("counts.ring")
         return tiled.evaluate_grid_counts_ring(
             self._with_host_cases(cases), n, block=block, mesh=self._mesh(mesh), pack=self._pack
         )
@@ -1419,6 +1482,7 @@ class TorchPolicyEngine:
         n = self.n_pods
         if not cases or n == 0:
             return None
+        planspec.record("counts.ring.pipelined")
         return tiled.evaluate_grid_counts_ring_pipelined(
             self._with_host_cases(cases), n, reps=reps, block=block, mesh=self._mesh(mesh),
             pack=self._pack,
@@ -1434,6 +1498,7 @@ class TorchPolicyEngine:
         n = self.n_pods
         if not cases or n == 0:
             return {"ingress": 0, "egress": 0, "combined": 0, "cells": 0}
+        planspec.record("counts.ring2d")
         if mesh is None:
             mesh = sharded.ring2d_mesh(sharded.default_mesh(self.device))
         return tiled.evaluate_grid_counts_ring2d(
@@ -1447,7 +1512,9 @@ class TorchPolicyEngine:
         steady; None before one), whether a case set is pinned, the bytes
         of the pin and of the cached slab operands, the slab choice and
         the autotune's record."""
-        pin, slab = self._pre_cache, self._slab_ops_cache
+        with self._slab_lock:
+            slab = self._slab_ops_cache
+        pin = self._pre_cache
         return {
             **self._steady_counts,
             "mode": self._last_counts_mode,
@@ -1468,7 +1535,8 @@ class TorchPolicyEngine:
         slab kernel stays off until the engine is rebuilt, as on the
         reference."""
         self._pre_cache = None
-        self._slab_ops_cache = None
+        with self._slab_lock:
+            self._slab_ops_cache = None
         self._pre_cache_misses = 0
         self._pre_cache_declined = None
         self._last_counts_key = None

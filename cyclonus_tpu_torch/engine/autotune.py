@@ -39,7 +39,7 @@ KNOWN_KERNELS = ("default", "slab")
 _DEFAULT_PATH = os.path.join("~", ".cache", "cyclonus_tpu_torch", "autotune.json")
 
 
-def cache_path() -> Optional[str]:  # never raises
+def cache_path() -> Optional[str]:  # never-raises
     """The cache file, or None when persistence is off."""
     raw = os.environ.get("CYCLONUS_AUTOTUNE_CACHE")
     if raw is None:
@@ -62,7 +62,7 @@ def make_key(shape_bucket: Dict[str, Any], device: str, dtype_plan: str) -> str:
     )
 
 
-def _read_all(path: str) -> Dict[str, Any]:  # never raises
+def _read_all(path: str) -> Dict[str, Any]:  # never-raises
     """The file's entries, {} on any problem: missing, unreadable, not
     JSON, not a dict, another version, or entries that are not a dict."""
     try:
@@ -79,7 +79,7 @@ def _read_all(path: str) -> Dict[str, Any]:  # never raises
     return entries if isinstance(entries, dict) else {}
 
 
-def load_winner(key: str) -> Optional[Dict[str, Any]]:  # never raises
+def load_winner(key: str) -> Optional[Dict[str, Any]]:  # never-raises
     """The persisted winner of `key` ({"kernel": "default" | "slab"}), or
     None: persistence off, no entry, or an entry that is not a winner."""
     path = cache_path()
@@ -94,7 +94,7 @@ def load_winner(key: str) -> Optional[Dict[str, Any]]:  # never raises
     return winner
 
 
-def store_winner(  # never raises
+def store_winner(  # never-raises
     key: str, winner: Dict[str, Any], timings: Optional[Dict[str, Any]] = None
 ) -> bool:
     """Persist `winner` (and its timings) under `key`: read the file,

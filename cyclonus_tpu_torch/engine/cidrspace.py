@@ -60,6 +60,7 @@ import numpy as np
 
 from . import host
 from .encoding import iter_ip_specs, pack_bool_words
+from ..utils import contracts
 
 logger = logging.getLogger(__name__)
 
@@ -116,29 +117,31 @@ def device_min_cells() -> int:
         return 1 << 24
 
 
+@contracts.checked
 @dataclass
 class CidrSpace:
     """The TSS partition map of one engine's ip-peer rows.
 
-    A atoms (distinct (base, mask) over primary CIDRs and their excepts,
+    Tensor contracts: A atoms (distinct (base, mask) over primary CIDRs and their excepts,
     both directions), K partitions (distinct masks, LPM order: longest
     prefix first), B the bucket width padded to 128.  `pbases` rows hold
     each partition's bases sorted ascending with _BASE_PAD fill;
     `pindex` holds the matching GLOBAL atom index with -1 fill — the -1,
     not the pad base value, is what rejects a pad hit, so a real
     0xFFFFFFFF base is safe.  `device` is the torch device the LPM
-    stage's device leg runs on (None: the current CUDA device)."""
+    stage's device leg runs on (None: the current CUDA device).
+    Validated on construction under CYCLONUS_SHAPE_CHECK=1."""
 
     n_specs: int  # distinct (base, mask, excepts) rows (the bit path's width)
     n_atoms: int
     n_host_rows: int  # host-evaluated (v6/mixed) rows routed AROUND the trie
-    atom_base: np.ndarray  # (A,) uint32
-    atom_mask: np.ndarray  # (A,) uint32
-    atom_part: np.ndarray  # (A,) int32 atom -> partition
-    pmask: np.ndarray  # (K,) uint32
-    pprefix: np.ndarray  # (K,) int32
-    pbases: np.ndarray  # (K, B) uint32
-    pindex: np.ndarray  # (K, B) int32, -1 = pad
+    atom_base: np.ndarray = contracts.tensor("(A,) uint32")
+    atom_mask: np.ndarray = contracts.tensor("(A,) uint32")
+    atom_part: np.ndarray = contracts.tensor("(A,) int32")  # atom -> partition
+    pmask: np.ndarray = contracts.tensor("(K,) uint32")
+    pprefix: np.ndarray = contracts.tensor("(K,) int32")
+    pbases: np.ndarray = contracts.tensor("(K, B) uint32")
+    pindex: np.ndarray = contracts.tensor("(K, B) int32", sentinel="-1=pad")
     #: per spec: (primary atom id, tuple of except atom ids) — the
     #: bridge from partition signatures back to per-spec membership
     #: (spec_membership_words); row order = spec discovery

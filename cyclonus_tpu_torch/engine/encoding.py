@@ -54,6 +54,7 @@ from ..matcher.core import (
     PortsForAllPeersMatcher,
     SpecificPortMatcher,
 )
+from ..utils import contracts
 
 # selector expression opcodes
 EXP_NONE = 0
@@ -201,25 +202,28 @@ class _Vocab:
         return self.proto.setdefault(protocol, len(self.proto))
 
 
+@contracts.checked
 @dataclass
 class ClusterEncoding:
     """Tensorized cluster: one row per pod, one row per namespace.
 
-    Shapes: N pods, M namespaces, L/Lns label pad widths."""
+    Tensor contracts (tools/shapelint.py + utils/contracts.py): N pods,
+    M namespaces, L/Lns label pad widths.  Validated on construction
+    under CYCLONUS_SHAPE_CHECK=1."""
 
     vocab: _Vocab
     pod_keys: List[str]  # "ns/name" in row order
-    pod_ns_id: np.ndarray  # shape: (N,) int32
-    pod_kv: np.ndarray  # shape: (N, L) int32; sentinel: -1=pad
-    pod_key: np.ndarray  # shape: (N, L) int32; sentinel: -1=pad
+    pod_ns_id: np.ndarray = contracts.tensor("(N,) int32")
+    pod_kv: np.ndarray = contracts.tensor("(N, L) int32", sentinel="-1=pad")
+    pod_key: np.ndarray = contracts.tensor("(N, L) int32", sentinel="-1=pad")
     # a parse-failure row holds uint32 0 — a REAL address (0.0.0.0) — so
     # the bool validity column, not the 0, is the ground truth: every
     # comparison against pod_ip must consult pod_ip_valid
-    pod_ip: np.ndarray  # shape: (N,) uint32; sentinel: 0=invalid; mask: pod_ip_valid
-    pod_ip_valid: np.ndarray  # shape: (N,) bool
+    pod_ip: np.ndarray = contracts.tensor("(N,) uint32", sentinel="0=invalid", mask="pod_ip_valid")
+    pod_ip_valid: np.ndarray = contracts.tensor("(N,) bool")
     pod_ips: List[str]  # raw strings, for host-side v6 fallback
-    ns_kv: np.ndarray  # shape: (M, Lns) int32; sentinel: -1=pad
-    ns_key: np.ndarray  # shape: (M, Lns) int32; sentinel: -1=pad
+    ns_kv: np.ndarray = contracts.tensor("(M, Lns) int32", sentinel="-1=pad")
+    ns_key: np.ndarray = contracts.tensor("(M, Lns) int32", sentinel="-1=pad")
 
     @property
     def n_pods(self) -> int:
@@ -538,37 +542,41 @@ class _PortSpecBuilder:
         }
 
 
+@contracts.checked
 @dataclass
 class _DirectionEncoding:
     """Targets + flattened peers for one direction (ingress or egress).
 
-    Shapes: T targets, P flat peers, X except-block pad width."""
+    Tensor contracts: T targets, P flat peers, X except-block pad width.
+    Validated on construction under CYCLONUS_SHAPE_CHECK=1."""
 
     n_targets: int
     # -1: namespace unknown to cluster
-    target_ns: np.ndarray  # shape: (T,) int32; sentinel: -1=pad
-    target_sel: np.ndarray  # shape: (T,) int32  # selector id
+    target_ns: np.ndarray = contracts.tensor("(T,) int32", sentinel="-1=pad")
+    target_sel: np.ndarray = contracts.tensor("(T,) int32")  # selector id
     # peers, flat (pad peers belong to target -1: zero one-hot row):
-    peer_target: np.ndarray  # shape: (P,) int32; sentinel: -1=pad
+    peer_target: np.ndarray = contracts.tensor("(P,) int32", sentinel="-1=pad")
     # peer's index WITHIN its target (rule provenance for the analysis
     # layer: flat row p is rule (peer_target[p], peer_rule_idx[p]) of
     # the sorted_targets() order)
-    peer_rule_idx: np.ndarray  # shape: (P,) int32
-    peer_kind: np.ndarray  # shape: (P,) int32
-    peer_ns_kind: np.ndarray  # shape: (P,) int32  # (pod peers)
-    peer_ns_id: np.ndarray  # shape: (P,) int32; sentinel: -1=pad  # (NS_EXACT)
-    peer_ns_sel: np.ndarray  # shape: (P,) int32; sentinel: -1=pad  # (NS_SELECTOR)
-    peer_pod_kind: np.ndarray  # shape: (P,) int32
-    peer_pod_sel: np.ndarray  # shape: (P,) int32; sentinel: -1=pad
+    peer_rule_idx: np.ndarray = contracts.tensor("(P,) int32")
+    peer_kind: np.ndarray = contracts.tensor("(P,) int32")
+    peer_ns_kind: np.ndarray = contracts.tensor("(P,) int32")  # (pod peers)
+    peer_ns_id: np.ndarray = contracts.tensor("(P,) int32", sentinel="-1=pad")  # (NS_EXACT)
+    peer_ns_sel: np.ndarray = contracts.tensor("(P,) int32", sentinel="-1=pad")  # (NS_SELECTOR)
+    peer_pod_kind: np.ndarray = contracts.tensor("(P,) int32")
+    peer_pod_sel: np.ndarray = contracts.tensor("(P,) int32", sentinel="-1=pad")
     # ip peers (IPv4 in-kernel; v6 handled via host rows).  base/mask
     # rows are only meaningful where ip_is_v4 — non-v4 rows hold 0,
     # which as uint32 data would be 0.0.0.0/0 (match everything)
-    ip_base: np.ndarray  # shape: (P,) uint32; sentinel: 0=inert; mask: ip_is_v4  # (pre-masked)
-    ip_mask: np.ndarray  # shape: (P,) uint32; sentinel: 0=inert; mask: ip_is_v4
-    ip_is_v4: np.ndarray  # shape: (P,) bool
-    ex_base: np.ndarray  # shape: (P, X) uint32; sentinel: 0=inert; mask: ex_valid
-    ex_mask: np.ndarray  # shape: (P, X) uint32; sentinel: 0=inert; mask: ex_valid
-    ex_valid: np.ndarray  # shape: (P, X) bool
+    ip_base: np.ndarray = contracts.tensor(
+        "(P,) uint32", sentinel="0=inert", mask="ip_is_v4"
+    )  # (pre-masked)
+    ip_mask: np.ndarray = contracts.tensor("(P,) uint32", sentinel="0=inert", mask="ip_is_v4")
+    ip_is_v4: np.ndarray = contracts.tensor("(P,) bool")
+    ex_base: np.ndarray = contracts.tensor("(P, X) uint32", sentinel="0=inert", mask="ex_valid")
+    ex_mask: np.ndarray = contracts.tensor("(P, X) uint32", sentinel="0=inert", mask="ex_valid")
+    ex_valid: np.ndarray = contracts.tensor("(P, X) bool")
     host_ip_rows: List[Tuple[int, IPPeerMatcher]]  # v6 fallback: peer row -> matcher
     port_spec: Dict[str, np.ndarray]  # per-peer port spec arrays
 
@@ -724,6 +732,7 @@ def _encode_direction(
     )
 
 
+@contracts.checked
 @dataclass
 class TierDirectionEncoding:
     """Precedence-tier rule slabs for one direction.
@@ -741,18 +750,18 @@ class TierDirectionEncoding:
     against pod labels (selpod), which is also what keeps the
     equivalence-class pod signature complete under tiers.
 
-    Shapes: G flat tier rows."""
+    Tensor contracts: G flat tier rows."""
 
     n_rules: int  # real (pre-flatten) rule count, both tiers
-    subj_ns_sel: np.ndarray  # shape: (G,) int32
-    subj_pod_kind: np.ndarray  # shape: (G,) int32  # POD_*
-    subj_pod_sel: np.ndarray  # shape: (G,) int32; sentinel: -1=pad
-    peer_ns_sel: np.ndarray  # shape: (G,) int32
-    peer_pod_kind: np.ndarray  # shape: (G,) int32
-    peer_pod_sel: np.ndarray  # shape: (G,) int32; sentinel: -1=pad
-    action: np.ndarray  # shape: (G,) int8; sentinel: 0=pad
-    tier: np.ndarray  # shape: (G,) int8
-    rank: np.ndarray  # shape: (G,) int32
+    subj_ns_sel: np.ndarray = contracts.tensor("(G,) int32")
+    subj_pod_kind: np.ndarray = contracts.tensor("(G,) int32")  # POD_*
+    subj_pod_sel: np.ndarray = contracts.tensor("(G,) int32", sentinel="-1=pad")
+    peer_ns_sel: np.ndarray = contracts.tensor("(G,) int32")
+    peer_pod_kind: np.ndarray = contracts.tensor("(G,) int32")
+    peer_pod_sel: np.ndarray = contracts.tensor("(G,) int32", sentinel="-1=pad")
+    action: np.ndarray = contracts.tensor("(G,) int8", sentinel="0=pad")
+    tier: np.ndarray = contracts.tensor("(G,) int8")
+    rank: np.ndarray = contracts.tensor("(G,) int32")
     port_spec: Dict[str, np.ndarray] = field(default_factory=dict)
 
     @property
@@ -830,11 +839,12 @@ def encode_tier_directions(
     )
 
 
+@contracts.checked
 @dataclass
 class PolicyEncoding:
     """Full tensor encoding of a compiled Policy against a cluster.
 
-    Selector-table shapes: S deduped selectors, R matchLabels pad
+    Selector-table contracts: S deduped selectors, R matchLabels pad
     width, E matchExpressions pad width, V expression-values pad
     width."""
 
@@ -842,10 +852,10 @@ class PolicyEncoding:
     ingress: _DirectionEncoding
     egress: _DirectionEncoding
     # selector arrays (shared by both directions):
-    sel_req_kv: np.ndarray  # shape: (S, R) int32; sentinel: -1=pad
-    sel_exp_op: np.ndarray  # shape: (S, E) int32  # EXP_NONE pad
-    sel_exp_key: np.ndarray  # shape: (S, E) int32; sentinel: -1=pad
-    sel_exp_vals: np.ndarray  # shape: (S, E, V) int32; sentinel: -1=pad
+    sel_req_kv: np.ndarray = contracts.tensor("(S, R) int32", sentinel="-1=pad")
+    sel_exp_op: np.ndarray = contracts.tensor("(S, E) int32")  # EXP_NONE pad
+    sel_exp_key: np.ndarray = contracts.tensor("(S, E) int32", sentinel="-1=pad")
+    sel_exp_vals: np.ndarray = contracts.tensor("(S, E, V) int32", sentinel="-1=pad")
     n_selectors: int
     # precedence-tier slabs (None without admin tiers: zero ANP/BANP
     # objects leave the tensor set byte-identical)
@@ -873,20 +883,22 @@ class PolicyEncoding:
 # tuple-space partition signature is not part of this package.
 
 
+@contracts.checked
 @dataclass
 class PodClasses:
     """Label-equivalence classes over the pod axis.
 
-    Shapes: N pods, C classes.  class_of_pod maps pod row -> class id;
+    Tensor contracts: N pods, C classes.  class_of_pod maps pod row -> class id;
     class_rep is the first member (the row whose tensors stand in for the
     whole class); class_size the member count (the exact weight of a
-    class cell when counts broadcast back to the pod grid)."""
+    class cell when counts broadcast back to the pod grid).  Validated on
+    construction under CYCLONUS_SHAPE_CHECK=1."""
 
     n_pods: int
     n_classes: int
-    class_of_pod: np.ndarray  # shape: (N,) int32
-    class_rep: np.ndarray  # shape: (C,) int32
-    class_size: np.ndarray  # shape: (C,) int32
+    class_of_pod: np.ndarray = contracts.tensor("(N,) int32")
+    class_rep: np.ndarray = contracts.tensor("(C,) int32")
+    class_size: np.ndarray = contracts.tensor("(C,) int32")
     # bytes per pod of the signature the classes were derived from
     signature_bytes: int = 0
 

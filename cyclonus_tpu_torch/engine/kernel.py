@@ -55,6 +55,7 @@ from .encoding import (
     TIER_KEY_NONE,
     packed_words,
 )
+from ..utils import contracts
 
 #: element budget of one selector_match chunk's largest broadcast
 #: intermediate ([S, chunk, E, V, L] bools): eager torch materialises
@@ -91,6 +92,14 @@ def _selector_match_chunk(sel_req_kv, sel_exp_op, sel_exp_key, sel_exp_vals, kv,
     return req_ok & torch.all(exp_ok, dim=-1)
 
 
+@contracts.args(
+    sel_req_kv="(S, R) int32",
+    sel_exp_op="(S, E) int32",
+    sel_exp_key="(S, E) int32",
+    sel_exp_vals="(S, E, V) int32",
+    kv="(N, L) int32",
+    key="(N, L) int32",
+)
 def selector_match(
     sel_req_kv: torch.Tensor,  # [S, R]
     sel_exp_op: torch.Tensor,  # [S, E]
@@ -122,6 +131,13 @@ def selector_match(
     )
 
 
+@contracts.args(
+    selpod="(S, N) bool",
+    selns="(S, M) bool",
+    pod_ns_id="(N,) int32",
+    pod_ip="(N,) int64",  # the reference's uint32, widened on the device (carry.py)
+    pod_ip_valid="(N,) bool",
+)
 def direction_precompute(
     enc: Dict[str, torch.Tensor],
     selpod: torch.Tensor,  # [S, N] selector-vs-pod-labels
@@ -159,18 +175,21 @@ def direction_precompute(
 
     # ip peers (IPv4 kernel; v6 rows are patched host-side).  pod_ip's
     # 0-sentinel is a real address (0.0.0.0), so both the CIDR and the
-    # except terms consult pod_ip_valid
+    # except terms consult pod_ip_valid.  The uint32 CIDR columns travel
+    # widened to int64 like pod_ip (carry.py): .long() returns them as is
+    ip_base, ip_mask = enc["ip_base"].long(), enc["ip_mask"].long()
+    ex_base, ex_mask = enc["ex_base"].long(), enc["ex_mask"].long()
     in_cidr = (
         enc["ip_is_v4"][:, None]
         & pod_ip_valid[None, :]
-        & ((pod_ip[None, :] & enc["ip_mask"][:, None]) == enc["ip_base"][:, None])
+        & ((pod_ip[None, :] & ip_mask[:, None]) == ip_base[:, None])
     )  # [P, N]
     in_except = torch.any(
         enc["ex_valid"][:, :, None]
         & pod_ip_valid[None, None, :]
         & (
-            (pod_ip[None, None, :] & enc["ex_mask"][:, :, None])
-            == enc["ex_base"][:, :, None]
+            (pod_ip[None, None, :] & ex_mask[:, :, None])
+            == ex_base[:, :, None]
         ),
         dim=1,
     )  # [P, N]
@@ -185,6 +204,9 @@ def direction_precompute(
     return {"tmatch": tmatch, "has_target": has_target, "peer_match": peer_match}
 
 
+@contracts.args(
+    q_port="(Q,) int32", q_name="(Q,) int32", q_proto="(Q,) int32"
+)
 def port_spec_allows(
     spec: Dict[str, torch.Tensor],
     q_port: torch.Tensor,  # [Q] int32
@@ -322,6 +344,14 @@ def apply_host_ip(enc: Dict, peer_match: torch.Tensor) -> torch.Tensor:
     return peer_match
 
 
+@contracts.args(
+    # the reference's uint32 operands, widened on the device (carry.py)
+    pod_ip="(N,) int64",
+    pod_ip_valid="(N,) bool",
+    pmask="(K,) int64",
+    pbases="(K, B) int64",
+    pindex="(K, B) int32",
+)
 def lpm_partition_signature(
     pod_ip: torch.Tensor,  # [N] int64 (widened uint32)
     pod_ip_valid: torch.Tensor,  # [N] bool
@@ -371,7 +401,7 @@ def rule_firing_kernel(shared: Dict, enc: Dict) -> Dict[str, torch.Tensor]:
         selpod,
         selns,
         shared["pod_ns_id"],
-        shared["pod_ip"],
+        shared["pod_ip"].long(),  # int64 on the device (carry.py); .long() returns it as is
         shared["pod_ip_valid"],
     )
     peer_match = apply_host_ip(enc, pre["peer_match"])
@@ -537,7 +567,7 @@ def evaluate_grid_kernel(tensors: Dict, pack: bool = False) -> Dict[str, torch.T
             selpod,
             selns,
             tensors["pod_ns_id"],
-            tensors["pod_ip"],
+            tensors["pod_ip"].long(),  # int64 on the device (carry.py); .long() returns it as is
             tensors["pod_ip_valid"],
         )
         pport = port_spec_allows(
@@ -575,6 +605,7 @@ def evaluate_grid_kernel(tensors: Dict, pack: bool = False) -> Dict[str, torch.T
     }
 
 
+@contracts.args(class_of="(N,) int32")
 def gather_class_grids(
     out: Dict[str, torch.Tensor], class_of: torch.Tensor
 ) -> Dict[str, torch.Tensor]:

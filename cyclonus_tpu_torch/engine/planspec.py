@@ -1,0 +1,659 @@
+"""The evaluator dispatch surface as a declarative registry (a copy of the
+reference package's engine/planspec.py): the static twin tools/planlint.py
+lints against and the runtime route recorder torch_tools/planharness.py
+replays against.
+
+Three kinds of declaration live here, and all of them are LIVE code,
+not documentation:
+
+  * ``PathSpec`` — one evaluator path: its entry point, stage list
+    (pre-classify -> pack -> contract -> tier-resolve -> epilogue),
+    the flags and ctor args that govern it, the reference package's
+    program family for the same route (``cache_key_family``, a label
+    kept equal so the two manifests line up: the port compiles nothing
+    per shape), the differential gate that holds it against the
+    reference (a tests/test_torch_*.py file), the devices it may run
+    on, its coverage tier, and the ``when`` feature predicate that
+    selects it.  ``predict(entry, features)`` derives the route purely
+    from these declarations — the harness asserts actual == predicted.
+  * ``Interaction`` — one pairwise feature-compatibility cell: legal /
+    fallback / raise, with the fallback target and the exact raise
+    message.  engine/api.py's dispatch reads the matrix through
+    ``resolve_counts_backend``, ``resolve_class_counts_kernel`` and
+    ``resolve_sharded_counts_kernel``, so a matrix edit IS a dispatch
+    change (and tools/planlint.py PL003 fails on a dispatch interaction
+    the matrix doesn't declare).
+  * ``record(name)`` — the leaf route-recorder call each implementation
+    site makes with a LITERAL path name.  tools/planlint.py PL001/PL005
+    cross-check the literals against the registry; the runtime recorder
+    below replays them under CYCLONUS_PLANHARNESS=1.  The literals and
+    the points that record them are the reference's, so the same calls
+    record the same route list in both packages
+    (tests/test_torch_planspec.py).
+
+The reference's 24 paths less one: ``counts.steady.packed_tuned``, the
+steady state's packed kernel at an autotuned tile, which the port lacks
+(its packed counts kernel has one tile shape, so only the dense plan's
+slab choice is tuned).  ``pairs.aot`` keeps its name although the port
+compiles no ahead-of-time program: it is the same point-query leaf.
+The port's own cell reader, ``resolve_class_counts_kernel``, picks the
+class route's row-sum kernel off the (classes, backend) cells: the
+weighted kernel (K2) exists under the packed plan only.
+
+Strip contract: ``ACTIVE`` is read ONCE at import.  When off — every
+production run — ``record`` is a constant-false branch away from a
+no-op, never syncs, never raises.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, List, Mapping, Optional, Tuple
+
+ACTIVE = os.environ.get("CYCLONUS_PLANHARNESS", "") == "1"
+
+STAGES = ("pre-classify", "pack", "contract", "tier-resolve", "epilogue")
+
+COVERAGE_TIERS = ("tier1", "slow", "device_only")
+
+
+class PlanError(ValueError):
+    """An illegal feature combination, raised with the matrix cell's
+    declared message — the SAME exception dispatch raises live."""
+
+
+@dataclass(frozen=True)
+class PathSpec:
+    name: str
+    entry: str
+    stages: Tuple[str, ...]
+    flags: Tuple[str, ...] = ()  # governing CYCLONUS_* env flags
+    ctor_args: Tuple[str, ...] = ()  # governing TorchPolicyEngine ctor args
+    cache_key_family: str = ""  # the reference's program family of the route
+    gate: str = ""  # differential gate: a tests/test_torch_*.py file
+    backends: Tuple[str, ...] = ("cpu", "cuda")
+    coverage: str = "tier1"  # tier1 | slow | device_only
+    when: Mapping[str, object] = field(default_factory=dict)
+
+    def matches(self, features: Mapping[str, object]) -> bool:
+        return all(features.get(k) == v for k, v in self.when.items())
+
+
+@dataclass(frozen=True)
+class Interaction:
+    a: str  # feature condition, e.g. "tiers"
+    b: str  # feature condition, e.g. "backend=pallas"
+    verdict: str  # "legal" | "fallback" | "raise"
+    on_explicit: str = ""  # verdict override for an EXPLICIT request
+    unless: Tuple[str, ...] = ()  # features exempting the cell (all must hold)
+    resolves_to: str = ""  # "feature=value" applied on fallback
+    message: str = ""  # the exact raise text (when any verdict is "raise")
+    note: str = ""
+
+
+# --------------------------------------------------------------------------
+# The path census.  Entry points are the public dispatch roots on
+# TorchPolicyEngine (plus serve's query routing and the audit plane);
+# every leaf reached from one of them records exactly one of these names.
+# --------------------------------------------------------------------------
+
+PATHS: Tuple[PathSpec, ...] = (
+    # --- evaluate_grid -----------------------------------------------------
+    PathSpec(
+        "grid.dense", "grid",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_PACK", "CYCLONUS_COMPACT"),
+        ctor_args=("tiers",),
+        cache_key_family="grid",
+        gate="tests/test_torch_engine.py",
+        when={"classes": False},
+    ),
+    PathSpec(
+        "grid.classes", "grid",
+        stages=("pre-classify", "pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_CLASS_COMPRESS", "CYCLONUS_CLASS_MIN_PODS",
+               "CYCLONUS_CIDR_TSS", "CYCLONUS_PACK"),
+        ctor_args=("class_compress",),
+        cache_key_family="grid_classes",
+        gate="tests/test_torch_engine.py",
+        when={"classes": True},
+    ),
+    # --- evaluate_grid_sharded --------------------------------------------
+    PathSpec(
+        "grid.sharded.ring", "grid_sharded",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_MESH_SCHEDULE", "CYCLONUS_PACK"),
+        cache_key_family="grid_sharded",
+        gate="tests/test_torch_sharded.py",
+        when={"classes": False, "schedule": "ring"},
+    ),
+    PathSpec(
+        "grid.sharded.allgather", "grid_sharded",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_MESH_SCHEDULE", "CYCLONUS_PACK"),
+        cache_key_family="grid_sharded",
+        gate="tests/test_torch_sharded.py",
+        when={"classes": False, "schedule": "allgather"},
+    ),
+    PathSpec(
+        "grid.sharded.classes", "grid_sharded",
+        stages=("pre-classify", "pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_CLASS_COMPRESS", "CYCLONUS_MESH_SCHEDULE"),
+        ctor_args=("class_compress",),
+        cache_key_family="grid_sharded_classes",
+        gate="tests/test_torch_sharded.py",
+        when={"classes": True},
+    ),
+    # --- evaluate_grid_counts ---------------------------------------------
+    PathSpec(
+        "counts.classes", "counts",
+        stages=("pre-classify", "pack", "contract", "epilogue"),
+        flags=("CYCLONUS_CLASS_COMPRESS", "CYCLONUS_CLASS_MIN_PODS",
+               "CYCLONUS_SLAB_MAX_BYTES", "CYCLONUS_CIDR_TSS"),
+        ctor_args=("class_compress",),
+        cache_key_family="counts_classes",
+        gate="tests/test_torch_engine.py",
+        when={"classes": True},
+    ),
+    PathSpec(
+        "counts.pallas", "counts",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_PACK", "CYCLONUS_PRE_CACHE", "CYCLONUS_PALLAS_SLAB",
+               "CYCLONUS_AUTOTUNE"),
+        ctor_args=("tiers",),
+        cache_key_family="counts_packed",
+        gate="tests/test_torch_steady.py",
+        when={"classes": False, "backend": "pallas"},
+    ),
+    PathSpec(
+        "counts.xla", "counts",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_PACK",),
+        ctor_args=("tiers",),
+        cache_key_family="counts_tiled",
+        gate="tests/test_torch_tiled.py",
+        when={"classes": False, "backend": "xla"},
+    ),
+    # --- steady-state sub-dispatch (within counts.pallas) -------------------
+    PathSpec(
+        "counts.steady.slab", "counts_steady",
+        stages=("contract", "epilogue"),
+        flags=("CYCLONUS_PALLAS_SLAB", "CYCLONUS_SLAB_MAX_BYTES",
+               "CYCLONUS_AUTOTUNE"),
+        cache_key_family="counts_slab",
+        gate="tests/test_torch_dense.py",
+        when={"slab": True},
+    ),
+    PathSpec(
+        "counts.steady.default", "counts_steady",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_PRE_CACHE",),
+        cache_key_family="counts_packed",
+        gate="tests/test_torch_steady.py",
+        when={"slab": False},
+    ),
+    # --- evaluate_grid_counts_sharded ---------------------------------------
+    PathSpec(
+        "counts.sharded.classes", "counts_sharded",
+        stages=("pre-classify", "pack", "contract", "epilogue"),
+        flags=("CYCLONUS_CLASS_COMPRESS", "CYCLONUS_SLAB_MAX_BYTES"),
+        ctor_args=("class_compress",),
+        cache_key_family="counts_classes_sharded",
+        gate="tests/test_torch_sharded.py",
+        when={"classes": True},
+    ),
+    PathSpec(
+        "counts.sharded.pallas", "counts_sharded",
+        stages=("pack", "contract", "epilogue"),
+        flags=("CYCLONUS_PACK",),
+        cache_key_family="counts_sharded",
+        gate="tests/test_torch_sharded.py",
+        when={"classes": False, "kernel": "pallas"},
+    ),
+    PathSpec(
+        "counts.sharded.xla", "counts_sharded",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_PACK",),
+        ctor_args=("tiers",),
+        cache_key_family="counts_sharded",
+        gate="tests/test_torch_sharded.py",
+        when={"classes": False, "kernel": "xla"},
+    ),
+    # --- ring family ---------------------------------------------------------
+    PathSpec(
+        "counts.ring", "counts_ring",
+        stages=("pack", "contract", "epilogue"),
+        flags=("CYCLONUS_PACK",),
+        cache_key_family="counts_ring",
+        gate="tests/test_torch_sharded.py",
+        when={},
+    ),
+    PathSpec(
+        "counts.ring.pipelined", "counts_ring_pipelined",
+        stages=("pack", "contract", "epilogue"),
+        flags=("CYCLONUS_PACK",),
+        cache_key_family="counts_ring",
+        gate="tests/test_torch_sharded.py",
+        coverage="slow",  # the feed-forward sweep is bench-scale
+        when={},
+    ),
+    PathSpec(
+        "counts.ring2d", "counts_ring2d",
+        stages=("pack", "contract", "epilogue"),
+        flags=("CYCLONUS_PACK",),
+        cache_key_family="counts_ring2d",
+        gate="tests/test_torch_sharded.py",
+        when={},
+    ),
+    # --- point / streaming / analysis ---------------------------------------
+    PathSpec(
+        "pairs.aot", "pairs",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_PACK",),
+        ctor_args=("tiers",),
+        cache_key_family="pairs",
+        gate="tests/test_torch_pairs.py",
+        when={},
+    ),
+    PathSpec(
+        "grid.blocks", "grid_blocks",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_PACK",),
+        cache_key_family="counts_tiled",
+        gate="tests/test_torch_pairs.py",
+        when={},
+    ),
+    PathSpec(
+        "firing.raw", "firing",
+        stages=("contract", "epilogue"),
+        flags=(),
+        cache_key_family="firing",
+        gate="tests/test_torch_analysis.py",
+        when={},
+    ),
+    # --- serve query routing -------------------------------------------------
+    PathSpec(
+        "serve.query.live", "serve_query",
+        stages=("pack", "contract", "tier-resolve", "epilogue"),
+        flags=("CYCLONUS_SERVE_PREWARM",),
+        cache_key_family="pairs",
+        gate="tests/test_torch_serve.py",
+        when={"warming": False, "shed": False},
+    ),
+    PathSpec(
+        "serve.query.degraded", "serve_query",
+        stages=("epilogue",),
+        flags=("CYCLONUS_SERVE_PREWARM",),
+        cache_key_family="",  # scalar oracle: no device program
+        gate="tests/test_torch_serve.py",
+        when={"warming": True, "shed": False},
+    ),
+    PathSpec(
+        "serve.query.shed", "serve_query",
+        stages=("epilogue",),  # typed refusal: no engine work at all
+        flags=("CYCLONUS_SLO_ENFORCE",),
+        cache_key_family="",  # no device program is ever launched
+        gate="tests/test_torch_slo.py",
+        when={"shed": True},
+    ),
+    # --- audit plane shadow-oracle check ------------------------------------
+    PathSpec(
+        "serve.audit.check", "serve_audit",
+        stages=("epilogue",),  # scalar oracle on the worker thread
+        flags=("CYCLONUS_AUDIT", "CYCLONUS_AUDIT_RATE"),
+        cache_key_family="",  # host-only: no device program
+        gate="tests/test_torch_audit.py",
+        when={},
+    ),
+)
+
+REGISTRY: Dict[str, PathSpec] = {p.name: p for p in PATHS}
+
+ENTRIES: Tuple[str, ...] = tuple(sorted({p.entry for p in PATHS}))
+
+
+# --------------------------------------------------------------------------
+# The pairwise compatibility matrix.  Every feature interaction a
+# dispatch branch can reach is a cell here; tools/planlint.py PL003
+# fails on a reachable interaction the matrix doesn't declare.
+# --------------------------------------------------------------------------
+
+INTERACTIONS: Tuple[Interaction, ...] = (
+    Interaction(
+        "tiers", "backend=pallas", "fallback",
+        on_explicit="raise",
+        unless=("pack", "packed_tier_ok"),
+        resolves_to="backend=xla",
+        message=(
+            "counts backend 'pallas' cannot evaluate the "
+            "precedence-tier lattice on this engine "
+            "(packed plan off or tier rows past the fused-"
+            "epilogue ceiling); use backend='xla' or "
+            "backend=None (auto)"
+        ),
+        note=(
+            "the dense plan's counts kernels (K4/K5/K6) keep the "
+            "networkingv1-only fast path; under the packed plan the "
+            "tiered epilogue (K3) walks any number of tier rows, so the "
+            "port's packed_tier_ok always holds (the reference's message "
+            "is kept word for word)"
+        ),
+    ),
+    Interaction(
+        "tiers", "kernel=pallas", "fallback",
+        on_explicit="raise",
+        resolves_to="kernel=xla",
+        message=(
+            "sharded counts kernel {kernel!r} cannot evaluate "
+            "the precedence-tier lattice; use kernel='xla' or "
+            "kernel=None (auto) on a tiered engine"
+        ),
+        note=(
+            "per-shard counts kernels keep the networkingv1 fast path; "
+            "the tile loop carries the tier resolution epilogue"
+        ),
+    ),
+    Interaction(
+        "classes", "backend=pallas", "legal",
+        note=(
+            "the compressed route takes priority over the backend pick "
+            "(identical counts either way); its row sums run the weighted "
+            "kernel (K2) under the packed plan and the tile loop under "
+            "the dense plan, which has no class kernel"
+        ),
+    ),
+    Interaction(
+        "classes", "backend=xla", "legal",
+        note="compressed route priority, same as the pallas cell; the "
+             "row sums run the tile loop",
+    ),
+    Interaction(
+        "classes", "over_budget", "fallback",
+        resolves_to="classes=False",
+        note=(
+            "_class_counts_eligible: aux/index tensors + class "
+            "precompute past CYCLONUS_SLAB_MAX_BYTES decline the "
+            "compressed route and fall back to the dense kernels"
+        ),
+    ),
+    Interaction(
+        "classes", "tiers", "legal",
+        note=(
+            "class signatures include the tier rule rows; the class "
+            "grid carries the tier-resolve epilogue"
+        ),
+    ),
+    Interaction(
+        "classes", "schedule=ring", "legal",
+        note="grid.sharded.classes shards the class axis; the schedule "
+             "passes through",
+    ),
+    Interaction(
+        "pack", "slab", "fallback",
+        resolves_to="slab=False",
+        note=(
+            "_slab_plan: the slab kernel (K6) is a dense-plan kernel; "
+            "under the packed plan the packed kernel's word contraction "
+            "is the deeper cut from the same precompute; "
+            "CYCLONUS_PACK=0 restores it"
+        ),
+    ),
+    Interaction(
+        "slab=auto", "pre_cache=0", "fallback",
+        resolves_to="slab=False",
+        note=(
+            "_slab_plan: the autotune point IS the first steady-state "
+            "(pinned precompute) call; with the pre-cache off it never "
+            "fires, so auto never pays the slab plan for a dead path"
+        ),
+    ),
+    Interaction(
+        "warming", "query", "fallback",
+        resolves_to="route=serve.query.degraded",
+        note=(
+            "queries during serve prewarm answer from the scalar-oracle "
+            "fallback — exact at host speed, counted in "
+            "cyclonus_tpu_serve_degraded_queries_total"
+        ),
+    ),
+    Interaction(
+        "slo=exhausted", "query", "fallback",
+        resolves_to="route=serve.query.shed",
+        note=(
+            "query_p99 error budget exhausted (CYCLONUS_SLO_ENFORCE): "
+            "queries get a typed Shed refusal — never a wrong verdict; "
+            "the refusal carries shed=True plus an error so the "
+            "all-False allow bits cannot be misread as deny"
+        ),
+    ),
+    Interaction(
+        "slo=burning", "query", "fallback",
+        resolves_to="route=serve.query.degraded",
+        note=(
+            "query_p99 budget burning routes queries onto the same "
+            "scalar-oracle path warming uses — exact answers at host "
+            "speed while device load drains; hysteresis "
+            "(CYCLONUS_SLO_EXIT_BURN + CYCLONUS_SLO_HOLD_S) keeps the "
+            "route from flapping"
+        ),
+    ),
+)
+
+_INTER_INDEX: Dict[Tuple[str, str], Interaction] = {
+    (i.a, i.b): i for i in INTERACTIONS
+}
+
+
+def interaction(a: str, b: str) -> Interaction:
+    """The declared cell for (a, b), order-insensitive."""
+    it = _INTER_INDEX.get((a, b)) or _INTER_INDEX.get((b, a))
+    if it is None:
+        raise KeyError(f"no declared interaction for ({a!r}, {b!r})")
+    return it
+
+
+# --------------------------------------------------------------------------
+# Live resolvers — engine/api.py dispatch calls these, so the matrix
+# above IS the dispatch logic for the cells it declares.
+# --------------------------------------------------------------------------
+
+def resolve_counts_backend(
+    *,
+    backend: str,
+    explicit: bool,
+    tiers: bool,
+    pack: bool,
+    packed_tier_ok,
+) -> str:
+    """evaluate_grid_counts's tiers x pallas decision, read off the
+    matrix: exempt (legal) when the packed plan's tiered epilogue takes
+    the rows, else fallback on auto / raise on an explicit request.
+    `packed_tier_ok` is a zero-arg callable — the eligibility scan is
+    only paid when the cell is actually consulted."""
+    if not (tiers and backend == "pallas"):
+        return backend
+    it = interaction("tiers", "backend=pallas")
+    if pack and packed_tier_ok():
+        return backend  # it.unless: ("pack", "packed_tier_ok")
+    verdict = it.on_explicit if explicit and it.on_explicit else it.verdict
+    if verdict == "raise":
+        raise PlanError(it.message)
+    return it.resolves_to.split("=", 1)[1]
+
+
+def resolve_class_counts_kernel(*, backend: str, pack: bool) -> str:
+    """The class route's row-sum kernel off the (classes, backend=...)
+    cells: the route is legal for either backend, and its weighted
+    kernel (K2) exists under the packed plan only, so a "pallas" backend
+    runs it there and the tile loop ("xla") everywhere else."""
+    it = interaction("classes", f"backend={backend}")
+    if it.verdict != "legal":
+        raise PlanError(it.message)
+    return "pallas" if backend == "pallas" and pack else "xla"
+
+
+def resolve_sharded_counts_kernel(
+    *, kernel: Optional[str], tiers: bool
+) -> Optional[str]:
+    """evaluate_grid_counts_sharded's tiers x pallas decision off the
+    matrix.  None (auto) under tiers resolves to the tile loop; an
+    explicit non-xla kernel raises with the declared message."""
+    if not tiers or kernel == "xla":
+        return kernel
+    it = interaction("tiers", "kernel=pallas")
+    verdict = it.on_explicit if kernel is not None and it.on_explicit else it.verdict
+    if verdict == "raise":
+        raise PlanError(it.message.format(kernel=kernel))
+    return it.resolves_to.split("=", 1)[1]
+
+
+# --------------------------------------------------------------------------
+# Static route prediction — the harness's twin of the live dispatch.
+# Derives the route purely from PATHS + INTERACTIONS; it never touches
+# an engine.
+# --------------------------------------------------------------------------
+
+def predict(entry: str, features: Mapping[str, object]) -> str:
+    """The path `entry` routes to under `features` (raw, pre-resolution
+    flags), per the declarations alone.  Raises PlanError exactly where
+    the live dispatch raises.  The port's counts backend defaults to
+    "pallas" on every device (the hand-written kernels, or their plain
+    versions on the CPU); the sharded counts kernel defaults to "pallas"
+    on a CUDA mesh (`platform` "cuda") and "xla" elsewhere."""
+    f = dict(features)
+    f.setdefault("classes", False)
+    if entry == "counts":
+        backend = f.get("backend")
+        explicit = backend is not None
+        if backend is None:
+            backend = "pallas"
+        # the live dispatch consults the tiers cell BEFORE the classes
+        # short-circuit: an explicit pallas request on a tiered engine
+        # raises even when the compressed route would have absorbed it
+        backend = resolve_counts_backend(
+            backend=backend,
+            explicit=explicit,
+            tiers=bool(f.get("tiers", False)),
+            pack=bool(f.get("pack", False)),
+            packed_tier_ok=lambda: bool(f.get("packed_tier_ok", True)),
+        )
+        f["backend"] = backend
+    elif entry == "counts_sharded":
+        if not f.get("classes", False):
+            kernel = resolve_sharded_counts_kernel(
+                kernel=f.get("kernel"), tiers=bool(f.get("tiers", False))
+            )
+            if kernel is None:
+                kernel = "pallas" if f.get("platform") == "cuda" else "xla"
+            f["kernel"] = kernel
+    elif entry == "grid_sharded":
+        f.setdefault("schedule", "ring")
+    elif entry == "counts_steady":
+        # pack retires the slab path before the steady dispatch ever
+        # sees it (the pack x slab matrix cell)
+        if f.get("pack", False):
+            f["slab"] = False
+        f.setdefault("slab", False)
+    elif entry == "serve_query":
+        f.setdefault("warming", False)
+        f.setdefault("shed", False)
+    candidates = [
+        p for p in PATHS if p.entry == entry and p.matches(f)
+    ]
+    if not candidates:
+        raise PlanError(f"no declared path for entry {entry!r} under {f!r}")
+    # most specific `when` wins (counts.classes over the backend pair)
+    candidates.sort(key=lambda p: (-len(p.when), p.name))
+    if len(candidates) > 1 and len(candidates[0].when) == len(candidates[1].when):
+        raise PlanError(
+            f"ambiguous route for entry {entry!r} under {f!r}: "
+            f"{[p.name for p in candidates[:2]]}"
+        )
+    return candidates[0].name
+
+
+# --------------------------------------------------------------------------
+# The runtime route recorder (armed by CYCLONUS_PLANHARNESS=1, read
+# once at import — the strip contract).
+# --------------------------------------------------------------------------
+
+_LOCK = threading.Lock()
+_ROUTES: List[str] = []  # guarded-by: _LOCK
+_DROPPED = 0
+
+
+def _count_dropped() -> None:
+    global _DROPPED
+    _DROPPED += 1
+
+
+def dropped() -> int:
+    """Routes the recorder failed to append (harness debugging aid; 0
+    in any healthy run)."""
+    return _DROPPED
+
+
+def record(name: str) -> None:  # never-raises
+    """Leaf route-recorder call.  Callers pass a LITERAL path name —
+    tools/planlint.py extracts these literals to cross-check against
+    the registry (PL001: undeclared literal; PL005: declared path no
+    leaf records).  No-op unless the harness armed the recorder."""
+    if not ACTIVE:
+        return
+    try:
+        with _LOCK:
+            _ROUTES.append(name)
+    except Exception:
+        _count_dropped()
+
+
+def drain() -> List[str]:
+    """Recorded routes since the last drain, in dispatch order.  Empty
+    when the recorder is off."""
+    if not ACTIVE:
+        return []
+    with _LOCK:
+        out = list(_ROUTES)
+        _ROUTES.clear()
+    return out
+
+
+def manifest() -> Dict:
+    """The plan manifest: the registry + matrix as plain data, the same
+    fields tools/planlint.py reads off the AST and emits with
+    --manifest."""
+    return {
+        "version": 1,
+        "entries": list(ENTRIES),
+        "stages": list(STAGES),
+        "paths": [
+            {
+                "name": p.name,
+                "entry": p.entry,
+                "stages": list(p.stages),
+                "flags": list(p.flags),
+                "ctor_args": list(p.ctor_args),
+                "cache_key_family": p.cache_key_family,
+                "gate": p.gate,
+                "backends": list(p.backends),
+                "coverage": p.coverage,
+                "when": dict(p.when),
+            }
+            for p in PATHS
+        ],
+        "interactions": [
+            {
+                "a": i.a,
+                "b": i.b,
+                "verdict": i.verdict,
+                "on_explicit": i.on_explicit,
+                "unless": list(i.unless),
+                "resolves_to": i.resolves_to,
+                "message": i.message,
+                "note": i.note,
+            }
+            for i in INTERACTIONS
+        ],
+    }

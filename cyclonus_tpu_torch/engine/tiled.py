@@ -533,6 +533,12 @@ def evaluate_grid_counts_sharded(
         kernel = "pallas" if mesh.flat[0].type == "cuda" else "xla"
     if kernel not in ("pallas", "xla"):
         raise ValueError(f"unknown sharded counts kernel {kernel!r} (want 'pallas' or 'xla')")
+    from . import planspec
+
+    if kernel == "pallas":
+        planspec.record("counts.sharded.pallas")
+    else:
+        planspec.record("counts.sharded.xla")
     shard = n_padded // n_dev
     devices = mesh.flat
     with ti.eval_flight("counts.sharded", n_pods, q, devices=n_dev) as fl:

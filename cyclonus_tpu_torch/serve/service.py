@@ -674,16 +674,22 @@ class VerdictService:
         SLO enforcement (CYCLONUS_SLO_ENFORCE) routes ahead of the
         warming check: query_p99 budget EXHAUSTED sheds the batch with
         typed refusals (shed=True plus an error, never a wrong verdict);
-        BURNING routes onto the degraded path."""
+        BURNING routes onto the degraded path.  Each route is recorded
+        (engine/planspec.py) where the reference records it."""
+        from ..engine import planspec
+
         route = self._slo.query_route()
         if route == "shed":
+            planspec.record("serve.query.shed")
             return self._query_shed(queries)
         if not self._ready.is_set() or route == "degraded":
+            planspec.record("serve.query.degraded")
             out = self._query_degraded(queries)
             self._slo.note_first_verdict()
             if self._audit is not None:
                 self._offer_audit(out, "serve.query.degraded")
             return out
+        planspec.record("serve.query.live")
         t0 = time.perf_counter()
         with self._lock:
             # host-side span only (serve.query): no device sync inside

@@ -110,14 +110,14 @@ def _crash_hook(exc_type, exc, tb) -> None:
     # and blocking here would hang the process silently instead of
     # printing the traceback.  'previous' is written once, under the
     # lock, before this hook can ever fire — the race is benign.
-    prev = _hook["previous"] or sys.__excepthook__  # locklint: ignore[LK001]
+    prev = _hook["previous"] or sys.__excepthook__  # locklint: ignore[LK001] lock-free on purpose, see above
     prev(exc_type, exc, tb)
 
 
 def _install_crash_hook() -> None:
     # double-checked fast path: a stale False only costs the lock below,
     # and the locked re-check makes the install itself race-free
-    if _hook["installed"]:  # locklint: ignore[LK001]
+    if _hook["installed"]:  # locklint: ignore[LK001] double-checked fast path
         return
     with _lock:
         if _hook["installed"]:

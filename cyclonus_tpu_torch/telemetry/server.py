@@ -266,11 +266,11 @@ class _Handler(BaseHTTPRequestHandler):
                 # sleep IS the capture window; other endpoints stay
                 # responsive (ThreadingHTTPServer), concurrent /profile
                 # requests get the 409 above instead of queueing here
-                time.sleep(seconds)  # locklint: ignore[LK003]
+                time.sleep(seconds)  # locklint: ignore[LK003] the sleep is the capture window
             self._send_json(
                 {
                     "artifact": out_dir,
-                    "trace": os.path.join(out_dir, PROFILE_TRACE_FILE),
+                    "trace": os.path.join(out_dir, PROFILE_TRACE_FILE),  # locklint: ignore[LK003] os.path.join, no thread join
                     "seconds": seconds,
                     "wall_s": round(time.time() - t0, 3),
                     "hint": "open <trace> in https://ui.perfetto.dev or chrome://tracing",

@@ -440,11 +440,12 @@ def _first_divergence(got: np.ndarray, want: np.ndarray, cases, pods):
     """(where, divergent cell count, (q, src, dst, component)) of the
     first cell where two tables differ."""
     bad = np.argwhere(got != want)
-    qi, si, di, ki = (int(x) for x in bad[0])
+    cell = tuple(int(x) for x in bad[0])
+    qi, si, di, ki = cell
     return (
         f"case={cases[qi]} src={pods[si][:2]} dst={pods[di][:2]} "
         f"component={('ingress', 'egress', 'combined')[ki]}"
-    ), bad.shape[0], (qi, si, di, ki)
+    ), bad.shape[0], cell
 
 
 def run_seed(

@@ -30,9 +30,10 @@ flags that it never reads (DROPPED):
     two kernels on the calling thread.
   * CYCLONUS_SERVE_PREWARM_PAIRS: the reference's pair-bucket prewarm;
     the port's query path pads nothing, so one call warms it.
-  * CYCLONUS_KEYHARNESS, CYCLONUS_PLANHARNESS, CYCLONUS_SKEWHARNESS: the
-    recorders of utils/cachekeys.py, engine/planspec.py and the wire
-    skew view, which the port does not have.
+  * CYCLONUS_KEYHARNESS: the recorder of utils/cachekeys.py, which the
+    port does not have yet.  The route recorder (engine/planspec.py,
+    CYCLONUS_PLANHARNESS) and the wire skew-view recorder
+    (worker/wireregistry.py, CYCLONUS_SKEWHARNESS) are registered.
 
 Nothing here imports torch: the in-pod worker loads this module through
 the chaos points of worker/client.py.
@@ -207,9 +208,13 @@ _FLAGS = [
          "Arm runtime shape-contract checks (utils/contracts.py)."),
     Flag("CYCLONUS_GUARD_CHECK", "bool", False, "harness",
          "Arm runtime lock-guard checks (utils/guards.py)."),
+    Flag("CYCLONUS_PLANHARNESS", "bool", False, "harness",
+         "Arm the dispatch-route recorder (engine/planspec.py)."),
     Flag("CYCLONUS_STATEHARNESS", "bool", False, "harness",
          "Arm the state-surface registry call recorder "
          "(serve/stateregistry.py)."),
+    Flag("CYCLONUS_SKEWHARNESS", "bool", False, "harness",
+         "Arm the wire skew-view recorder (worker/wireregistry.py)."),
 ]
 
 REGISTRY: Dict[str, Flag] = {f.name: f for f in _FLAGS}
@@ -225,8 +230,6 @@ DROPPED: Tuple[str, ...] = (
     "CYCLONUS_AUTOTUNE_DRAIN_S",
     "CYCLONUS_SERVE_PREWARM_PAIRS",
     "CYCLONUS_KEYHARNESS",
-    "CYCLONUS_PLANHARNESS",
-    "CYCLONUS_SKEWHARNESS",
 )
 
 

@@ -17,9 +17,10 @@ worker/wireregistry.py):
     the keys they know and ignore the rest, so a NEWER peer's extra
     fields never break an older one.
   * Evolution is additive-optional ONLY: which version introduced each
-    key is pinned by the reference package's frozen golden
-    (worker/wire_schema.json); changing the protocol = adding a registry
-    row, never editing a shipped key.
+    key is pinned by the frozen golden worker/wire_schema.json (equal to
+    the reference package's, since the port's client speaks to workers
+    of either); changing the protocol = adding a registry row and
+    regenerating the golden, never editing a shipped key.
 
 Each class's ``WIRE`` table is DERIVED from the registry
 (`wireregistry.wire_table`), so a key declared there is covered by
