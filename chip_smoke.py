@@ -295,9 +295,17 @@ Phases, each raising on failure:
                 and worker_ingest under CYCLONUS_GUARD_CHECK=1 (50 seeded
                 schedules, 8 threads); (c) torch_tools/skewharness.py
                 --device cuda (the serve loop on the card's engine); (d)
-                torch_tools/planharness.py --device cuda.  Each call's
-                seconds armed and unarmed are reported.  The phase must
-                end within 180 s.  Prints one {"guards": ...} line.
+                torch_tools/planharness.py --device cuda; (e)
+                torch_tools/keyharness.py --device cuda --full (the
+                cache-key mutations of the autotune winners, the kernel
+                libraries and the steady state's pins on K1, K4 and K6,
+                each call's counts equal to a fresh engine's; a fresh
+                process on the warm build directory compiling nothing;
+                the registry census, armed against unarmed, with the
+                steady K1 call timed in paired rounds, the registry on
+                and off in turns).  Each call's seconds armed
+                and unarmed are reported.  The phase must end within
+                180 s.  Prints one {"guards": ...} line.
 
 Every comparison is exact.  Prints a JSON line of the probe phase, the
 loopback line, the cidr and analyze lines, the serve lines, the mesh lines, a JSON line of
@@ -4084,7 +4092,7 @@ def guards_subprocess(argv, what, env=None, timeout=300):
 
 
 def phase_guards(device, want_plain, want_tiered):
-    """Phase 15 (main()'s docstring): legs (a)-(d), one {"guards": ...}
+    """Phase 15 (main()'s docstring): legs (a)-(e), one {"guards": ...}
     line.  Returns the kernel launches of the phase's processes, each
     counted from zero."""
     sys.path.insert(0, os.path.join(HERE, "torch_tools"))
@@ -4123,10 +4131,18 @@ def phase_guards(device, want_plain, want_tiered):
         "(b) raceharness", env={"CYCLONUS_GUARD_CHECK": "1"})
     skew = guards_subprocess([os.path.join(tools, "skewharness.py"), *dev], "(c) skewharness")
     plan = guards_subprocess([os.path.join(tools, "planharness.py"), *dev], "(d) planharness")
-    for what, out in (("(b)", race), ("(c)", skew), ("(d)", plan)):
+    t_key = time.perf_counter()
+    key = guards_subprocess([os.path.join(tools, "keyharness.py"), *dev, "--full"],
+                            "(e) keyharness")
+    key_s = time.perf_counter() - t_key
+    for what, out in (("(b)", race), ("(c)", skew), ("(d)", plan), ("(e)", key)):
         if not out.get("ok") or out.get("device") != device.type:
             raise AssertionError(f"guards {what}: {out}")
-    legs = [armed, unarmed, race, skew, plan]
+    census = key["results"].get("registry_census", {})
+    if len(key["results"]) != 7 or census.get("registered") != 4:
+        raise AssertionError(f"guards (e): scenarios {sorted(key['results'])}, "
+                             f"registered {census.get('registered')}")
+    legs = [armed, unarmed, race, skew, plan, key]
     launches = {k: sum(leg["launches"].get(k, 0) for leg in legs) for k in launch_counts()}
     total = time.perf_counter() - t0
     log(json.dumps({"guards": {
@@ -4136,6 +4152,15 @@ def phase_guards(device, want_plain, want_tiered):
                      "armed_s": armed["seconds"], "unarmed_s": unarmed["seconds"],
                      "armed_total_s": armed["total_s"], "unarmed_total_s": unarmed["total_s"]},
         "race": race["results"], "skew": skew["results"], "plan": plan["results"],
+        "keyharness": {
+            "scenarios": sorted(key["results"]),
+            "mutations": {k: v["mutations"] for k, v in key["results"].items()},
+            "registered": sorted(census["families"]),
+            "steady_s": census["steady_s"], "register_us": census["register_us"],
+            "census_pods": census["pods"], "launches": key["launches"],
+            "scenario_s": {k: v["seconds"] for k, v in key["results"].items()},
+            "seconds": key_s,
+        },
         "launches": launches, "total_s": total,
     }}))
     if total > GUARDS_BOUND_S:

@@ -109,7 +109,7 @@ from .. import carry
 from ..carry import resolve_device
 from ..matcher.core import Policy
 from ..telemetry import instruments as ti
-from ..utils import guards
+from ..utils import cachekeys, guards
 from ..utils.tracing import phase
 from . import autotune, cidrspace, dense_kernel, host, packed_kernel, planspec, sharded, tiled
 from .encoding import (
@@ -474,12 +474,22 @@ class TorchPolicyEngine:
         # the dtype plan: packed words (True) or dense int8 operands
         self._pack = pack_enabled() if pack is None else bool(pack)
         self._slab_mode = host._slab_mode(slab)
-        self._slab_plan_state = "unset"  # the slab windows, planned at first use
-        self._selpod_prebucket = None
-        self._device_tensors = None
-        self._pod_perm = None  # ns-order pod permutation of the dense counts route
-        self._pod_perm_host = None
-        self._class_state = None
+        # The trailing `# derived-from:` declarations below are the
+        # cache-coherence contract tools/cachelint.py CC002 enforces, as
+        # on the reference's engine: a VALUE token means
+        # invalidate_after_patch must reset the attribute after an
+        # in-place patch of the tensors; `patched` marks state the serve
+        # patch path maintains itself; `shapes` marks state fixed by the
+        # shapes alone.  tests/test_torch_lint.py holds every cache set
+        # here to a declaration.
+        # the slab windows, planned at first use
+        self._slab_plan_state = "unset"  # derived-from: buffer (window proof)
+        self._selpod_prebucket = None  # derived-from: buffer (selector x pod match)
+        self._device_tensors = None  # derived-from: patched (the patch writes the views)
+        # ns-order pod permutation of the dense counts route
+        self._pod_perm = None  # derived-from: pod-rows (ns-order perm)
+        self._pod_perm_host = None  # derived-from: pod-rows
+        self._class_state = None  # derived-from: patched (rebuild_class_state)
         self._tier_resolve_s = None
         # the steady state of the dense counts route (module docstring):
         # the pinned case set (key, {"ops": the kernel's operands, "pre":
@@ -487,20 +497,21 @@ class TorchPolicyEngine:
         # it}), the gathered slab operands (key, ops), the misses since
         # the pin was last hit, the key the byte check declined, and the
         # key of the last fused call
-        self._pre_cache = None
+        self._pre_cache = None  # derived-from: buffer (cases key + pinned operands)
         self._slab_lock = guards.lock()
         with self._slab_lock:
-            self._slab_ops_cache = None
-        self._pre_cache_misses = 0
-        self._pre_cache_declined = None
-        self._last_counts_key = None
+            self._slab_ops_cache = None  # derived-from: buffer (gathered ops)
+        self._pre_cache_misses = 0  # derived-from: buffer
+        self._pre_cache_declined = None  # derived-from: buffer (declined key)
+        self._last_counts_key = None  # derived-from: buffer
         # the slab kernel: None until the autotune (or a persisted winner,
         # or slab "1") decides, then True or False
-        self._slab_choice = None
+        self._slab_choice = None  # derived-from: buffer (re-timed)
         self._autotune_stats = None
         self._steady_counts = {"hits": 0, "misses": 0, "precomputes": 0,
                                "autotune_searches": 0}
-        self._counts_setup = False  # the dense route's first call ran
+        # the dense route's first call ran (the reference's counts programs)
+        self._counts_setup = False  # derived-from: shapes
         self._last_counts_mode = None
         if classes is not None:
             n = len(self._pod_keys)
@@ -970,6 +981,12 @@ class TorchPolicyEngine:
         also chosen."""
         q_port, q_name, q_proto = self._port_case_arrays(cases)
         key = (q_port.tobytes(), q_name.tobytes(), q_proto.tobytes(), self.n_pods)
+        if cachekeys.ACTIVE:
+            cachekeys.register(
+                "engine.pre_cache",
+                kind="device",
+                components=cachekeys.program("q_port", "q_name", "q_proto", "n_pods"),
+            )
         plan = self._slab_plan()
         slab_ok = plan is not None and (
             len(cases) * plan["bytes_per_case"] + self._class_aux_bytes() <= plan["budget"]
@@ -1166,6 +1183,13 @@ class TorchPolicyEngine:
         The build runs outside _slab_lock; the fill checks the choice
         under it, so a rejection of the slab kernel between the two
         leaves no operands pinned."""
+        if cachekeys.ACTIVE:
+            # the pin's key (_steady_state_args): the operands are the pin's
+            cachekeys.register(
+                "engine.slab_ops",
+                kind="device",
+                components=cachekeys.program("q_port", "q_name", "q_proto", "n_pods"),
+            )
         with self._slab_lock:
             cached = self._slab_ops_cache
         if cached is not None and cached[0] == key:

@@ -27,6 +27,8 @@ import os
 import tempfile
 from typing import Any, Dict, Optional
 
+from ..utils import cachekeys
+
 log = logging.getLogger(__name__)
 
 #: bump when the entry layout or the meaning of a winner changes: an entry
@@ -55,11 +57,19 @@ def make_key(shape_bucket: Dict[str, Any], device: str, dtype_plan: str) -> str:
     axes and flags that fix the candidates' operand shapes), the device
     string (kind, name and count) and the dtype plan.  Two processes with
     equal keys time the same launches on the same kind of card."""
-    return json.dumps(
+    key = json.dumps(
         {"shape": shape_bucket, "mesh": device, "dtype": dtype_plan},
         sort_keys=True,
         separators=(",", ":"),
     )
+    if cachekeys.ACTIVE:
+        cachekeys.register(
+            "autotune",
+            kind="persisted",
+            components=cachekeys.program("shape_bucket", "mesh", "dtype_plan"),
+            fingerprint=key,
+        )
+    return key
 
 
 def _read_all(path: str) -> Dict[str, Any]:  # never-raises

@@ -5,8 +5,11 @@ sm_90a into a shared library with a plain C interface, loaded with
 ctypes (no PyTorch headers: a build takes seconds, not minutes).  The
 library lands in build/torch_kernels/ at the repository root (git
 ignores it; CYCLONUS_TORCH_BUILD_DIR overrides), named by a digest of
-its source, the headers under csrc/ and the flags, so an edited source or
-header rebuilds and an unchanged one is reused.
+its source, the headers under csrc/, the flags and the compiler's release
+line (compiler_stamp), so an edited source or header, or another nvcc,
+rebuilds and an unchanged one is reused.  library_path registers the
+key's components with utils/cachekeys.py (family ``kernels.library``)
+under CYCLONUS_KEYHARNESS=1.
 
 Nothing here runs at import time; the first launch builds.  Builds and
 loads are serialised within the process (two threads that make the first
@@ -31,7 +34,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence, Set, Tuple
+from typing import Dict, Optional, Sequence, Set, Tuple
+
+from ..utils import cachekeys
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -46,6 +51,8 @@ NVCC_FLAGS = (
 #: serialises build and load within the process (re-entrant: load builds)
 _lock = threading.RLock()
 _loaded: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+#: nvcc path -> the release line of its `--version`, read once a process
+_stamps: Dict[str, str] = {}  # guarded-by: _lock
 
 #: (kernel label, device type, operand shapes) already run in this process
 _TRACED: Set[Tuple] = set()
@@ -81,10 +88,43 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME)")
 
 
-def library_path(name: str) -> Path:
+def compiler_stamp() -> str:
+    """The first line of `nvcc --version` that names the release (e.g.
+    "Cuda compilation tools, release 12.8, V12.8.93"), read once a
+    process for each nvcc.  Raises as nvcc() does when there is none, or
+    when its output names no release."""
+    with _lock:
+        path = nvcc()
+        stamp = _stamps.get(path)
+        if stamp is None:
+            run = subprocess.run(  # locklint: ignore[LK003] read once; later callers want this stamp
+                [path, "--version"], capture_output=True, text=True, timeout=120
+            )
+            stamp = next((ln.strip() for ln in run.stdout.splitlines() if "release" in ln), None)
+            if stamp is None:
+                raise RuntimeError(
+                    f"{path} --version names no release: {run.stdout[-500:]}{run.stderr[-500:]}"
+                )
+            _stamps[path] = stamp
+        return stamp
+
+
+def library_path(name: str, compiler: Optional[str] = None) -> Path:
+    """The library file of kernel `name`: its digest covers the source,
+    the headers under csrc/, NVCC_FLAGS and the compiler stamp
+    (`compiler`, else compiler_stamp())."""
+    stamp = compiler_stamp() if compiler is None else compiler
     src = (_CSRC / SOURCES[name]).read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src += " ".join(NVCC_FLAGS).encode() + b"\0" + stamp.encode()
+    digest = hashlib.sha256(src).hexdigest()[:16]
+    if cachekeys.ACTIVE:
+        cachekeys.register(
+            "kernels.library",
+            kind="persisted",
+            components=cachekeys.program("source", "headers", "nvcc_flags", "compiler"),
+            fingerprint=digest,
+        )
     return build_dir() / f"lib{name}-{digest}.so"
 
 

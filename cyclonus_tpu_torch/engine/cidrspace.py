@@ -95,24 +95,24 @@ def tss_mode(mode: Optional[str] = None) -> str:
     return mode
 
 
-def tss_min_specs() -> int:
+def tss_min_specs() -> int:  # never-raises
     """Auto-mode floor on distinct (base, mask, excepts) specs: below
     it, one bit per spec is cheaper than 4 bytes per partition and the
     dense membership pass is noise (CYCLONUS_CIDR_TSS_MIN overrides)."""
     try:
         return int(os.environ.get("CYCLONUS_CIDR_TSS_MIN", "256"))
-    except ValueError as e:  # malformed env degrades to the default
+    except Exception as e:  # malformed env degrades to the default
         logger.debug("malformed CYCLONUS_CIDR_TSS_MIN: %s", e)
         return 256
 
 
-def device_min_cells() -> int:
+def device_min_cells() -> int:  # never-raises
     """pods x atoms floor above which the LPM stage runs on the device
     (CYCLONUS_CIDR_TSS_DEVICE=1/0 forces/forbids): below it the numpy
     twin beats a device round trip."""
     try:
         return int(os.environ.get("CYCLONUS_CIDR_DEVICE_MIN", str(1 << 24)))
-    except ValueError as e:  # malformed env degrades to the default
+    except Exception as e:  # malformed env degrades to the default
         logger.debug("malformed CYCLONUS_CIDR_DEVICE_MIN: %s", e)
         return 1 << 24
 

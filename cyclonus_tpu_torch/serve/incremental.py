@@ -95,7 +95,7 @@ class Ineligible(Exception):
     must fall back to a full rebuild from authoritative state."""
 
 
-def serve_headroom() -> int:
+def serve_headroom() -> int:  # never-raises
     """CYCLONUS_SERVE_HEADROOM: extra rule-slab bucket steps the serve
     path reserves at engine build (default 1; 0 restores exact-fit
     buckets).  A malformed value reads as the default."""

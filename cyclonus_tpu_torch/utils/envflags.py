@@ -30,10 +30,12 @@ flags that it never reads (DROPPED):
     two kernels on the calling thread.
   * CYCLONUS_SERVE_PREWARM_PAIRS: the reference's pair-bucket prewarm;
     the port's query path pads nothing, so one call warms it.
-  * CYCLONUS_KEYHARNESS: the recorder of utils/cachekeys.py, which the
-    port does not have yet.  The route recorder (engine/planspec.py,
-    CYCLONUS_PLANHARNESS) and the wire skew-view recorder
-    (worker/wireregistry.py, CYCLONUS_SKEWHARNESS) are registered.
+
+Every harness recorder of the reference is registered: the cache-key
+registry (utils/cachekeys.py, CYCLONUS_KEYHARNESS), the route recorder
+(engine/planspec.py, CYCLONUS_PLANHARNESS), the state registry's call
+recorder (CYCLONUS_STATEHARNESS) and the wire skew-view recorder
+(worker/wireregistry.py, CYCLONUS_SKEWHARNESS).
 
 Nothing here imports torch: the in-pod worker loads this module through
 the chaos points of worker/client.py.
@@ -208,6 +210,8 @@ _FLAGS = [
          "Arm runtime shape-contract checks (utils/contracts.py)."),
     Flag("CYCLONUS_GUARD_CHECK", "bool", False, "harness",
          "Arm runtime lock-guard checks (utils/guards.py)."),
+    Flag("CYCLONUS_KEYHARNESS", "bool", False, "harness",
+         "Arm the cache-key mutation recorder (utils/cachekeys.py)."),
     Flag("CYCLONUS_PLANHARNESS", "bool", False, "harness",
          "Arm the dispatch-route recorder (engine/planspec.py)."),
     Flag("CYCLONUS_STATEHARNESS", "bool", False, "harness",
@@ -229,7 +233,6 @@ DROPPED: Tuple[str, ...] = (
     "CYCLONUS_AUTOTUNE_TIMEOUT_S",
     "CYCLONUS_AUTOTUNE_DRAIN_S",
     "CYCLONUS_SERVE_PREWARM_PAIRS",
-    "CYCLONUS_KEYHARNESS",
 )
 
 

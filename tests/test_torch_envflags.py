@@ -68,6 +68,21 @@ class TestRegistry:
         assert (a.kind, a.default, a.owner, a.choices) == (b.kind, b.default, b.owner, b.choices)
         assert a.description
 
+    def test_keyharness_row_is_the_references(self):
+        """CYCLONUS_KEYHARNESS is registered now that the port has its
+        recorder (utils/cachekeys.py): its row of the harness table equals
+        the reference's apart from the meaning column, in the reference's
+        place, and it reads the strip contract's way (opt-in)."""
+        def row(table):
+            lines = table.splitlines()
+            names = [ln.split("`")[1] for ln in lines[2:]]
+            return names.index("CYCLONUS_KEYHARNESS"), lines[2:][
+                names.index("CYCLONUS_KEYHARNESS")].rsplit("|", 2)[0]
+
+        assert "CYCLONUS_KEYHARNESS" not in envflags.DROPPED
+        assert row(envflags.markdown_table("harness")) == row(ref.markdown_table("harness"))
+        assert envflags.get_bool("CYCLONUS_KEYHARNESS") is False
+
     def test_unregistered_name_is_a_programming_error(self):
         with pytest.raises(KeyError):
             envflags.get_int("CYCLONUS_NO_SUCH_FLAG")

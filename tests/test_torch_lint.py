@@ -10,7 +10,13 @@ suppression in the port carries its reason on its line.  The state and
 race harnesses (torch_tools/) run their quick slices as subprocesses on
 the CPU, the race harness under CYCLONUS_GUARD_CHECK=1 with the
 reference's seeded quick schedule counts; its 16-thread sweep is slow,
-as the reference's is.  The harnesses import nothing of the reference."""
+as the reference's is.  The harnesses import nothing of the reference.
+
+cachelint's CC002 reads new caches in __init__ only, and the engine sets
+its caches in _init_state, so the rule is applied to _init_state here:
+every cache-patterned attribute set there declares what it derives from,
+and the lint's summary must count the port's declarations (it can no
+longer pass by reading none)."""
 
 import ast
 import json
@@ -37,7 +43,7 @@ LEGS = {
     "wirelint": [f"{P}/worker", f"{P}/serve"],
 }
 
-HARNESSES = ("skewharness", "stateharness", "raceharness", "planharness")
+HARNESSES = ("skewharness", "stateharness", "raceharness", "planharness", "keyharness")
 
 
 def _run(argv, env=None, timeout=600):
@@ -140,3 +146,111 @@ def test_raceharness_extended_sweep():
         env={"CYCLONUS_GUARD_CHECK": "1"}, timeout=1800,
     )
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
+_CACHELINT_SUMMARY = re.compile(
+    r"cachelint: (\d+) finding\(s\), (\d+) cache-key / (\d+) derived-from / "
+    r"(\d+) never-raises")
+
+
+def test_cachelint_reads_the_ports_declarations():
+    """At least ten derived-from declarations (the engine's value-derived
+    caches) and nine never-raises (the reference's fifteen over the same
+    path set less aot_cache.py's five and patch_byte_budget, which the
+    port keeps inline in serve/incremental.py)."""
+    proc = _run([os.path.join("tools", "cachelint.py"), *LEGS["cachelint"]])
+    m = _CACHELINT_SUMMARY.search(proc.stdout + proc.stderr)
+    assert m, proc.stdout + proc.stderr
+    findings, _keys, derived, never = (int(g) for g in m.groups())
+    assert findings == 0 and derived >= 10 and never >= 9, m.group(0)
+
+
+def _cachelint():
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import cachelint
+
+    return cachelint
+
+
+def _init_state_caches(path):
+    """(cache-patterned attributes _init_state sets, those of them with no
+    `# derived-from:` declaration, the class's declarations): CC002's
+    new-cache rule, applied to the method the engine sets its caches in."""
+    cachelint = _cachelint()
+    with open(path) as f:
+        src = f.read()
+    model = cachelint.ModuleModel(path, ast.parse(src), src.splitlines())
+    cls = model.classes["TorchPolicyEngine"]
+    decls, _invalidate, _reset = cachelint.derived_model(model, cls)
+    init = next(s for s in cls.body
+                if isinstance(s, ast.FunctionDef) and s.name == "_init_state")
+    caches = []
+    for node in ast.walk(init):
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                if (isinstance(t, ast.Attribute) and isinstance(t.value, ast.Name)
+                        and t.value.id == "self" and cachelint._CACHE_ATTR_RE.search(t.attr)):
+                    caches.append(t.attr)
+    return caches, [a for a in caches if a not in decls], decls
+
+
+API = os.path.join(REPO, P, "engine", "api.py")
+#: the value-derived caches invalidate_after_patch resets
+VALUE_CACHES = ("_pre_cache", "_slab_ops_cache", "_pre_cache_misses", "_pre_cache_declined",
+                "_last_counts_key", "_slab_choice", "_slab_plan_state", "_selpod_prebucket",
+                "_pod_perm", "_pod_perm_host")
+
+
+def test_init_state_caches_are_declared():
+    cachelint = _cachelint()
+    caches, undeclared, decls = _init_state_caches(API)
+    assert len(caches) >= 6 and not undeclared, undeclared
+    for attr in VALUE_CACHES:
+        tokens = decls[attr][0]
+        assert set(tokens) - cachelint.DERIVED_EXEMPT_TOKENS, (attr, tokens)
+    assert decls["_device_tensors"][0][0] == "patched"
+
+
+def _copy_with(tmp_path, edit):
+    with open(API) as f:
+        src = f.read()
+    out = tmp_path / "api.py"
+    out.write_text(edit(src))
+    return str(out)
+
+
+def test_undeclared_init_state_cache_is_flagged(tmp_path):
+    """Failing first: a cache added to _init_state without a declaration
+    is found (CC002 itself reads __init__ only)."""
+    anchor = "        self._last_counts_key = None  # derived-from: buffer\n"
+    path = _copy_with(tmp_path, lambda s: s.replace(
+        anchor, anchor + "        self._grid_cache = None\n"))
+    _caches, undeclared, _decls = _init_state_caches(path)
+    assert undeclared == ["_grid_cache"]
+
+
+@pytest.mark.parametrize("attr", VALUE_CACHES)
+def test_cc002_flags_an_invalidate_that_misses_a_cache(attr, tmp_path):
+    """Failing first: with one reset taken out of invalidate_after_patch,
+    cachelint's CC002 names the declared cache it no longer resets."""
+    cachelint = _cachelint()
+    with open(API) as f:
+        tree = ast.parse(f.read())
+    cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+               and n.name == "TorchPolicyEngine")
+    inv = next(n for n in cls.body if isinstance(n, ast.FunctionDef)
+               and n.name == "invalidate_after_patch")
+    line = next(n.lineno for n in ast.walk(inv) if isinstance(n, ast.Assign)
+                and any(isinstance(t, ast.Attribute) and t.attr == attr for t in n.targets))
+
+    def drop(src):
+        lines = src.splitlines(keepends=True)
+        indent = lines[line - 1][: len(lines[line - 1]) - len(lines[line - 1].lstrip())]
+        lines[line - 1] = indent + "pass\n"
+        return "".join(lines)
+
+    findings, _stats = cachelint.analyze_file(_copy_with(tmp_path, drop))
+    assert [f.code for f in findings] == ["CC002"], findings
+    assert f"TorchPolicyEngine.{attr} is declared value-derived" in findings[0].message
+    assert not cachelint.analyze_file(API)[0]

@@ -1,5 +1,5 @@
 """Shared scaffolding of the port's dynamic harnesses
-(torch_tools/{skew,state,race,plan}harness.py): the checkout on
+(torch_tools/{skew,state,race,plan,key}harness.py): the checkout on
 sys.path, the common flags, the device check, and the one JSON line each
 harness prints last.
 
@@ -14,7 +14,7 @@ import argparse
 import json
 import os
 import sys
-from typing import Dict
+from typing import Dict, Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -58,8 +58,13 @@ def launches() -> Dict[str, int]:
     return {**dense_kernel.LAUNCHES, **packed_kernel.LAUNCHES}
 
 
-def report(name: str, device, results: Dict) -> None:
-    """The harness's last line: one JSON object with its results and the
-    kernel launches it made (chip_smoke.py sums them)."""
+def report(name: str, device, results: Dict, child_launches: Optional[Dict[str, int]] = None,
+           **extra) -> None:
+    """The harness's last line: one JSON object with its results, any
+    `extra` fields, and the kernel launches it made, those of its child
+    processes (`child_launches`) added (chip_smoke.py sums them)."""
+    counts = launches()
+    for k, v in (child_launches or {}).items():
+        counts[k] = counts.get(k, 0) + v
     print(json.dumps({"harness": name, "ok": True, "device": str(device),
-                      "results": results, "launches": launches()}, default=str))
+                      "results": results, **extra, "launches": counts}, default=str))
