@@ -1,0 +1,8 @@
+"""device_idle_share (%, device trace): 1 - the union of the intervals in
+which some device operation ran, over the traced window."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0 or run.trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
