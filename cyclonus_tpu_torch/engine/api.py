@@ -142,6 +142,7 @@ from .tiled import (
     class_rowsums,
     class_rowsums_plan,
     evaluate_grid_counts_classes,
+    ip_legs,
     packed_tier,
 )
 
@@ -495,6 +496,9 @@ class TorchPolicyEngine:
         # ns-order pod permutation of the dense counts route
         self._pod_perm = None  # derived-from: pod-rows (ns-order perm)
         self._pod_perm_host = None  # derived-from: pod-rows
+        # how the dense precompute resolves each direction's peer rows
+        # (tiled.ip_legs): rule rows alone, so a patch of pod rows keeps it
+        self._ip_legs = None  # derived-from: rule-rows (ip-peer partitions)
         self._class_state = None  # derived-from: patched (rebuild_class_state)
         self._tier_resolve_s = None
         # the steady state of the dense counts route (module docstring):
@@ -1129,7 +1133,14 @@ class TorchPolicyEngine:
         its own span: fused and split calls open it, steady ones never."""
         self._steady_counts["precomputes"] += 1
         with phase("engine.precompute"):
-            return _precompute(self._dense_counts_tensors(cases), self._pack)
+            return _precompute(self._dense_counts_tensors(cases), self._pack, self._ip_legs_for())
+
+    def _ip_legs_for(self) -> Dict:
+        """The ip legs of the dense precompute (tiled.ip_legs), built from
+        the device views at first use and kept until a patch of rule rows."""
+        if self._ip_legs is None:
+            self._ip_legs = ip_legs(self._dev())
+        return self._ip_legs
 
     @staticmethod
     def _dense_args(pre: Dict):
@@ -1275,7 +1286,7 @@ class TorchPolicyEngine:
         pin = self._pre_cache[1]
         with phase("engine.pre_patch"):
             idx = torch.from_numpy(rows).to(self.device)
-            pre = _precompute(self._dense_counts_tensors(cases, idx), True)
+            pre = _precompute(self._dense_counts_tensors(cases, idx), True, self._ip_legs_for())
             sub = self._kernel_operands(pre, valid=idx < self.n_pods)
             packed_kernel.patch_packed_operands(pin["ops"], sub, pin["cols"][rows])
         self._steady_counts["patches"] += 1
@@ -1620,8 +1631,8 @@ class TorchPolicyEngine:
         service patched the host tensors and their device views in place,
         shapes unchanged: the pin with its pending patch, its misses, the
         declined and last keys, the slab operands, the slab choice, the
-        ns-order pod permutation and the class map.  The device views
-        themselves stay: the patch wrote them.  The slab plan's window
+        ns-order pod permutation, the ip legs and the class map.  The
+        device views themselves stay: the patch wrote them.  The slab plan's window
         proof is stale too, so the slab kernel stays off until the engine
         is rebuilt, as on the reference.  The service calls it after a
         patch of namespace, policy or tier rows; after one of pod rows
@@ -1639,6 +1650,7 @@ class TorchPolicyEngine:
         self._selpod_prebucket = None
         self._pod_perm = None
         self._pod_perm_host = None
+        self._ip_legs = None
         if self._class_state is not None:
             self._class_state["class_of"] = None
 
@@ -1649,10 +1661,12 @@ class TorchPolicyEngine:
         packed pin and the last key stay, rekeyed to the live pod count,
         and the rows join the pin's pending patch, which the next counts
         call of its case set writes (_patch_pin) before it launches from
-        the pin.  Under the dense plan it is invalidate_after_patch."""
-        pin, last = self._pre_cache, self._last_counts_key
+        the pin.  The ip legs stay under either plan: they read rule rows
+        alone.  Under the dense plan the rest is invalidate_after_patch."""
+        pin, last, legs = self._pre_cache, self._last_counts_key, self._ip_legs
         dirty = self._pre_cache_dirty | set(rows)
         self.invalidate_after_patch()
+        self._ip_legs = legs  # read from rule rows alone
         if not self._pack:
             return
         n = self.n_pods

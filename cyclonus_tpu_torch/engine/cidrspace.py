@@ -59,7 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from . import host
-from .encoding import iter_ip_specs, pack_bool_words
+from .encoding import PEER_IP, iter_ip_specs, pack_bool_words
 from ..utils import contracts
 
 logger = logging.getLogger(__name__)
@@ -260,62 +260,144 @@ def _collect(tensors: Dict):
     return specs, atoms, n_host
 
 
+def partition_atoms(base: np.ndarray, mask: np.ndarray) -> Dict[str, np.ndarray]:
+    """The tuple-space partition of (base, mask) pairs, duplicates
+    merged: {atom_base, atom_mask, atom_part (A,), pmask, pprefix (K,),
+    pbases, pindex (K, B), inverse: the atom of each input pair}.
+    Partitions are the distinct masks, longest prefix first (mask values
+    are monotone in prefix length, so numeric-descending IS the LPM
+    order); each partition's bases ascend; global atom ids run in
+    (partition, base) order, the signature values; B is the largest
+    bucket rounded up to 128.  Deterministic in the pairs' contents."""
+    base = np.asarray(base, dtype=np.uint64).reshape(-1)
+    mask = np.asarray(mask, dtype=np.uint64).reshape(-1)
+    # mask descending, then base ascending, as one uint64 sort key
+    key = ((np.uint64(0xFFFFFFFF) - mask) << np.uint64(32)) | base
+    uniq, inverse = np.unique(key, return_inverse=True)
+    a_base = (uniq & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    a_mask = (np.uint64(0xFFFFFFFF) - (uniq >> np.uint64(32))).astype(np.uint32)
+    new = np.ones(a_mask.shape, dtype=bool)
+    new[1:] = a_mask[1:] != a_mask[:-1]
+    starts = np.flatnonzero(new)
+    a_part = (np.cumsum(new) - 1).astype(np.int32)
+    pmask = a_mask[starts]
+    sizes = np.diff(np.append(starts, a_mask.size))
+    b_pad = lane_round_up(int(sizes.max()) if sizes.size else 0)
+    pbases = np.full((pmask.size, b_pad), _BASE_PAD, dtype=np.uint32)
+    pindex = np.full((pmask.size, b_pad), -1, dtype=np.int32)
+    col = np.arange(a_mask.size) - starts[a_part]
+    pbases[a_part, col] = a_base
+    pindex[a_part, col] = np.arange(a_mask.size, dtype=np.int32)
+    pprefix = np.array([bin(int(m)).count("1") for m in pmask], dtype=np.int32)
+    return {"atom_base": a_base, "atom_mask": a_mask, "atom_part": a_part,
+            "pmask": pmask, "pprefix": pprefix.reshape(-1), "pbases": pbases,
+            "pindex": pindex, "inverse": inverse.reshape(-1)}
+
+
 def build_space(tensors: Dict) -> Optional[CidrSpace]:
     """The CidrSpace of `tensors`' ip-peer rows, or None when no
     in-kernel IPv4 row exists.  Deterministic in the tensor contents
-    alone (masks sorted longest-prefix-first, bases ascending, global
-    atom ids in (partition, base) order), so build-time and serve-time
-    derivations of the same tensors always agree."""
+    alone (partition_atoms), so build-time and serve-time derivations of
+    the same tensors always agree."""
     specs, atoms, n_host = _collect(tensors)
     if not atoms:
         return None
-    # partitions: distinct masks, longest prefix first (mask values are
-    # monotone in prefix length, so numeric-descending IS the LPM order)
-    masks = sorted({m for _b, m in atoms}, reverse=True)
-    part_of = {m: k for k, m in enumerate(masks)}
-    buckets: List[List[int]] = [[] for _ in masks]
-    for b, m in atoms:
-        buckets[part_of[m]].append(b)
-    for bl in buckets:
-        bl.sort()
-    # global atom ids in (partition, base) order — the signature values
-    atom_id: Dict[Tuple[int, int], int] = {}
-    a_base: List[int] = []
-    a_mask: List[int] = []
-    a_part: List[int] = []
-    for k, m in enumerate(masks):
-        for b in buckets[k]:
-            atom_id[(b, m)] = len(a_base)
-            a_base.append(b)
-            a_mask.append(m)
-            a_part.append(k)
-    b_max = max(len(bl) for bl in buckets)
-    b_pad = lane_round_up(b_max)
-    pbases = np.full((len(masks), b_pad), _BASE_PAD, dtype=np.uint32)
-    pindex = np.full((len(masks), b_pad), -1, dtype=np.int32)
-    for k, m in enumerate(masks):
-        for j, b in enumerate(buckets[k]):
-            pbases[k, j] = b
-            pindex[k, j] = atom_id[(b, m)]
+    pairs = np.array(list(atoms), dtype=np.uint64).reshape(-1, 2)
+    part = partition_atoms(pairs[:, 0], pairs[:, 1])
+    atom_id = dict(zip(atoms, (int(i) for i in part["inverse"])))
     spec_atoms = [
         (atom_id[(base, mask)], tuple(atom_id[(eb, em)] for eb, em in exs))
         for (base, mask, exs) in specs
     ]
     return CidrSpace(
         n_specs=len(specs),
-        n_atoms=len(a_base),
+        n_atoms=int(part["atom_base"].size),
         n_host_rows=n_host,
-        atom_base=np.array(a_base, dtype=np.uint32).reshape(-1),
-        atom_mask=np.array(a_mask, dtype=np.uint32).reshape(-1),
-        atom_part=np.array(a_part, dtype=np.int32).reshape(-1),
-        pmask=np.array(masks, dtype=np.uint32).reshape(-1),
-        pprefix=np.array(
-            [bin(m).count("1") for m in masks], dtype=np.int32
-        ).reshape(-1),
-        pbases=pbases,
-        pindex=pindex,
+        atom_base=part["atom_base"],
+        atom_mask=part["atom_mask"],
+        atom_part=part["atom_part"],
+        pmask=part["pmask"],
+        pprefix=part["pprefix"],
+        pbases=part["pbases"],
+        pindex=part["pindex"],
         spec_atoms=spec_atoms,
     )
+
+
+def _numpy(a) -> np.ndarray:
+    """A host array of a numpy array or a torch tensor on any device."""
+    return a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+
+
+def ip_leg(d: Dict, n_targets: int) -> Dict:
+    """How the dense precompute resolves one direction's peer rows (`d`,
+    a direction of an engine's tensors, host or device): on the host,
+    numpy arrays of row indices and the tuple-space partition of the
+    rows it resolves by atom.  Pad rows (peer_target -1) are in no group.
+
+      other       live rows of every kind but ip: the selector product
+      block       ip rows resolved row by row, in target order: those
+                  with excepts, host-evaluated (v6, mixed-family) rows
+                  and non-v4 rows; block_run numbers their runs of one
+                  target, run_target is each run's target
+      part_rows   in-kernel IPv4 rows without excepts, resolved through
+                  the partition: part_atom is each row's atom, pmask /
+                  pbases / pindex the partition (partition_atoms), and
+                  anc [K, A] each atom's strict ancestor in partition k
+                  (the atom of a shorter prefix that holds it), or -1
+    """
+    kind = _numpy(d["peer_kind"])
+    target = _numpy(d["peer_target"]).astype(np.int64)
+    live = target >= 0
+    host_rows = _numpy(d["host_ip_mask"]) if "host_ip_mask" in d else np.zeros_like(live)
+    ip = live & (kind == PEER_IP)
+    part = ip & _numpy(d["ip_is_v4"]) & ~_numpy(d["ex_valid"]).any(axis=1) & ~host_rows
+    block = np.flatnonzero(ip & ~part)
+    block = block[np.argsort(target[block], kind="stable")]
+    new_run = np.ones(block.size, dtype=bool)
+    new_run[1:] = target[block][1:] != target[block][:-1]
+    leg = {
+        "n_targets": int(n_targets),
+        "other": np.flatnonzero(live & ~ip & ~host_rows),
+        "block": block,
+        "block_run": np.cumsum(new_run) - 1,
+        "run_target": target[block][new_run],
+        "part_rows": np.flatnonzero(part),
+    }
+    rows = leg["part_rows"]
+    p = partition_atoms(
+        _numpy(d["ip_base"])[rows].astype(np.uint64), _numpy(d["ip_mask"])[rows].astype(np.uint64)
+    )
+    leg.update(part_atom=p["inverse"].astype(np.int64), pmask=p["pmask"],
+               pbases=p["pbases"], pindex=p["pindex"])
+    # strict ancestors: the atom whose base is this atom's base under a
+    # shorter partition's mask (lpm_partition_signature of the atom bases)
+    a_base = p["atom_base"].astype(np.uint64)
+    own = p["pprefix"][p["atom_part"]] if a_base.size else np.zeros(0, np.int32)
+    anc = np.full((p["pmask"].size, a_base.size), -1, dtype=np.int64)
+    for k in range(p["pmask"].size):
+        key = (a_base & np.uint64(p["pmask"][k])).astype(np.uint32)
+        pos = np.minimum(np.searchsorted(p["pbases"][k], key, side="left"), p["pbases"].shape[1] - 1)
+        hit = (p["pbases"][k][pos] == key) & (p["pindex"][k][pos] >= 0) & (p["pprefix"][k] < own)
+        anc[k] = np.where(hit, p["pindex"][k][pos], -1)
+    leg["anc"] = anc
+    return leg
+
+
+def ip_leg_on(leg: Dict, device) -> Dict:
+    """The leg's arrays on the torch `device`, the uint32 partition
+    columns widened to int64 as pod_ip is (carry.py); the host copies of
+    the counts and of block_run stay, for the block loop's bounds."""
+    import torch
+
+    out = {"n_targets": leg["n_targets"], "n_atoms": int(leg["anc"].shape[1]),
+           "n_partitions": int(leg["pmask"].size), "n_block": int(leg["block"].size),
+           "n_part": int(leg["part_rows"].size), "block_run_host": leg["block_run"]}
+    for k in ("other", "block", "block_run", "run_target", "part_rows", "part_atom",
+              "pmask", "pbases", "anc"):
+        out[k] = torch.from_numpy(np.ascontiguousarray(leg[k]).astype(np.int64)).to(device)
+    out["pindex"] = torch.from_numpy(np.ascontiguousarray(leg["pindex"])).to(device)
+    return out
 
 
 def resolve(

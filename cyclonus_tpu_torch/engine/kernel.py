@@ -148,18 +148,38 @@ def direction_precompute(
 ) -> Dict[str, torch.Tensor]:
     """Per-direction pod-resolution: tmatch[T, N], has_target[N],
     peer_match[P, N]."""
-    ns_idx = pod_ns_id.long()
-    # targets: namespace name equality + pod selector
+    tmatch, has_target = target_match(enc, selpod, pod_ns_id)
+    ip_ok = ip_rows_match(enc, pod_ip, pod_ip_valid)
+    kind = enc["peer_kind"][:, None]
+    peer_match = torch.where(
+        kind == PEER_IP, ip_ok, selector_peer_match(enc, selpod, selns, pod_ns_id)
+    )  # [P, N]
+    return {"tmatch": tmatch, "has_target": has_target, "peer_match": peer_match}
+
+
+def target_match(enc: Dict[str, torch.Tensor], selpod: torch.Tensor, pod_ns_id: torch.Tensor):
+    """(tmatch [T, N], has_target [N]): target t applies to pod n by
+    namespace name equality and its pod selector."""
     tmatch = (enc["target_ns"][:, None] == pod_ns_id[None, :]) & selpod[
         enc["target_sel"].long()
     ]  # [T, N]
-    has_target = torch.any(tmatch, dim=0)  # [N]
+    return tmatch, torch.any(tmatch, dim=0)
 
+
+def selector_peer_match(
+    enc: Dict[str, torch.Tensor],
+    selpod: torch.Tensor,  # [S, N]
+    selns: torch.Tensor,  # [S, M]
+    pod_ns_id: torch.Tensor,  # [N] int32
+) -> torch.Tensor:
+    """[P, N] bool: the peer rows of `enc` (all of them, or the rows a
+    caller gathered) against each pod, ip peers aside: every pod for the
+    all-peers kinds, else the namespace term and the pod selector."""
     # pod-peer namespace matching; a pad pod's ns id -1 wraps to the last
     # namespace row exactly as the reference's take does (the pad column
     # is masked wherever it could count)
     ns_sel_match = selns[enc["peer_ns_sel"].clamp(min=0).long()]  # [P, M]
-    ns_match_by_pod = ns_sel_match[:, ns_idx]  # [P, N]
+    ns_match_by_pod = ns_sel_match[:, pod_ns_id.long()]  # [P, N]
     ns_kind = enc["peer_ns_kind"][:, None]
     ns_ok = torch.where(
         ns_kind == NS_EXACT,
@@ -172,11 +192,22 @@ def direction_precompute(
     pod_ok = torch.where(
         enc["peer_pod_kind"][:, None] == POD_SELECTOR, pod_sel_match, True
     )
+    kind = enc["peer_kind"][:, None]
+    return torch.where((kind == PEER_ALL) | (kind == PEER_ALL_PORTS), True, ns_ok & pod_ok)
 
-    # ip peers (IPv4 kernel; v6 rows are patched host-side).  pod_ip's
-    # 0-sentinel is a real address (0.0.0.0), so both the CIDR and the
-    # except terms consult pod_ip_valid.  The uint32 CIDR columns travel
-    # widened to int64 like pod_ip (carry.py): .long() returns them as is
+
+def ip_rows_match(
+    enc: Dict[str, torch.Tensor],
+    pod_ip: torch.Tensor,  # [N] int64 (widened uint32)
+    pod_ip_valid: torch.Tensor,  # [N] bool
+) -> torch.Tensor:
+    """[P, N] bool: the ipBlock of each peer row of `enc` (all of them,
+    or the rows a caller gathered) holds pod n's IPv4 address: inside the
+    CIDR and outside every except (IPv4 kernel; v6 rows are patched
+    host-side, apply_host_ip).  pod_ip's 0-sentinel is a real address
+    (0.0.0.0), so both the CIDR and the except terms consult
+    pod_ip_valid.  The uint32 CIDR columns travel widened to int64 like
+    pod_ip (carry.py): .long() returns them as is."""
     ip_base, ip_mask = enc["ip_base"].long(), enc["ip_mask"].long()
     ex_base, ex_mask = enc["ex_base"].long(), enc["ex_mask"].long()
     in_cidr = (
@@ -193,15 +224,7 @@ def direction_precompute(
         ),
         dim=1,
     )  # [P, N]
-    ip_ok = in_cidr & ~in_except
-
-    kind = enc["peer_kind"][:, None]
-    peer_match = torch.where(
-        (kind == PEER_ALL) | (kind == PEER_ALL_PORTS),
-        True,
-        torch.where(kind == PEER_IP, ip_ok, ns_ok & pod_ok),
-    )  # [P, N]
-    return {"tmatch": tmatch, "has_target": has_target, "peer_match": peer_match}
+    return in_cidr & ~in_except
 
 
 @contracts.args(
@@ -380,6 +403,85 @@ def lpm_partition_signature(
     return torch.where(
         hit & (idx >= 0) & pod_ip_valid[None, :], idx, torch.full_like(idx, -1)
     ).to(torch.int32)
+
+
+def ip_atom_table(
+    part_target: torch.Tensor,  # [R] int64 target of each partitioned ip row
+    part_atom: torch.Tensor,  # [R] int64 its atom (cidrspace.ip_leg)
+    part_ok: torch.Tensor,  # [R, Q] bool its ports admit case q
+    anc: torch.Tensor,  # [K, A] int64 strict ancestor atoms, -1 none
+    n_targets: int,
+) -> torch.Tensor:
+    """[A + 1, W * Q] int32: per atom a, the packed words of the targets
+    (bit t of word t // 32, case q at column w * Q + q) that an ip row
+    on a admits for case q, less those that an ip row on one of a's
+    strict ancestors (a shorter CIDR holding a) already admits; row A is
+    the zero row that a partition signature's -1 reads.
+
+    A pod's matched atoms are one chain of nested CIDRs, and each
+    (target, case) bit is kept on the outermost atom of any chain that
+    holds it, so the rows that a pod's signature gathers hold disjoint
+    bits: their sum is their OR (kernel.ip_partition_words).  Duplicate
+    (atom, target, case) triples are kept once; the sort, the ancestor
+    probe and the scatter are each one operation however many
+    partitions there are."""
+    q = part_ok.shape[1]
+    n_atoms = anc.shape[1]
+    words = packed_words(n_targets)
+    dev = part_ok.device
+    span = n_targets * q
+    key = (part_atom[:, None] * n_targets + part_target[:, None]) * q + torch.arange(
+        q, device=dev
+    )[None, :]
+    key, _ = torch.sort(torch.where(part_ok, key, -1).reshape(-1))  # [E]
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    atom, rem = key.clamp(min=0) // span, key.clamp(min=0) % span
+    t, case = rem // q, rem % q
+    # the same (target, case) on a strict ancestor: searched among the keys
+    up = anc[:, atom]  # [K, E]
+    probe = torch.where(up >= 0, (up * n_targets + t) * q + case, -2)
+    pos = torch.searchsorted(key, probe).clamp(max=key.numel() - 1)
+    held = torch.any(key[pos] == probe, dim=0)
+    keep = (key >= 0) & first & ~held
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=dev)
+    value = torch.where(keep, weights[t % PACK_BITS], 0)
+    index = torch.where(keep, (atom * words + t // PACK_BITS) * q + case, 0)
+    table = torch.zeros((n_atoms + 1) * words * q, dtype=torch.int32, device=dev)
+    # disjoint bits of a word: their sum is their OR, int32 wrap included
+    table.index_add_(0, index, value)
+    return table.view(n_atoms + 1, words * q)
+
+
+@contracts.args(pod_ip="(N,) int64", pod_ip_valid="(N,) bool")
+def ip_partition_words(
+    table: torch.Tensor,  # [A + 1, W * Q] int32 (ip_atom_table)
+    pod_ip: torch.Tensor,  # [N] int64 (widened uint32)
+    pod_ip_valid: torch.Tensor,  # [N] bool
+    pmask: torch.Tensor,  # [K] int64
+    pbases: torch.Tensor,  # [K, B] int64
+    pindex: torch.Tensor,  # [K, B] int32
+    q: int,
+) -> torch.Tensor:
+    """[W, N, Q] int32: the packed ip part of tallow_pk for the pods:
+    each pod's partition signature [K] (lpm_partition_signature, -1 to
+    the zero row), the table rows it names gathered and summed over the
+    partitions (disjoint bits, so the sum is the OR), in
+    pack_bool_words_torch's layout.  Work and memory scale as K x N x W,
+    never as ip rows x pods; the operations do not grow with K."""
+    n_atoms = table.shape[0] - 1
+    sig = lpm_partition_signature(pod_ip, pod_ip_valid, pmask, pbases, pindex)
+    idx = torch.where(sig >= 0, sig.long(), n_atoms)  # [K, N]
+    words = table[idx].sum(dim=0).to(torch.int32)  # [N, W * Q]
+    return words.view(pod_ip.shape[0], -1, q).transpose(0, 1)
+
+
+def unpack_bool_words_torch(words: torch.Tensor, t: int) -> torch.Tensor:
+    """[t, ...] bool: the inverse of pack_bool_words_torch along dim 0."""
+    shifts = torch.arange(PACK_BITS, dtype=torch.int32, device=words.device)
+    shifts = shifts.view((1, PACK_BITS) + (1,) * (words.dim() - 1))
+    bits = ((words.unsqueeze(1) >> shifts) & 1).to(torch.bool)  # [W, 32, ...]
+    return bits.reshape((-1,) + tuple(words.shape[1:]))[:t]
 
 
 def rule_firing_kernel(shared: Dict, enc: Dict) -> Dict[str, torch.Tensor]:

@@ -6,7 +6,10 @@ class-compressed counts route, the tile loop, the block stream
 (evaluate_pairs_kernel), which the verdict service's queries run on.
 
 The precompute resolves every pod against every target once per
-direction.  The verdict contraction over the target axis and the count
+direction; its ipBlock peer rows go through the CIDR tuple-space
+partition or, with excepts, row by row in bounded blocks
+(_direction_tallow), so no tensor scales as ip rows x pods.  The verdict
+contraction over the target axis and the count
 epilogue then run in a counts kernel (packed_kernel.py, dense_kernel.py),
 which never materialises an N x N verdict block, or in the tile loop: a
 Python loop over `block`-row source tiles that materialises one
@@ -42,28 +45,148 @@ import torch
 from .. import carry
 from ..telemetry import instruments as ti
 from ..utils.tracing import phase
-from . import dense_kernel, host
+from . import cidrspace, dense_kernel, host
 from .encoding import TIER_KEY_NONE
 from .kernel import (
     _bool_matmul,
-    apply_host_ip,
     direction_precompute,
+    ip_atom_table,
+    ip_partition_words,
+    ip_rows_match,
     m_tp_onehot,
     pack_bool_words_torch,
     packed_any,
     port_spec_allows,
     resolve_tier_lattice,
     selector_match,
+    selector_peer_match,
     selector_tables,
+    target_match,
     tier_direction_arrays,
     tier_first_match_keys,
     tier_keys,
     tier_scope_match,
+    unpack_bool_words_torch,
 )
 from .packed_kernel import verdict_counts_packed
 
 
-def _precompute(tensors: Dict, pack: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
+#: byte budget of one block of the ip leg's row-by-row rows, and of one
+#: pod chunk of its partition gather: their temporaries stay bounded
+#: whatever the number of ip rows
+IP_BLOCK_BYTES = 1 << 30
+
+
+#: the peer-row leaves that selector_peer_match and ip_rows_match read
+_SELECTOR_LEAVES = ("peer_kind", "peer_target", "peer_ns_kind", "peer_ns_id", "peer_ns_sel",
+                    "peer_pod_kind", "peer_pod_sel")
+_IP_LEAVES = ("ip_base", "ip_mask", "ip_is_v4", "ex_base", "ex_mask", "ex_valid", "host_ip_mask")
+
+
+def _rows(enc: Dict, rows: torch.Tensor, leaves) -> Dict[str, torch.Tensor]:
+    """The named leaves of a direction's peer rows at `rows`."""
+    return {k: enc[k][rows] for k in leaves if k in enc}
+
+
+def ip_legs(tensors: Dict) -> Dict[str, Dict]:
+    """Per direction, how _precompute resolves the peer rows of `tensors`
+    (cidrspace.ip_leg, from a host copy of their rule columns), on the
+    tensors' device, with the rule leaves of its row groups gathered
+    once: they hold while only pod rows change.  An engine keeps its own
+    (TorchPolicyEngine._ip_legs_for); a caller that passes none has them
+    built from the tensors it passes."""
+    out = {}
+    for direction in ("ingress", "egress"):
+        enc = tensors[direction]
+        leg = cidrspace.ip_leg_on(
+            cidrspace.ip_leg(enc, int(enc["target_ns"].shape[0])), enc["peer_kind"].device
+        )
+        leg["other_leaves"] = _rows(enc, leg["other"], _SELECTOR_LEAVES)
+        leg["block_leaves"] = _rows(enc, leg["block"], _IP_LEAVES)
+        leg["part_target"] = enc["peer_target"][leg["part_rows"]].long()
+        out[direction] = leg
+    ti.IP_ATOMS.set(sum(leg["n_atoms"] for leg in out.values()))
+    ti.IP_PARTITIONS.set(sum(leg["n_partitions"] for leg in out.values()))
+    ti.IP_EXCEPT_ROWS.set(sum(leg["n_block"] for leg in out.values()))
+    return out
+
+
+def _ip_block_allow(enc, leg, pport, tensors, tallow: torch.Tensor) -> None:
+    """OR into tallow [T, N * Q] the ip rows resolved row by row (with
+    excepts, host-evaluated), in blocks of rows under IP_BLOCK_BYTES,
+    each block's product over the targets its rows belong to alone."""
+    pod_ip, valid = tensors["pod_ip"], tensors["pod_ip_valid"]
+    n, q = pod_ip.shape[0], pport.shape[1]
+    x = enc["ex_base"].shape[1]
+    per_row = max(1, n * (24 + 9 * x + 6 * q))
+    step = max(1, IP_BLOCK_BYTES // per_row)
+    runs = leg["block_run_host"]
+    for lo in range(0, leg["n_block"], step):
+        hi = min(lo + step, leg["n_block"])
+        rows = leg["block"][lo:hi]
+        sub = {k: v[lo:hi] for k, v in leg["block_leaves"].items()}
+        match = ip_rows_match(sub, pod_ip, valid)
+        if "host_ip_mask" in sub:
+            match = torch.where(sub["host_ip_mask"][:, None], enc["host_ip_match"][rows], match)
+        allow = (match[:, :, None] & pport[rows][:, None, :]).reshape(hi - lo, n * q)
+        r0, r1 = int(runs[lo]), int(runs[hi - 1]) + 1
+        local = torch.arange(r1 - r0, device=pod_ip.device)
+        onehot = (leg["block_run"][lo:hi] - r0)[None, :] == local[:, None]  # [U, rows]
+        targets = leg["run_target"][r0:r1]
+        tallow[targets] = tallow[targets] | _bool_matmul(onehot, allow)
+
+
+def _ip_part_words(leg, pport, tensors) -> torch.Tensor:
+    """[W, N, Q] int32: the partitioned ip rows' packed words
+    (kernel.ip_atom_table, kernel.ip_partition_words), the pods gathered
+    in chunks under IP_BLOCK_BYTES."""
+    pod_ip, valid = tensors["pod_ip"], tensors["pod_ip_valid"]
+    n, q = pod_ip.shape[0], pport.shape[1]
+    table = ip_atom_table(
+        leg["part_target"], leg["part_atom"], pport[leg["part_rows"]],
+        leg["anc"], leg["n_targets"],
+    )
+    part = (leg["pmask"], leg["pbases"], leg["pindex"])
+    per_pod = max(1, table.shape[1] * (4 * leg["n_partitions"] + 12))
+    step = max(1, IP_BLOCK_BYTES // per_pod)
+    if n <= step:
+        return ip_partition_words(table, pod_ip, valid, *part, q)
+    return torch.cat([ip_partition_words(table, pod_ip[lo:lo + step], valid[lo:lo + step], *part, q)
+                      for lo in range(0, n, step)], dim=1)
+
+
+def _direction_tallow(enc, leg, selpod, selns, tensors, pport, t: int, pack: bool) -> torch.Tensor:
+    """A direction's tallow: [W, N, Q] int32 packed (pack), else [T, N, Q]
+    bool.  Selector, namespace and all-peers rows take the one-hot
+    product over their rows alone; the ip rows, under span
+    engine.ip_peers, either their own blocks of that product (rows with
+    excepts, host-evaluated rows) or the tuple-space partition (the
+    rest): no tensor of the leg scales as ip rows x pods."""
+    n, q = tensors["pod_ip"].shape[0], pport.shape[1]
+    other, sub = leg["other"], leg["other_leaves"]
+    peer = selector_peer_match(sub, selpod, selns, tensors["pod_ns_id"])  # [Ro, N]
+    onehot = sub["peer_target"][None, :] == torch.arange(
+        t, dtype=sub["peer_target"].dtype, device=other.device
+    )[:, None]  # [T, Ro]
+    allow = (peer[:, :, None] & pport[other][:, None, :]).reshape(other.shape[0], n * q)
+    tallow = _bool_matmul(onehot, allow)  # [T, N*Q] bool
+    words = None
+    if leg["n_block"] or leg["n_part"]:
+        with phase("engine.ip_peers"):
+            _ip_block_allow(enc, leg, pport, tensors, tallow)
+            if leg["n_part"]:
+                words = _ip_part_words(leg, pport, tensors)
+        ti.IP_RESOLVED_COLUMNS.inc(n)
+    tallow = tallow.reshape(t, n, q)
+    if pack:
+        packed = pack_bool_words_torch(tallow)
+        return packed if words is None else packed | words
+    return tallow if words is None else tallow | unpack_bool_words_torch(words, t)
+
+
+def _precompute(
+    tensors: Dict, pack: bool = False, legs: Dict[str, Dict] = None
+) -> Dict[str, Dict[str, torch.Tensor]]:
     """Per-direction, port-resolved precompute shared by every tile:
 
       tallow_bf [T, N, Q] bf16 — target t allows traffic with pod n on the
@@ -75,46 +198,29 @@ def _precompute(tensors: Dict, pack: bool = False) -> Dict[str, Dict[str, torch.
     tallow_pk [W, N, Q] int32 and tmatch_pk [W, N] int32 replace
     tallow_bf (W = encoding.packed_words(T)).  A tiered tensor dict adds
     `tier` (kernel.tier_direction_arrays: subj [G, N], peerq [G, N, Q],
-    anp_key / banp_key [G]) to each direction."""
+    anp_key / banp_key [G]) to each direction.  `legs` (ip_legs) say how
+    each direction's peer rows are resolved (_direction_tallow); without
+    them they are built from the tensors."""
     selpod, selns = selector_tables(tensors)
+    legs = ip_legs(tensors) if legs is None else legs
     out = {}
-    q = tensors["q_port"].shape[0]
     for direction in ("ingress", "egress"):
         enc = tensors[direction]
-        pre = direction_precompute(
-            enc,
-            selpod,
-            selns,
-            tensors["pod_ns_id"],
-            tensors["pod_ip"],
-            tensors["pod_ip_valid"],
-        )
-        peer_match = apply_host_ip(enc, pre["peer_match"])
+        tmatch, has_target = target_match(enc, selpod, tensors["pod_ns_id"])
         pport = port_spec_allows(
             enc["port_spec"],
             tensors["q_port"],
             tensors["q_name"],
             tensors["q_proto"],
         )
-        n_p, n = peer_match.shape
-        peer_allow = (
-            peer_match[:, :, None] & pport[:, None, :]
-        ).reshape(n_p, n * q)  # shape: (P, NQ)
-        tallow = _bool_matmul(m_tp_onehot(enc), peer_allow)  # [T, N*Q] bool
-        t = tallow.shape[0]
-        out[direction] = {
-            "tmatch": pre["tmatch"],
-            "has_target": pre["has_target"],
-        }
+        t = tmatch.shape[0]
+        tallow = _direction_tallow(enc, legs[direction], selpod, selns, tensors, pport, t, pack)
+        out[direction] = {"tmatch": tmatch, "has_target": has_target}
         if pack:
-            out[direction]["tallow_pk"] = pack_bool_words_torch(
-                tallow.reshape(t, n, q)
-            )  # shape: (W, N, Q) int32
-            out[direction]["tmatch_pk"] = pack_bool_words_torch(
-                pre["tmatch"]
-            )  # shape: (W, N) int32
+            out[direction]["tallow_pk"] = tallow  # shape: (W, N, Q) int32
+            out[direction]["tmatch_pk"] = pack_bool_words_torch(tmatch)  # shape: (W, N) int32
         else:
-            out[direction]["tallow_bf"] = tallow.to(torch.bfloat16).reshape(t, n, q)
+            out[direction]["tallow_bf"] = tallow.to(torch.bfloat16)
         if "tiers" in tensors:
             out[direction]["tier"] = tier_direction_arrays(
                 tensors["tiers"][direction],

@@ -218,6 +218,17 @@ class _PatchSet:
         return nbytes
 
 
+def _unparseable_rows(c, rows=None) -> set:
+    """The pod rows (all, or those of `rows` still in the cluster) whose
+    IP is neither IPv4 nor parseable: host._parseable_ip runs on the
+    rows that are not IPv4 alone."""
+    valid = np.asarray(c.pod_ip_valid, dtype=bool)
+    if rows is None:
+        rows = np.flatnonzero(~valid).tolist()
+    n = valid.shape[0]
+    return {i for i in rows if i < n and not valid[i] and not host._parseable_ip(c.pod_ips[i])}
+
+
 def _pad_row(row: np.ndarray, width: int, fill) -> np.ndarray:
     if row.shape[-1] >= width:
         return row
@@ -267,6 +278,10 @@ class IncrementalEngine:
         # staged, and whether any namespace, policy or tier row was
         self._pod_rows: set = set()
         self._other_rows = False
+        # the pod rows whose IP is neither IPv4 nor parseable, in step
+        # with the engine's _unparseable_ips: finish() rechecks the
+        # rows a patch wrote, not every pod
+        self._bad_ip_rows = _unparseable_rows(self.engine.encoding.cluster)
         # class-patch support: the per-pod signature matrix and the
         # signature -> class id index (see update_pod_signature)
         self._sigs: Optional[np.ndarray] = None
@@ -852,12 +867,13 @@ class IncrementalEngine:
         stale after a patch of pod rows only."""
         eng = self.engine
         c = eng.encoding.cluster
-        eng._unparseable_ips = [
-            ip
-            for ip, v4 in zip(c.pod_ips, c.pod_ip_valid)
-            if not v4 and not host._parseable_ip(ip)
-        ]
         rows, self._pod_rows = self._pod_rows, set()
+        if self._other_rows:
+            self._bad_ip_rows = _unparseable_rows(c)
+        else:
+            self._bad_ip_rows -= rows
+            self._bad_ip_rows |= _unparseable_rows(c, rows)
+        eng._unparseable_ips = [c.pod_ips[i] for i in sorted(self._bad_ip_rows)]
         if self._other_rows:
             self._other_rows = False
             eng.invalidate_after_patch()

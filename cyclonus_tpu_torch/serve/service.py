@@ -186,18 +186,24 @@ class VerdictService:
             self._ready.set()
         self._simplify = simplify
         self._class_compress = class_compress
-        self.pods: Dict[str, PodTuple] = {
-            f"{p[0]}/{p[1]}": (p[0], p[1], dict(p[2]), p[3]) for p in pods
-        }
-        self.namespaces: Dict[str, Dict[str, str]] = {k: dict(v) for k, v in namespaces.items()}
-        self.netpols: Dict[str, NetworkPolicy] = {
-            f"{p.effective_namespace()}/{p.name}": p for p in policies
-        }
+        # the dict fields journal their writes, so apply_pending's
+        # rollback point costs what a batch writes (stateregistry)
+        self.pods: Dict[str, PodTuple] = stateregistry.JournalDict(
+            (f"{p[0]}/{p[1]}", (p[0], p[1], dict(p[2]), p[3])) for p in pods
+        )
+        self.namespaces: Dict[str, Dict[str, str]] = stateregistry.JournalDict(
+            (k, dict(v)) for k, v in namespaces.items()
+        )
+        self.netpols: Dict[str, NetworkPolicy] = stateregistry.JournalDict(
+            (f"{p.effective_namespace()}/{p.name}", p) for p in policies
+        )
         # precedence-tier authoritative state: ANPs keyed by
         # cluster-scoped name, at most one BANP
         tiers = tiers or TierSet()
         tiers.validate()
-        self.anps: Dict[str, AdminNetworkPolicy] = {a.name: a for a in tiers.anps}
+        self.anps: Dict[str, AdminNetworkPolicy] = stateregistry.JournalDict(
+            (a.name, a) for a in tiers.anps
+        )
         self.banp: Optional[BaselineAdminNetworkPolicy] = tiers.banp
         self._queue: List[Delta] = []
         self._epoch = 0
@@ -479,7 +485,8 @@ class VerdictService:
             if rejected:
                 ti.SERVE_REJECTED.inc(len(rejected))
             # rollback point: every _apply_to_state mutation REPLACES
-            # values wholesale, so shallow copies make the batch atomic
+            # values wholesale, so the old values the dict fields'
+            # journals keep (or shallow copies) make the batch atomic
             with phase("serve.snapshot"):
                 snap = stateregistry.snapshot(self)
             ops = []

@@ -51,7 +51,7 @@ ACTIVE = os.environ.get("CYCLONUS_STATEHARNESS", "") == "1"
 class StateField:
     name: str  # registry name == note_epoch kwarg (audit/sampler.py)
     attr: str  # the VerdictService attribute holding the field
-    container: str  # "dict" (shallow-copied) | "optional" (replaced wholesale)
+    container: str  # "dict" (journaled or shallow-copied) | "optional" (replaced wholesale)
     kinds: Tuple[str, ...]  # delta kinds that mutate this field
     digest_key: str  # audit/digest.py canonical_state key
     state_key: str  # state() payload key ("" = not exposed)
@@ -170,24 +170,120 @@ def _copy(f: StateField, value: object) -> object:
     return dict(value) if f.container == "dict" else value
 
 
+_ABSENT = object()
+
+
+class JournalDict(dict):
+    """A dict field that keeps an undo journal: while one is open
+    (open_journal), the first write or delete of a key records the
+    value the key held before it (or its absence).  So a rollback point
+    costs what its batch writes, not a copy of the field."""
+
+    _undo: Optional[Dict] = None  # the open journal
+
+    def __reduce__(self):
+        # a copy or an unpickled one starts with no journal
+        return type(self), (dict(self),)
+
+    def _note(self, key) -> None:
+        undo = self._undo
+        if undo is not None and key not in undo:
+            undo[key] = dict.get(self, key, _ABSENT)
+
+    def __setitem__(self, key, value) -> None:
+        self._note(key)
+        dict.__setitem__(self, key, value)
+
+    def __delitem__(self, key) -> None:
+        if key in self:
+            self._note(key)
+        dict.__delitem__(self, key)
+
+    def pop(self, key, *default):
+        if key in self:
+            self._note(key)
+        return dict.pop(self, key, *default)
+
+    def popitem(self):
+        if self:
+            self._note(next(reversed(self)))
+        return dict.popitem(self)
+
+    def setdefault(self, key, default=None):
+        if key not in self:
+            self._note(key)
+        return dict.setdefault(self, key, default)
+
+    def update(self, *args, **kwargs) -> None:
+        for key, value in dict(*args, **kwargs).items():
+            self[key] = value
+
+    def __ior__(self, other):
+        self.update(other)
+        return self
+
+    def clear(self) -> None:
+        for key in self:
+            self._note(key)
+        dict.clear(self)
+
+    def open_journal(self) -> Dict:
+        """Start a new journal (the last one stops recording)."""
+        self._undo = {}
+        return self._undo
+
+    def undo(self, journal: Dict) -> None:
+        """Put back every key `journal` recorded.  A key deleted since
+        returns at the end of the iteration order; the contents are
+        exact."""
+        if journal is not self._undo:
+            raise RuntimeError("a later snapshot superseded this rollback point")
+        for key, old in journal.items():
+            if old is _ABSENT:
+                dict.pop(self, key, None)
+            else:
+                dict.__setitem__(self, key, old)
+
+
+class _Journaled:
+    """A JournalDict field's rollback point: the dict and its journal."""
+
+    __slots__ = ("data", "journal")
+
+    def __init__(self, data: JournalDict):
+        self.data = data
+        self.journal = data.open_journal()
+
+
+def _mark(f: StateField, value: object) -> object:
+    if f.container == "dict" and isinstance(value, JournalDict):
+        return _Journaled(value)
+    return _copy(f, value)
+
+
 def snapshot(svc: object) -> Dict[str, object]:
-    """The apply_pending rollback point: a shallow copy of every
-    rollback-participating field, keyed by registry name."""
+    """The apply_pending rollback point of every rollback-participating
+    field, keyed by registry name: a JournalDict field's journal, opened
+    here, else a shallow copy."""
     _record("snapshot")
     return {
-        f.name: _copy(f, getattr(svc, f.attr)) for f in FIELDS if f.rollback
+        f.name: _mark(f, getattr(svc, f.attr)) for f in FIELDS if f.rollback
     }
 
 
 def restore(svc: object, snap: Dict[str, object]) -> None:
     """Roll every rollback-participating field back to its snapshot.
     STRICT on purpose: a snapshot missing a registered field raises
-    KeyError instead of silently committing poison — the runtime twin
-    of statelint ST002 (tests/stateharness.py proves it fires)."""
+    KeyError, before any field is touched, instead of silently
+    committing poison — the runtime twin of statelint ST002
+    (tests/stateharness.py proves it fires)."""
     _record("restore")
-    for f in FIELDS:
-        if f.rollback:
-            setattr(svc, f.attr, snap[f.name])
+    marks = [(f, snap[f.name]) for f in FIELDS if f.rollback]
+    for f, mark in marks:
+        if isinstance(mark, _Journaled):
+            mark.data.undo(mark.journal)
+            mark = mark.data
+        setattr(svc, f.attr, mark)
 
 
 def audit_state(svc: object) -> Dict[str, object]:

@@ -136,6 +136,26 @@ CLASS_EVALS = REGISTRY.counter(
     labelnames=("path",),
 )
 
+# --- the dense precompute's ip leg (engine/cidrspace.py ip_leg) -----------
+
+IP_ATOMS = REGISTRY.gauge(
+    "cyclonus_tpu_ip_atoms",
+    "Distinct (base, mask) atoms of the ip-peer rows that the dense "
+    "precompute resolves through the CIDR tuple-space partition, both "
+    "directions, at the last build of its ip legs.",
+)
+IP_PARTITIONS = REGISTRY.gauge(
+    "cyclonus_tpu_ip_partitions",
+    "Partitions (distinct masks) of those atoms, both directions, at the "
+    "last build of the ip legs.",
+)
+IP_EXCEPT_ROWS = REGISTRY.gauge(
+    "cyclonus_tpu_ip_except_rows",
+    "ip-peer rows the dense precompute resolves row by row, in bounded "
+    "blocks (rows with excepts, host-evaluated rows), both directions, at "
+    "the last build of the ip legs.",
+)
+
 # --- cache hit/miss counters --------------------------------------------
 
 PRE_CACHE_HITS = REGISTRY.counter(
@@ -157,6 +177,13 @@ PRE_CACHE_PATCHED_COLUMNS = REGISTRY.counter(
     "cyclonus_tpu_pre_cache_patched_columns_total",
     "Pod columns recomputed and written into the pinned precompute "
     "(engine/api.py _patch_pin).",
+)
+IP_RESOLVED_COLUMNS = REGISTRY.counter(
+    "cyclonus_tpu_ip_resolved_columns_total",
+    "Pod columns whose ip-peer rows the dense precompute resolved "
+    "(engine/tiled.py _direction_tallow, span engine.ip_peers): a whole "
+    "precompute adds its pod axis a direction, a pin patch its patched "
+    "columns.",
 )
 SLAB_OPS_CACHE_HITS = REGISTRY.counter(
     "cyclonus_tpu_slab_ops_cache_hits_total",

@@ -12,11 +12,12 @@ Held here:
     its parent, none a user annotation; a policy upsert gives
     serve.policy and a class-compressed service serve.classes;
   * engine.precompute is opened on fused and split counts calls and
-    never on a steady one;
+    never on a steady one; engine.ip_peers inside it and inside a pin
+    patch's engine.pre_patch;
   * no capture, or telemetry off: span() constructs no profiler range;
   * the benchmark's span readers (portbench/metrics/apply_*_ms.py,
-    recount_precompute_share.py) on made-up traces, and a traced tiny
-    run of the benchmark on the CPU, which reports all five, the apply's
+    recount_precompute_share.py, ip_peers_ms.py) on made-up traces, and a
+    traced tiny run of the benchmark on the CPU, which reports all six, the apply's
     four parts summing to no more than the run's apply_ms.
 
 The `cuda`-marked test at the end holds on the card that the spans put
@@ -58,7 +59,7 @@ APPLY_SPANS = {
     "serve.finish": "serve.apply",
 }
 NEW_METRICS = ("apply_state_ms", "apply_encode_ms", "apply_patch_ms", "apply_finish_ms",
-               "recount_precompute_share")
+               "recount_precompute_share", "ip_peers_ms")
 
 
 def cluster(n_pods=96, n_policies=12, seed=3):
@@ -154,6 +155,28 @@ def test_precompute_span_marks_fused_and_split_calls_only():
         _c, events = captured(lambda: eng.evaluate_grid_counts(CASES))
         seen.append((eng._last_counts_mode, len(by_name(events, "engine.precompute"))))
     assert seen == [("fused", 1), ("split", 1), ("steady", 0), ("steady", 0)]
+
+
+def test_ip_peers_span_inside_the_precompute_and_the_pin_patch():
+    """engine.ip_peers, the dense precompute's ip leg, is a host event
+    once a direction whose peer rows hold ipBlocks: inside
+    engine.precompute on a fused call, inside engine.pre_patch on a
+    steady call that patches the pin."""
+    pods, namespaces, policies = cluster()
+    svc = VerdictService(pods, namespaces, policies, device="cpu")
+    _c, fused = captured(lambda: svc.engine.evaluate_grid_counts(CASES))
+    legs = svc.engine._ip_legs
+    dirs = sum(1 for g in legs.values() if g["n_block"] or g["n_part"])
+    assert dirs > 0
+    (pre,) = by_name(fused, "engine.precompute")
+    assert [inside(e, pre) for e in by_name(fused, "engine.ip_peers")] == [True] * dirs
+    svc.engine.evaluate_grid_counts(CASES)
+    svc.apply(pod_batch(pods, random.Random(4)))
+    _c, steady = captured(lambda: svc.engine.evaluate_grid_counts(CASES))
+    assert svc.engine._last_counts_mode == "steady"
+    (patch,) = by_name(steady, "engine.pre_patch")
+    assert [inside(e, patch) for e in by_name(steady, "engine.ip_peers")] == [True] * dirs
+    assert not by_name(steady, "engine.precompute")
 
 
 class _CountingRange:
@@ -259,6 +282,15 @@ def test_apply_readers_mean_over_batches_with_deltas():
     assert _read("apply_finish_ms", run) == pytest.approx(6.0 / 2)
 
 
+def test_ip_peers_ms_over_recounts():
+    host = [("engine.dispatch", 1.0, 1.5), ("engine.precompute", 1.0, 1.4),
+            ("engine.ip_peers", 1.1, 1.12), ("engine.ip_peers", 1.2, 1.23),
+            ("engine.pre_patch", 2.0, 2.05), ("engine.ip_peers", 2.01, 2.02),
+            ("engine.ip_peers", 5.0, 6.0)]
+    ranges = {"portbench.recount": [(0.9, 1.6), (1.9, 2.3), (2.9, 3.5)]}
+    assert _read("ip_peers_ms", _trace(host, ranges)) == pytest.approx((20 + 30 + 10) / 3)
+
+
 def test_precompute_share_over_recounts():
     host = [("engine.dispatch", 1.0, 1.5), ("engine.precompute", 1.0, 1.4),
             ("engine.dispatch", 2.0, 2.1), ("engine.execute", 2.1, 2.2),
@@ -307,6 +339,8 @@ def test_traced_tiny_run_reports_the_span_metrics(tmp_path):
     # the warm-up pins and every pod batch patches the pin: no recount of
     # the window runs the precompute
     assert m["recount_precompute_share"] == 0.0
+    # ... and every patch of it runs the ip leg (the cluster's ipBlocks)
+    assert m["ip_peers_ms"] > 0
     bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
     entries = {e["name"]: e for e in bench["per_layer"]}
     for name in NEW_METRICS:
@@ -335,5 +369,5 @@ def test_spans_put_nothing_on_the_device_timeline():
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     host_names = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
     assert device, "the capture saw no device work"
-    assert set(APPLY_SPANS) | {"engine.precompute"} <= host_names
+    assert set(APPLY_SPANS) | {"engine.precompute", "engine.ip_peers"} <= host_names
     assert not [e.name for e in device if e.name.startswith(("serve.", "engine."))]

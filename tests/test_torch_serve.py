@@ -15,6 +15,7 @@ import dataclasses
 import io
 import json
 import os
+import pickle
 import random
 import subprocess
 import sys
@@ -490,6 +491,108 @@ class TestMalformedDeltas:
         r = svc.apply([delta])
         assert r["mode"] == "incremental" and "x/newpol" in svc.netpols
         svc.verify_parity()
+
+
+class TestRollbackJournal:
+    def test_journal_undo_restores_contents(self):
+        d = stateregistry.JournalDict({"a": 1, "b": 2, "c": 3, "d": 4})
+        before = dict(d)
+        journal = d.open_journal()
+        d["a"] = 10
+        del d["b"]
+        d["z"] = 5
+        assert d.pop("c") == 3 and d.pop("nope", None) is None
+        d["c"] = 33
+        d.setdefault("y", 7)
+        d.update({"a": 11, "w": 1})
+        d |= {"v": 2}
+        d.popitem()
+        d.undo(journal)
+        assert dict(d) == before
+        d.undo(journal)  # a second undo of the same point changes nothing
+        assert dict(d) == before
+        journal = d.open_journal()
+        d.clear()
+        d.undo(journal)
+        assert dict(d) == before
+        stale = d.open_journal()
+        d.open_journal()
+        with pytest.raises(RuntimeError, match="superseded"):
+            d.undo(stale)
+        copied = pickle.loads(pickle.dumps(d))
+        assert type(copied) is stateregistry.JournalDict and copied == before
+        assert copied._undo is None
+
+    def test_failed_batch_rolls_back_every_field(self):
+        from cyclonus_tpu_torch import chaos
+
+        pods, namespaces = mk_cluster(12)
+        rng = random.Random(5)
+        svc = VerdictService(pods, namespaces, port_policies([mk_policy("pol0", "x", rng)]),
+                             device="cpu")
+        assert all(isinstance(getattr(svc, f.attr), stateregistry.JournalDict)
+                   for f in stateregistry.FIELDS if f.container == "dict")
+        before = {f.attr: dict(getattr(svc, f.attr)) for f in stateregistry.FIELDS
+                  if f.container == "dict"}
+        ns, name = next(iter(svc.pods)).split("/", 1)
+        batch = [
+            Delta(kind="pod_labels", namespace=ns, name=name, labels={"app": "chaos"}),
+            Delta(kind="pod_remove", namespace=pods[3][0], name=pods[3][1]),
+            Delta(kind="pod_add", namespace="x", name="fresh", labels={"app": "a0"},
+                  ip="10.9.0.1"),
+            Delta(kind="ns_labels", namespace="x", labels={"ns": "x", "team": "t"}),
+            Delta(kind="policy_upsert", namespace="x", name="newpol",
+                  policy=policy_to_dict(mk_policy("newpol", "x", rng))),
+        ]
+        token = chaos.reset("delta_apply:1")
+        try:
+            with pytest.raises(chaos.ChaosError):
+                svc.apply(batch)
+        finally:
+            chaos.disarm(token)
+        assert {a: dict(getattr(svc, a)) for a in before} == before
+        assert svc.epoch == 0
+        svc.verify_parity()
+        r = svc.apply(batch)
+        assert r["epoch"] == 1 and "x/fresh" in svc.pods and "x/newpol" in svc.netpols
+        svc.verify_parity()
+
+    def test_unparseable_ips_follow_the_patched_rows(self):
+        from cyclonus_tpu_torch.engine import host
+
+        pods, namespaces = mk_cluster(10)
+        pods[2] = (*pods[2][:3], "bogus")
+        pods[6] = (*pods[6][:3], "fd00::6")
+        pods[8] = (*pods[8][:3], "also-bogus")
+        svc = VerdictService(pods, namespaces, [], device="cpu")
+        rng = random.Random(3)
+        seen = {tuple(svc.engine._unparseable_ips)}
+        fixed = {
+            8: [Delta(kind="pod_remove", namespace=pods[2][0], name=pods[2][1]),
+                Delta(kind="pod_add", namespace=pods[2][0], name=pods[2][1],
+                      labels=pods[2][2], ip="10.7.1.2")],
+            10: [Delta(kind="pod_remove", namespace=pods[8][0], name=pods[8][1])],
+        }
+        for step in range(12):
+            keys = [k for k in svc.pods if k.split("/", 1)[1] not in ("p2", "p8")]
+            batch = list(fixed.get(step, []))
+            for _ in range(3):
+                ns, name = rng.choice(keys).split("/", 1)
+                pod = svc.pods[f"{ns}/{name}"]
+                if rng.random() < 0.5:
+                    batch.append(Delta(kind="pod_labels", namespace=ns, name=name,
+                                       labels={"app": rng.choice(APPS)}))
+                else:
+                    batch.append(Delta(kind="pod_remove", namespace=ns, name=name))
+                    batch.append(Delta(kind="pod_add", namespace=ns, name=name,
+                                       labels=pod[2], ip=f"10.7.0.{step + 1}"))
+            svc.apply(batch)
+            c = svc.engine.encoding.cluster
+            want = [ip for ip, v4 in zip(c.pod_ips, c.pod_ip_valid)
+                    if not v4 and not host._parseable_ip(ip)]
+            assert svc.engine._unparseable_ips == want
+            seen.add(tuple(want))
+        assert seen == {("bogus", "also-bogus"), ("also-bogus",), ()}
 
 
 class TestQueries:

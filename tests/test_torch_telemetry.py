@@ -89,10 +89,17 @@ REF_ONLY_INSTRUMENTS = {
 
 #: port instruments with no counterpart in the reference: the patches of
 #: the dense counts route's pin (engine/api.py _patch_pin), which the
-#: reference's engine, dropping its pin after every patch, does not make
+#: reference's engine, dropping its pin after every patch, does not make;
+#: and the ip leg of the dense precompute (engine/tiled.py
+#: _direction_tallow), which resolves ipBlock rows through the CIDR
+#: tuple-space partition where the reference resolves them row by row
 PORT_ONLY_INSTRUMENTS = {
     "cyclonus_tpu_pre_cache_patches_total",
     "cyclonus_tpu_pre_cache_patched_columns_total",
+    "cyclonus_tpu_ip_atoms",
+    "cyclonus_tpu_ip_partitions",
+    "cyclonus_tpu_ip_except_rows",
+    "cyclonus_tpu_ip_resolved_columns_total",
 }
 
 
@@ -106,8 +113,10 @@ class TestSchema:
         assert PORT_ONLY_INSTRUMENTS <= set(port) and not PORT_ONLY_INSTRUMENTS & set(ref)
         ref = {k: v for k, v in ref.items() if k not in REF_ONLY_INSTRUMENTS}
         port = {k: v for k, v in port.items() if k not in PORT_ONLY_INSTRUMENTS}
-        # the scan found the whole catalog: 64 less the five left out
+        # the scan found the whole catalog: 64 less the five left out,
+        # and the port's own six
         assert len(port) == len(ref) == 59
+        assert len(schema(ti)) == 59 + len(PORT_ONLY_INSTRUMENTS) == 65
         assert {k: v[:2] for k, v in port.items()} == {k: v[:2] for k, v in ref.items()}
         assert {k: v[2] for k, v in port.items()} == {k: v[2] for k, v in ref.items()}
 
@@ -471,8 +480,9 @@ def twin_engines(monkeypatch, pack: bool, class_compress: str, seed: int = 14):
 REF_ONLY_SPANS: set = set()
 #: port span names with no counterpart in the reference: the dense
 #: route's precompute, opened on every fused and split counts call so
-#: that a profiler trace shows each call's mode
-PORT_ONLY_SPANS = {"engine.precompute"}
+#: that a profiler trace shows each call's mode, and the ip leg inside
+#: every precompute whose peer rows hold ipBlocks
+PORT_ONLY_SPANS = {"engine.precompute", "engine.ip_peers"}
 
 ROUTES = {
     # name: (pack, class_compress, calls, engine method)
@@ -550,6 +560,46 @@ class TestEngineInstrumentation:
 
         assert rows(tracing.render_stats()) == rows(ref_tracing.render_stats())
         assert tracing.stats()["engine.precompute"]["count"] == 1
+
+    def test_ip_leg_feeds_its_instruments_and_span(self, monkeypatch):
+        """Counts calls over policies with ipBlocks (the synthetic
+        cluster's, one except each) feed the ip leg's four instruments:
+        the gauges from its legs, the counter with each precompute's pod
+        columns a direction (the fused and split calls' whole axis, then
+        a pin patch's columns); engine.ip_peers runs once a direction and
+        precompute, inside engine.precompute or engine.pre_patch."""
+        import random
+
+        from cyclonus_tpu_torch.matcher import build_network_policies
+        from cyclonus_tpu_torch.synthetic import build_synthetic
+
+        monkeypatch.setenv("CYCLONUS_PACK", "1")
+        pods, namespaces, policies = build_synthetic(120, 16, random.Random(4))
+        port = TorchPolicyEngine(build_network_policies(True, policies), pods, namespaces,
+                                 device="cpu", compact=False)
+        cases = [PortCase(*c) for c in CASE_TUPLES]
+        reset_both()
+        port.evaluate_grid_counts(cases)
+        port.evaluate_grid_counts(cases)
+        legs = port._ip_legs
+        port.invalidate_after_pod_patch([3, 7])
+        port.evaluate_grid_counts(cases)
+        assert port._last_counts_mode == "steady"
+        snap = port_telemetry.METRICS.snapshot()
+
+        def value(name):
+            return snap[name]["samples"][0]["value"]
+
+        n = int(port._tensors["pod_ns_id"].shape[0])
+        assert value("cyclonus_tpu_ip_except_rows") == sum(g["n_block"] for g in legs.values()) > 0
+        assert value("cyclonus_tpu_ip_atoms") == sum(g["n_atoms"] for g in legs.values())
+        assert value("cyclonus_tpu_ip_partitions") == sum(g["n_partitions"] for g in legs.values())
+        dirs = sum(1 for g in legs.values() if g["n_block"] or g["n_part"])
+        assert value("cyclonus_tpu_ip_resolved_columns_total") == dirs * (2 * n + 2)
+        assert tracing.stats()["engine.ip_peers"]["count"] == 3 * dirs
+        tree = port_telemetry.SPANS.tree()
+        assert any(p.endswith("engine.precompute/engine.ip_peers") for p in tree)
+        assert any(p.endswith("engine.pre_patch/engine.ip_peers") for p in tree)
 
 
 class TestKernelTraces:
