@@ -110,6 +110,19 @@ Phases, each raising on failure:
                 main-path shapes.  The tiered counts are held against the
                 untiered ones: egress equal (every egress tier row is a
                 pad), ingress lower (the tier0 <- app1 Deny hits TCP 80).
+                Then the live-target pass before K1/K3
+                (packed_kernel.live_targets) on the dense route's
+                operands at compact=False, the verdict service's encoding
+                (the benchmark's np-100k: 104 / 184 words), at the main
+                path's two cases and at the six all-ports cases, its
+                launch count zeroed just before: the live words of
+                live_or_kernel and every operand of live_gather_kernel
+                equal bit for bit to the plain versions (_or_rows,
+                gather_live_plain) on the same inputs, both directions
+                compacted, K1 over the compacted operands equal to K1
+                over the full ones; its record on the kernels line holds
+                both kernels' time (median of 5 CUDA-event runs), the
+                plain versions' and the bytes bound, at Q=2 and Q=6.
                 Then the dense dtype plan (pack=False) on the same cluster:
                 the dense route through K4, with compaction off through
                 K5, with the slab forced through K6, the class route and
@@ -2118,6 +2131,75 @@ def kernel_record(name, replaces, pre, n_pods, w_dst, launches):
     return rec
 
 
+#: the six port cases of the benchmark's churn-allports traffic
+ALLPORT_CASES = [(port, f"serve-{port}-{proto.lower()}", proto)
+                 for proto in ("TCP", "UDP", "SCTP") for port in (80, 81)]
+
+
+def live_targets_record(device, policy, pods, namespaces, cases):
+    """The live-target pass (packed_kernel.live_targets) on the operands
+    that K1 contracts at compact=False, the verdict service's encoding,
+    at `cases` and at ALLPORT_CASES: its kernels against their plain
+    versions bit for bit, both directions compacted, K1's counts kept, and
+    the kernels timed beside their bytes bound (each operand read once,
+    the live words and the compacted copies written once)."""
+    import torch
+
+    from cyclonus_tpu_torch.engine import PortCase, TorchPolicyEngine
+    from cyclonus_tpu_torch.engine import packed_kernel as pk
+
+    eng = TorchPolicyEngine(policy, pods, namespaces, device=device, class_compress="0",
+                            compact=False)
+    runs = []
+    for qcases in (cases, [PortCase(*c) for c in ALLPORT_CASES]):
+        ops = eng._kernel_operands(eng._dense_pre(qcases))
+        (q, _nd, de), di = ops["b_e"].shape, ops["b_i"].shape[2]
+        pk.reset_launches()
+        small = pk.live_targets(ops)
+        torch.cuda.synchronize()
+        launches = pk.LAUNCHES["live_targets"]
+        if launches != 1:
+            raise AssertionError(f"live_targets, Q={q}: launches {pk.LAUNCHES}")
+        live = pk._live_words(ops["a_e"], ops["a_i"])
+        check_kernel(live, torch.cat([pk._or_rows(ops["a_e"]), pk._or_rows(ops["a_i"])]),
+                     f"live_or_kernel, Q={q}")
+        depth = {"egress": small["a_e"].shape[1], "ingress": small["a_i"].shape[1]}
+        if not (depth["egress"] < de and depth["ingress"] < di):
+            raise AssertionError(f"live_targets, Q={q}: depths {de}, {di} -> {depth}")
+        words = {"egress": live[:de], "ingress": live[de:]}
+        jobs = {name: (ops[name], words[d], depth[d])
+                for d, pair in pk._DIRECTIONS.items() for name in pair}
+        for name, job in jobs.items():
+            check_kernel(small[name], pk.gather_live_plain(*job),
+                         f"live_gather_kernel {name}, Q={q}")
+        check_kernel(pk._counts_cuda(small, small["bs"]), pk._counts_cuda(ops, ops["bs"]),
+                     f"K1 over the compacted operands, Q={q}")
+        todo = list(jobs.values())
+        ms = time_ms(lambda: pk._gather_live_cuda(todo) + [pk._live_words(ops["a_e"], ops["a_i"])])
+        plain_ms = time_ms(lambda: [pk._or_rows(ops["a_e"]), pk._or_rows(ops["a_i"])]
+                           + [pk.gather_live_plain(*job) for job in todo], reps=1, warm=1)
+        nbytes = sum(4 * (a.numel() + a.numel() // a.shape[-1] * dc) for a, _lv, dc in todo)
+        nbytes += 4 * (ops["a_e"].numel() + ops["a_i"].numel() + de + di)
+        run = {"q": q, "depth": [de, di], "launched": [depth["egress"], depth["ingress"]],
+               "live": [int(pk._live_positions(words[d]).numel()) for d in depth],
+               "launches": launches, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": nbytes / PEAK_BYTES * 1e3, "bytes": nbytes}
+        log(f"live_targets: {ms:.3f} ms (bound {run['bound_ms']:.3f} ms: {nbytes:.4e} bytes; "
+            f"plain {plain_ms:.1f} ms) at {run}, equal to plain (tolerance: exact)")
+        runs.append(run)
+        del ops, small, live, jobs, todo
+    del eng
+    torch.cuda.empty_cache()
+    first = runs[0]
+    return {
+        "name": "live_targets", "route": "cuda", "source": "cyclonus_tpu_torch/csrc/packed_counts.cu",
+        "replaces": None, "launches": sum(r["launches"] for r in runs), "max_abs_err": 0.0,
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "instance": "live_or_kernel, live_gather_kernel", "runs": runs,
+    }
+
+
 def drive_main_path(policy, pods, namespaces, cases, device, tiers=None):
     """The main path, once: both counts routes through the entry points a
     user calls, with the launch counts zeroed just before and read just
@@ -2210,7 +2292,9 @@ def steady_figures(eng, cases, first_s, want, label, expect, kernel=None, make=N
         return dt
 
     def ran_since(before):
-        return {k: v - before[k] for k, v in launch_counts().items()}
+        # the counts kernels alone: the live-target pass before a packed
+        # launch has its own entry
+        return {k: v - before[k] for k, v in launch_counts().items() if k != "live_targets"}
 
     cached = expect in ("steady", "autotune")
     out = {"encode_s": eng.encode_s, "first_call_s": first_s}
@@ -2607,6 +2691,8 @@ def phase_main_path(device):
         torch.cuda.empty_cache()
         sub_size_check(sub_policies, cases, device, tiers=tiers)
         summary[key] = {"counts": counts, "classes": pc.n_classes, "routes": routes}
+
+    records.append(live_targets_record(device, policy, pods, namespaces, cases))
 
     # the lattice against the tier-free verdicts of the same cluster:
     # every egress tier row is an inert pad, and on ingress the lattice
@@ -3044,7 +3130,8 @@ def telemetry_counts(device, headline):
                 raise AssertionError(f"telemetry (b) {name}: counts != the main path's")
         dispatches = ti.EVAL_DISPATCHES.value(path=path) - dispatches0
         flights = [e for e in telemetry.recorder.entries() if e["seq"] > seq0]
-        launches = {k: v - launches0[k] for k, v in launch_counts().items() if v != launches0[k]}
+        launches = {k: v - launches0[k] for k, v in launch_counts().items()
+                    if v != launches0[k] and k != "live_targets"}
         if dispatches != TELEMETRY_CALLS:
             raise AssertionError(f"telemetry (b) {name}: {dispatches} dispatches of {path}")
         if (len(flights) != TELEMETRY_CALLS

@@ -82,8 +82,12 @@
 // verdict.  Integer counts are exact in any order; the weighted partials
 // are integers below 2^24 (the caller's gate), so they are exact in any
 // order too.
+// Before each launch the live-target pass (live_or_kernel,
+// live_gather_kernel, below) may cut each direction's depth to the targets
+// that select a pod.
 // The kernels allocate nothing and run on the caller's stream.
 
+#include <algorithm>
 #include <type_traits>
 
 #include "wgmma_ring.cuh"
@@ -471,6 +475,178 @@ bool aligned16(const void* ptr) {
   return ptr != nullptr && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
+// ---------------------------------------------------------------------------
+// The live-target pass before a launch: live_or_kernel, then
+// live_gather_kernel (engine/packed_kernel.py live_targets).
+//
+// Replaces no TPU kernel.  The verdict service encodes its rules at
+// compact=False (compaction at encode time would bake pod state into the
+// rule tensors, and a pod delta can invalidate it), so K1/K3 contract over
+// every encoded target, and most of them select no pod.  A target whose
+// tmatch bit is zero in every row adds 0 to every popc sum, whatever its
+// tallow bits hold, so each direction's contraction may keep its live
+// targets alone, the same on both of its operands:
+//   live_or_kernel:     live = the OR over the rows of a_e (egress tmatch by
+//                       src row), then of a_i (ingress tmatch by dst row);
+//   live_gather_kernel: each row of a direction's two operands packed again
+//                       over the set bits of its live words: bit k of output
+//                       word j is the row's bit at the (32 j + k)-th set bit,
+//                       zero past the live count.
+// The counts keep their exact values, and K1/K3 walk the live depth.
+// What bounds them: bytes (the OR reads a_e and a_i once, the gather the
+// four operands once and writes their compacted copies, a tenth of their
+// size or less).  The OR reads rows as 16-byte words, a warp on one row's
+// consecutive words, ORs a block's rows in registers and shared memory and
+// adds them with one atomicOr a word; the gather builds its map in shared
+// memory from the live words (prefix popcounts by one warp's scan, then the
+// first source word of each output word), stages a tile of rows with
+// 16-byte loads, and each thread writes one output word, the OR of the live
+// bits of each source word that overlaps it, extracted and shifted to their
+// rank.
+
+constexpr int kLiveThreads = 256;
+constexpr int kOrRows = 256;          // rows a block of live_or_kernel ORs
+constexpr int kMaxLiveDepth = 8192;   // words: the deepest operand the gather maps
+constexpr int kTileWords = 8192;      // staged row words a gather block aims for
+constexpr int kMaxTileRows = 64;
+
+struct OrOperand {
+  const int4* src;  // [rows, d4]
+  int32_t* live;    // [4 d4], zero-filled
+  int rows, d4;
+};
+
+struct OrArgs {
+  OrOperand op[2];  // egress (a_e), then ingress (a_i): blockIdx.z
+};
+
+__global__ void __launch_bounds__(kLiveThreads)
+    live_or_kernel(const __grid_constant__ OrArgs args) {
+  const OrOperand& o = args.op[blockIdx.z];
+  if ((int)blockIdx.y * 32 >= o.d4) return;  // block-uniform
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.y * 32 + lane;
+  const int r_hi = min(o.rows, (int)(blockIdx.x + 1) * kOrRows);
+  int4 acc = make_int4(0, 0, 0, 0);
+  if (col < o.d4) {
+    for (int r = blockIdx.x * kOrRows + warp; r < r_hi; r += kLiveThreads / 32) {
+      const int4 v = __ldg(o.src + (size_t)r * o.d4 + col);
+      acc.x |= v.x;
+      acc.y |= v.y;
+      acc.z |= v.z;
+      acc.w |= v.w;
+    }
+  }
+  __shared__ int4 part[kLiveThreads / 32][32];
+  part[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && col < o.d4) {
+#pragma unroll
+    for (int k = 1; k < kLiveThreads / 32; ++k) {
+      const int4 v = part[k][lane];
+      acc.x |= v.x;
+      acc.y |= v.y;
+      acc.z |= v.z;
+      acc.w |= v.w;
+    }
+    int32_t* out = o.live + 4 * col;
+    if (acc.x) atomicOr(out + 0, acc.x);
+    if (acc.y) atomicOr(out + 1, acc.y);
+    if (acc.z) atomicOr(out + 2, acc.z);
+    if (acc.w) atomicOr(out + 3, acc.w);
+  }
+}
+
+struct GatherOperand {
+  const int32_t* src;   // [rows, d]
+  int32_t* dst;         // [rows, dc]
+  const int32_t* live;  // [d]: the direction's live words
+  int rows, d, dc, tile_rows;
+};
+
+struct GatherArgs {
+  GatherOperand op[4];  // blockIdx.y
+};
+
+// Shared memory words of a gather block's map: live [d], the exclusive
+// prefix popcounts [d + 1] and the first source word of each output word
+// with live bits, then the last live word [dc + 1], rounded up to 16 bytes
+// (the row tile follows).
+__host__ __device__ constexpr int map_words(int d, int dc) { return (2 * d + 2 + dc + 3) / 4 * 4; }
+
+// The bits of v under the set bits of m, packed low (a parallel bit
+// extract); m holds a few bits.
+__device__ __forceinline__ uint32_t extract_bits(uint32_t v, uint32_t m) {
+  uint32_t r = 0;
+  for (int k = 0; m != 0; ++k, m &= m - 1) r |= ((v >> (__ffs(m) - 1)) & 1u) << k;
+  return r;
+}
+
+constexpr int kGatherSmemMax = 4 * (map_words(kMaxLiveDepth, kMaxLiveDepth) + kTileWords);
+static_assert(kGatherSmemMax <= 227 * 1024, "the gather's shared memory");
+
+__global__ void __launch_bounds__(kLiveThreads)
+    live_gather_kernel(const __grid_constant__ GatherArgs args) {
+  const GatherOperand& o = args.op[blockIdx.y];
+  extern __shared__ int4 gather_smem[];
+  int32_t* live = reinterpret_cast<int32_t*>(gather_smem);
+  int32_t* pre = live + o.d;
+  int32_t* first = pre + o.d + 1;
+  int32_t* tile = live + map_words(o.d, o.dc);
+  const int t = threadIdx.x, lane = t & 31;
+  for (int w = t; w < o.d; w += kLiveThreads) live[w] = __ldg(o.live + w);
+  __syncthreads();
+  if (t < 32) {
+    int carry = 0;
+    for (int base = 0; base < o.d; base += 32) {
+      const int w = base + lane;
+      const int c = w < o.d ? __popc(live[w]) : 0;
+      int x = c;
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const int up = __shfl_up_sync(kFull, x, s);
+        if (lane >= s) x += up;
+      }
+      if (w < o.d) pre[w] = carry + x - c;
+      carry += __shfl_sync(kFull, x, 31);
+    }
+    if (lane == 0) pre[o.d] = carry;
+  }
+  __syncthreads();
+  const int n_live = pre[o.d];
+  const int words = (n_live + 31) / 32;  // output words that hold live bits
+  for (int w = t; w < o.d; w += kLiveThreads) {
+    for (int j = (pre[w] + 31) / 32; 32 * j < pre[w + 1] && j < o.dc; ++j) first[j] = w;
+    if (pre[w] < n_live && pre[w + 1] == n_live) first[words] = w;
+  }
+  __syncthreads();
+  for (int r0 = blockIdx.x * o.tile_rows; r0 < o.rows; r0 += gridDim.x * o.tile_rows) {
+    const int nr = min(o.tile_rows, o.rows - r0);
+    const int4* src = reinterpret_cast<const int4*>(o.src + (size_t)r0 * o.d);
+    int4* tile4 = reinterpret_cast<int4*>(tile);
+    for (int k = t; k < nr * o.d / 4; k += kLiveThreads) tile4[k] = __ldg(src + k);
+    __syncthreads();
+    for (int k = t; k < nr * o.dc; k += kLiveThreads) {
+      const int r = k / o.dc, j = k - r * o.dc;
+      uint32_t out = 0;
+      if (j < words) {
+        // the source words whose live bits overlap ranks 32 j .. 32 j + 31,
+        // each one's bits placed at its rank: independent terms
+        const int32_t* row = tile + r * o.d;
+        const int w1 = first[j + 1];
+#pragma unroll 4
+        for (int w = first[j]; w <= w1; ++w) {
+          const uint32_t e = extract_bits((uint32_t)row[w], (uint32_t)live[w]);
+          const int sh = pre[w] - 32 * j;
+          out |= sh >= 0 ? (sh < 32 ? e << sh : 0u) : e >> -sh;
+        }
+      }
+      o.dst[(size_t)r0 * o.dc + k] = (int32_t)out;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 // Registers, static and dynamic shared memory and local (spill) bytes per
@@ -568,6 +744,71 @@ extern "C" int cyclonus_packed_counts(const void* a_e, const void* b_e, const vo
   }
   return weighted ? launch<true, false>(a_e, b_e, b_i, a_i, q, dbe, dbi, p, e, s)
                   : launch<false, false>(a_e, b_e, b_i, a_i, q, dbe, dbi, p, e, s);
+}
+
+// The live-target pass's OR on `stream`: live [de + di] int32 (written
+// here, no fill needed) = the OR over the rows of a_e [ns_pad, de], then of
+// a_i [nd_pad, di]; de and di multiples of 8, both operands 16-byte
+// aligned.  Returns 0 or a cudaError_t code.
+extern "C" int cyclonus_live_targets_or(const void* a_e, const void* a_i, int ns_pad, int nd_pad,
+                                        int de, int di, void* live, void* stream) {
+  if (!aligned16(a_e) || !aligned16(a_i) || live == nullptr || ns_pad < 1 || nd_pad < 1 ||
+      de < 8 || di < 8 || de % 8 != 0 || di % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* out = static_cast<int32_t*>(live);
+  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(int32_t) * ((size_t)de + di), s);
+  if (err != cudaSuccess) return (int)err;
+  const OrArgs args{{OrOperand{static_cast<const int4*>(a_e), out, ns_pad, de / 4},
+                      OrOperand{static_cast<const int4*>(a_i), out + de, nd_pad, di / 4}}};
+  const int rows = ns_pad > nd_pad ? ns_pad : nd_pad;
+  const int d4 = (de > di ? de : di) / 4;
+  const dim3 grid((rows + kOrRows - 1) / kOrRows, (d4 + 31) / 32, 2);
+  live_or_kernel<<<grid, kLiveThreads, 0, s>>>(args);
+  return (int)cudaGetLastError();
+}
+
+// The live-target pass's gather on `stream`, over n_ops (1 to 4) operands:
+// operand k packs src[k] [rows, d] again into dst[k] [rows, dc] over the
+// set bits of live[k] [d] (dims[3 k .. 3 k + 2] = rows, d, dc), dc at least
+// the live count over 32; d and dc multiples of 8, d at most kMaxLiveDepth,
+// src and dst 16-byte aligned.  Returns 0 or a cudaError_t code.
+extern "C" int cyclonus_live_targets_gather(const void* const* src, void* const* dst,
+                                            const void* const* live, const int* dims, int n_ops,
+                                            void* stream) {
+  if (n_ops < 1 || n_ops > 4) return (int)cudaErrorInvalidValue;
+  GatherArgs args{};
+  GatherOperand* o = args.op;
+  size_t smem = 0;
+  int tiles = 0;
+  for (int k = 0; k < n_ops; ++k) {
+    const int rows = dims[3 * k], d = dims[3 * k + 1], dc = dims[3 * k + 2];
+    if (rows < 1 || d < 8 || d % 8 != 0 || d > kMaxLiveDepth || dc < 8 || dc % 8 != 0 ||
+        dc > d || !aligned16(src[k]) || !aligned16(dst[k]) || live[k] == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int tile_rows = std::max(1, std::min(kMaxTileRows, kTileWords / d));
+    o[k] = GatherOperand{static_cast<const int32_t*>(src[k]), static_cast<int32_t*>(dst[k]),
+                         static_cast<const int32_t*>(live[k]), rows, d, dc, tile_rows};
+    const size_t bytes = 4 * ((size_t)map_words(d, dc) + (size_t)tile_rows * d);
+    if (bytes > smem) smem = bytes;
+    const int n = (rows + tile_rows - 1) / tile_rows;
+    if (n > tiles) tiles = n;
+  }
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(live_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kGatherSmemMax);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tiles < 8 * sms ? tiles : 8 * sms, n_ops);
+  live_gather_kernel<<<grid, kLiveThreads, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* cyclonus_cuda_error_string(int err) {

@@ -70,6 +70,22 @@ over the same positions.  Both read exactly this layout.
 
 Invalid pod columns are masked out of every packed operand, so a pad pod
 contributes nothing to either contraction.
+
+Before each launch, counts_from_packed_ops cuts the contraction to the
+targets that select a pod (live_targets): a target whose tmatch bit is
+zero in every row (a_e's for egress, a_i's for ingress) adds 0 to every
+popc sum, whatever its tallow bits hold, so each direction may contract
+over its live targets alone, gathered into fresh words alike on both of
+its operands.  The counts keep their exact values.  At compact=False
+(the verdict service's encoding) most targets select no pod, and the
+kernel's time follows its depth.  A direction deeper than one step of
+STEP_WORDS words (and within MAX_LIVE_DEPTH) is compacted where its live
+targets fit in fewer steps; the operands pass through otherwise, as on
+the class route, whose targets, compacted at encode time, are all live.
+The rule is the same on the CPU and the card.  A CPU tensor takes the plain
+version (_or_rows, gather_live_plain), a CUDA tensor the hand-written
+kernels beside K1 (csrc/packed_counts.cu live_or_kernel,
+live_gather_kernel).
 """
 
 from __future__ import annotations
@@ -80,6 +96,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..telemetry import instruments as ti
+from ..utils.tracing import phase
 from . import build
 from .dense_kernel import _check_int32_partials
 from .encoding import TIER_KEY_NONE
@@ -104,6 +122,10 @@ FRAG_COLS = 256
 #: tier walk positions the kernel stages at a time; each direction's walk
 #: is padded to a multiple of it
 PASS = 128
+#: the deepest contraction operand, in words, that the live-target pass
+#: compacts (csrc/packed_counts.cu kMaxLiveDepth: the gather's map lives
+#: in shared memory); a deeper direction keeps its operands
+MAX_LIVE_DEPTH = 8192
 
 #: the kernel instance each wrapper launches (csrc/packed_counts.cu)
 INSTANCES = {
@@ -113,12 +135,15 @@ INSTANCES = {
     "packed_rowsums_tiered": "packed_counts_kernel<true, true>",
 }
 
-#: launches of each kernel, counted by the wrapper where it launches
+#: launches of each kernel, counted by the wrapper where it launches;
+#: "live_targets" counts the live-target passes on the card (each launches
+#: live_or_kernel, and live_gather_kernel where it compacts)
 LAUNCHES: Dict[str, int] = {
     "packed_counts": 0,
     "packed_rowsums": 0,
     "packed_counts_tiered": 0,
     "packed_rowsums_tiered": 0,
+    "live_targets": 0,
 }
 
 
@@ -408,6 +433,14 @@ def _library():
             ctypes.POINTER(ctypes.c_int)
         ] * 4
         lib.cyclonus_packed_kernel_attrs.restype = ctypes.c_int
+        lib.cyclonus_live_targets_or.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p
+        ] * 2
+        lib.cyclonus_live_targets_or.restype = ctypes.c_int
+        lib.cyclonus_live_targets_gather.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 3 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p
+        ]
+        lib.cyclonus_live_targets_gather.restype = ctypes.c_int
         lib.cyclonus_cuda_error_string.argtypes = [ctypes.c_int]
         lib.cyclonus_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -415,7 +448,7 @@ def _library():
 
 
 def kernel_attrs() -> Dict[str, Dict]:
-    """Per kernel instance (LAUNCHES keys): the instance, registers per
+    """Per kernel instance (INSTANCES keys): the instance, registers per
     thread, static and dynamic shared memory and local (spill) bytes per
     thread, as the loaded library reports them."""
     lib = _library()
@@ -587,13 +620,154 @@ def patch_packed_operands(ops: Dict, sub: Dict, cols: np.ndarray) -> None:
         _patch_fragments(t["frag_i"].transpose(0, 1), st["frag_i"].transpose(0, 1), blk, pos, k)
 
 
+def compacted_depth(n_live: int) -> int:
+    """The contraction depth, in words, that holds n_live targets: whole
+    steps of STEP_WORDS words, at least one (the kernel takes a depth of
+    STEP_WORDS or more)."""
+    return _round_up(-(-int(n_live) // 32), STEP_WORDS)
+
+
+def _or_rows(a: torch.Tensor) -> torch.Tensor:
+    """[R, D] int32 -> [D]: the OR of the rows (R >= 1), halving them a
+    step; the plain version of live_or_kernel."""
+    while a.shape[0] > 1:
+        h = a.shape[0] // 2
+        a = torch.cat([a[:h] | a[h : 2 * h], a[2 * h :]])
+    return a[0]
+
+
+def _live_positions(live: torch.Tensor) -> torch.Tensor:
+    """[D] int32 live words -> [L] int64: the target positions of their
+    set bits (32 w + b), in order."""
+    shift = torch.arange(32, dtype=torch.int32, device=live.device)
+    return (((live[:, None] >> shift) & 1) != 0).flatten().nonzero().flatten()
+
+
+def gather_live_plain(a: torch.Tensor, live: torch.Tensor, depth: int) -> torch.Tensor:
+    """The plain version of live_gather_kernel on one operand: a [..., D]
+    int32 packed again over the set bits of live [D] into [..., depth]
+    words: bit k of word j is a's bit at the (32 j + k)-th set bit of
+    live, and the bits past the live count are zero.  Only the live bits
+    are gathered."""
+    pos = _live_positions(live)
+    bits = ((a[..., pos >> 5] >> (pos & 31).to(torch.int32)) & 1) != 0
+    last = bits.dim() - 1
+    return _pad(pack_bool_words_torch(bits, last), last, depth)
+
+
+def _check_operand(name: str, a: torch.Tensor) -> None:
+    if a.dtype != torch.int32 or not a.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous int32 tensor, got {a.dtype} {tuple(a.shape)}")
+
+
+def _live_words(a_e: torch.Tensor, a_i: torch.Tensor) -> torch.Tensor:
+    """[De + Di] int32 on the operands' device: the OR over the rows of
+    a_e, then of a_i, each direction's live-target words (live_or_kernel
+    on a CUDA tensor)."""
+    if a_e.device.type != "cuda":
+        return torch.cat([_or_rows(a_e), _or_rows(a_i)])
+    for name, a in (("a_e", a_e), ("a_i", a_i)):
+        _check_operand(name, a)
+    dev = a_e.device
+    live = torch.empty(a_e.shape[1] + a_i.shape[1], dtype=torch.int32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.cyclonus_live_targets_or(
+            a_e.data_ptr(), a_i.data_ptr(), a_e.shape[0], a_i.shape[0],
+            a_e.shape[1], a_i.shape[1], live.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.cyclonus_cuda_error_string(err).decode()
+        raise RuntimeError(f"live-target OR launch failed: {msg} ({err})")
+    LAUNCHES["live_targets"] += 1
+    return live
+
+
+def _gather_live_cuda(todo) -> list:
+    """live_gather_kernel over [(operand, live words, depth)], one launch:
+    the compacted copies, in order."""
+    outs = []
+    for a, _live, depth in todo:
+        _check_operand("operand", a)
+        outs.append(torch.empty(a.shape[:-1] + (depth,), dtype=torch.int32, device=a.device))
+    n = len(todo)
+    src = (ctypes.c_void_p * n)(*[a.data_ptr() for a, _l, _d in todo])
+    dst = (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs])
+    live = (ctypes.c_void_p * n)(*[lv.data_ptr() for _a, lv, _d in todo])
+    dims = (ctypes.c_int * (3 * n))(
+        *[v for a, _l, d in todo for v in (a.numel() // a.shape[-1], a.shape[-1], d)]
+    )
+    dev = todo[0][0].device
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.cyclonus_live_targets_gather(
+            src, dst, live, dims, n, torch.cuda.current_stream(dev).cuda_stream
+        )
+    if err != 0:
+        msg = lib.cyclonus_cuda_error_string(err).decode()
+        raise RuntimeError(f"live-target gather launch failed: {msg} ({err})")
+    return outs
+
+
+#: each direction's two contraction operands, the src-row one first
+_DIRECTIONS = {"egress": ("a_e", "b_e"), "ingress": ("b_i", "a_i")}
+
+
+def _compactable(depth: int) -> bool:
+    """Whether the pass may cut a direction of `depth` words: deeper than
+    one step, and within MAX_LIVE_DEPTH."""
+    return STEP_WORDS < depth <= MAX_LIVE_DEPTH
+
+
+def live_targets(ops: Dict) -> Dict:
+    """The operands of one launch with each direction's contraction cut
+    to the targets that select a pod (module docstring): `ops` itself
+    when no direction would save a step of STEP_WORDS words (a skip),
+    else a copy whose compacted directions hold the gathered operands at
+    compacted_depth(live targets).  The choice rests on the operands'
+    shapes and what they hold, and nothing else; where some direction is
+    deeper than one step it reads the live words back, once, to size the
+    copies."""
+    de, di = ops["a_e"].shape[1], ops["a_i"].shape[1]
+    depth = {"egress": de, "ingress": di}
+    launched = dict(depth)
+    with phase("engine.live_targets"):
+        if _compactable(de) or _compactable(di):
+            live = _live_words(ops["a_e"], ops["a_i"])
+            words = {"egress": slice(0, de), "ingress": slice(de, de + di)}
+            host = live.cpu().numpy()
+            for d, n in depth.items():
+                n_live = int(np.unpackbits(host[words[d]].view(np.uint8)).sum())
+                if _compactable(n) and compacted_depth(n_live) < n:
+                    launched[d] = compacted_depth(n_live)
+        for d in depth:
+            ti.PACKED_CONTRACTION_WORDS.set(depth[d], direction=d, depth="encoded")
+            ti.PACKED_CONTRACTION_WORDS.set(launched[d], direction=d, depth="launched")
+        if launched == depth:
+            ti.PACKED_COMPACTION_SKIPS.inc()
+            return ops
+        ti.PACKED_COMPACTIONS.inc()
+        todo = {name: (ops[name], live[words[d]], launched[d])
+                for d, pair in _DIRECTIONS.items() if launched[d] < depth[d] for name in pair}
+        if live.device.type == "cuda":
+            outs = _gather_live_cuda(list(todo.values()))
+        else:
+            outs = [gather_live_plain(*job) for job in todo.values()]
+        return {**ops, **dict(zip(todo, outs))}
+
+
 def counts_from_packed_ops(ops: Dict, plain: bool = False) -> torch.Tensor:
     """The kernel's output (verdict_counts_packed) from packed_operands: a
-    CPU tensor (or plain=True) takes the plain version, a CUDA tensor
-    launches the kernel, or raises."""
+    CPU tensor takes the plain version, a CUDA tensor launches the
+    kernel, or raises; either first passes the operands through
+    live_targets.  plain=True runs the plain version on the operands as
+    given, the yardstick."""
     kind = ops["a_e"].device.type
     if plain:
         return _counts_plain(ops, ops["bs"])
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no packed counts kernel for device {ops['a_e'].device}")
     t = ops["tier"]
     build.note_trace(
         "counts_packed" + ("_tiered" if t is not None else "")
@@ -602,11 +776,10 @@ def counts_from_packed_ops(ops: Dict, plain: bool = False) -> torch.Tensor:
         tuple(tuple(ops[k].shape) for k in ("a_e", "b_e", "b_i", "a_i"))
         + ((tuple(t["key_e"].shape), tuple(t["key_i"].shape)) if t is not None else ()),
     )
+    ops = live_targets(ops)
     if kind == "cpu":
         return _counts_plain(ops, ops["bs"])
-    if kind == "cuda":
-        return _counts_cuda(ops, ops["bs"])
-    raise ValueError(f"no packed counts kernel for device {ops['a_e'].device}")
+    return _counts_cuda(ops, ops["bs"])
 
 
 def sum_partials(partials, q: int, n_pods: int) -> Dict[str, int]:

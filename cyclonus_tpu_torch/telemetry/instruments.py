@@ -156,6 +156,28 @@ IP_EXCEPT_ROWS = REGISTRY.gauge(
     "the last build of the ip legs.",
 )
 
+# --- the packed counts kernels' live-target pass (engine/packed_kernel.py) --
+
+PACKED_CONTRACTION_WORDS = REGISTRY.gauge(
+    "cyclonus_tpu_packed_contraction_words",
+    "Packed counts kernels (K1-K3): contraction depth in 32-bit words of "
+    "the last launch, by direction (egress, ingress) and depth (encoded: "
+    "the operands as laid out; launched: after the live-target pass).",
+    labelnames=("direction", "depth"),
+)
+PACKED_COMPACTIONS = REGISTRY.counter(
+    "cyclonus_tpu_packed_compactions_total",
+    "Packed counts launches whose contraction the live-target pass cut, "
+    "in at least one direction, to the targets that select a pod "
+    "(engine/packed_kernel.py live_targets, span engine.live_targets).",
+)
+PACKED_COMPACTION_SKIPS = REGISTRY.counter(
+    "cyclonus_tpu_packed_compaction_skips_total",
+    "Packed counts launches run on their operands as given: in neither "
+    "direction would the live targets save an 8-word step (the class "
+    "route's targets, compacted at encode time, among them).",
+)
+
 # --- cache hit/miss counters --------------------------------------------
 
 PRE_CACHE_HITS = REGISTRY.counter(

@@ -2,7 +2,9 @@
 card): a verdict service at 4,096 pods, untiered (K1) and under the
 benchmark's admin tiers (K3), through 50 seeded pod batches of label
 changes and remove-then-adds.  After each batch the recount launches the
-counts kernel once, opens engine.pre_patch and not engine.precompute,
+counts kernel once, after one live-target pass (its own launch count:
+the pin is encoded at compact=False, deeper than one step), opens
+engine.pre_patch and not engine.precompute,
 and counts what a freshly built engine of the same state counts.  This
 file imports no JAX, so it runs on a machine that has none:
 
@@ -66,7 +68,7 @@ def test_patched_pin_on_the_card(tiered):
         got = eng.evaluate_grid_counts(CASES)
         st = eng.pre_cache_stats()
         ran = {k: v - launches[k] for k, v in pk.LAUNCHES.items() if v != launches[k]}
-        assert ran == {kernel: 1}, (i, ran)
+        assert ran == {kernel: 1, "live_targets": 1}, (i, ran)
         assert _span_counts() == {"engine.pre_patch": spans["engine.pre_patch"] + 1,
                                   "engine.precompute": spans["engine.precompute"]}, i
         assert st["mode"] == "steady" and st["patches"] == st0["patches"] + 1, (i, st)

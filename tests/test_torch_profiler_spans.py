@@ -8,8 +8,9 @@ With no capture active, or with telemetry off, no range is opened.
 
 Held here:
   * one apply and one recount of a small VerdictService give a host event
-    for each of the apply's spans and for engine.precompute, each inside
-    its parent, none a user annotation; a policy upsert gives
+    for each of the apply's spans, for engine.precompute and for the
+    counts kernel's engine.live_targets, each inside its parent, none a
+    user annotation; a policy upsert gives
     serve.policy and a class-compressed service serve.classes;
   * engine.precompute is opened on fused and split counts calls and
     never on a steady one; engine.ip_peers inside it and inside a pin
@@ -116,9 +117,12 @@ def test_apply_and_recount_spans_are_host_events_in_their_parents():
     (pre,) = by_name(events, "engine.precompute")
     (recount,) = by_name(events, "test.recount")
     assert inside(pre, recount)
+    (live,) = by_name(events, "engine.live_targets")
+    assert inside(live, recount)
     program = [e for e in events if e.name.startswith(("serve.", "engine."))]
     assert {e.name for e in program} >= set(APPLY_SPANS) | {"engine.precompute",
-                                                             "engine.dispatch"}
+                                                             "engine.dispatch",
+                                                             "engine.live_targets"}
     # the profiler's function scope, not record_function's user scope:
     # nothing for the profiler to mirror onto the device timeline
     assert not any(e.is_user_annotation for e in program)
@@ -369,5 +373,6 @@ def test_spans_put_nothing_on_the_device_timeline():
     device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     host_names = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
     assert device, "the capture saw no device work"
-    assert set(APPLY_SPANS) | {"engine.precompute", "engine.ip_peers"} <= host_names
+    assert set(APPLY_SPANS) | {"engine.precompute", "engine.ip_peers",
+                               "engine.live_targets"} <= host_names
     assert not [e.name for e in device if e.name.startswith(("serve.", "engine."))]

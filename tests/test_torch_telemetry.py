@@ -87,12 +87,23 @@ REF_ONLY_INSTRUMENTS = {
 }
 
 
+#: the packed counts kernels' live-target pass (engine/packed_kernel.py
+#: live_targets), which the reference's kernel, contracting over every
+#: target, does not run; it feeds these on every packed launch, whether it
+#: compacts or skips, so the port-vs-reference comparisons of a route
+#: leave them out (metric_view, nonzero_gauges)
+PACKED_PASS_INSTRUMENTS = {
+    "cyclonus_tpu_packed_contraction_words",
+    "cyclonus_tpu_packed_compactions_total",
+    "cyclonus_tpu_packed_compaction_skips_total",
+}
 #: port instruments with no counterpart in the reference: the patches of
 #: the dense counts route's pin (engine/api.py _patch_pin), which the
 #: reference's engine, dropping its pin after every patch, does not make;
-#: and the ip leg of the dense precompute (engine/tiled.py
+#: the ip leg of the dense precompute (engine/tiled.py
 #: _direction_tallow), which resolves ipBlock rows through the CIDR
-#: tuple-space partition where the reference resolves them row by row
+#: tuple-space partition where the reference resolves them row by row;
+#: and the live-target pass's
 PORT_ONLY_INSTRUMENTS = {
     "cyclonus_tpu_pre_cache_patches_total",
     "cyclonus_tpu_pre_cache_patched_columns_total",
@@ -100,7 +111,7 @@ PORT_ONLY_INSTRUMENTS = {
     "cyclonus_tpu_ip_partitions",
     "cyclonus_tpu_ip_except_rows",
     "cyclonus_tpu_ip_resolved_columns_total",
-}
+} | PACKED_PASS_INSTRUMENTS
 
 
 class TestSchema:
@@ -114,9 +125,9 @@ class TestSchema:
         ref = {k: v for k, v in ref.items() if k not in REF_ONLY_INSTRUMENTS}
         port = {k: v for k, v in port.items() if k not in PORT_ONLY_INSTRUMENTS}
         # the scan found the whole catalog: 64 less the five left out,
-        # and the port's own six
+        # and the port's own nine
         assert len(port) == len(ref) == 59
-        assert len(schema(ti)) == 59 + len(PORT_ONLY_INSTRUMENTS) == 65
+        assert len(schema(ti)) == 59 + len(PORT_ONLY_INSTRUMENTS) == 68
         assert {k: v[:2] for k, v in port.items()} == {k: v[:2] for k, v in ref.items()}
         assert {k: v[2] for k, v in port.items()} == {k: v[2] for k, v in ref.items()}
 
@@ -436,10 +447,13 @@ def metric_view(tel):
     """The counters' values and the histograms' observation counts of one
     package, zero series dropped; kernel traces left out (the reference
     counts a trace per jit program, the port the first run of a shape:
-    TestKernelTraces holds the port's own semantics)."""
+    TestKernelTraces holds the port's own semantics), and the live-target
+    pass's instruments, which move on every packed launch and which the
+    reference lacks (test_live_target_pass_feeds_its_instruments holds
+    them)."""
     out = {}
     for name, fam in tel.METRICS.snapshot().items():
-        if name == "cyclonus_tpu_kernel_traces_total":
+        if name == "cyclonus_tpu_kernel_traces_total" or name in PACKED_PASS_INSTRUMENTS:
             continue
         for s in fam["samples"]:
             key = (name, tuple(sorted(s["labels"].items())))
@@ -450,9 +464,11 @@ def metric_view(tel):
 
 
 def nonzero_gauges(tel):
+    """The gauges that read nonzero, the live-target pass's left out."""
     return {
         name for name, fam in tel.METRICS.snapshot().items()
         if fam["type"] == "gauge" and any(s["value"] for s in fam["samples"])
+        and name not in PACKED_PASS_INSTRUMENTS
     }
 
 
@@ -480,9 +496,10 @@ def twin_engines(monkeypatch, pack: bool, class_compress: str, seed: int = 14):
 REF_ONLY_SPANS: set = set()
 #: port span names with no counterpart in the reference: the dense
 #: route's precompute, opened on every fused and split counts call so
-#: that a profiler trace shows each call's mode, and the ip leg inside
-#: every precompute whose peer rows hold ipBlocks
-PORT_ONLY_SPANS = {"engine.precompute", "engine.ip_peers"}
+#: that a profiler trace shows each call's mode, the ip leg inside
+#: every precompute whose peer rows hold ipBlocks, and the packed counts
+#: kernels' live-target pass before each of their launches
+PORT_ONLY_SPANS = {"engine.precompute", "engine.ip_peers", "engine.live_targets"}
 
 ROUTES = {
     # name: (pack, class_compress, calls, engine method)
@@ -600,6 +617,45 @@ class TestEngineInstrumentation:
         tree = port_telemetry.SPANS.tree()
         assert any(p.endswith("engine.precompute/engine.ip_peers") for p in tree)
         assert any(p.endswith("engine.pre_patch/engine.ip_peers") for p in tree)
+
+
+    def test_live_target_pass_feeds_its_instruments(self, monkeypatch):
+        """The packed counts kernels' live-target pass
+        (packed_kernel.live_targets) is registered and fed once a launch,
+        under span engine.live_targets: the depth gauge by direction,
+        encoded and launched, and one of its two counters.  The dense
+        route at compact=False, whose ingress targets mostly select no
+        pod (a namespace's pods carry one app of twenty), compacts; the
+        class route, whose targets are compacted at encode time, skips."""
+        import random
+
+        from cyclonus_tpu_torch.matcher import build_network_policies
+        from cyclonus_tpu_torch.synthetic import build_synthetic
+
+        names = {"cyclonus_tpu_packed_contraction_words", "cyclonus_tpu_packed_compactions_total",
+                 "cyclonus_tpu_packed_compaction_skips_total"}
+        assert names <= set(port_telemetry.METRICS.snapshot())
+        monkeypatch.setenv("CYCLONUS_PACK", "1")
+        pods, namespaces, policies = build_synthetic(120, 600, random.Random(5), n_ns=40)
+        policy = build_network_policies(True, policies)
+        cases = [PortCase(*c) for c in CASE_TUPLES]
+        dense = TorchPolicyEngine(policy, pods, namespaces, device="cpu", compact=False,
+                                  class_compress="0")
+        reset_both()
+        for _ in range(3):
+            dense.evaluate_grid_counts(cases)
+        words = ti.PACKED_CONTRACTION_WORDS.value
+        assert ti.PACKED_COMPACTIONS.value() == 3 and ti.PACKED_COMPACTION_SKIPS.value() == 0
+        assert words(direction="ingress", depth="encoded") == 16
+        assert words(direction="ingress", depth="launched") == 8
+        assert tracing.stats()["engine.live_targets"]["count"] == 3
+        classed = TorchPolicyEngine(policy, pods, namespaces, device="cpu", class_compress="1")
+        assert classed._class_counts_eligible(len(cases))
+        classed.evaluate_grid_counts(cases)
+        assert ti.PACKED_COMPACTIONS.value() == 3 and ti.PACKED_COMPACTION_SKIPS.value() == 1
+        for d in ("egress", "ingress"):
+            assert words(direction=d, depth="launched") == words(direction=d, depth="encoded")
+        assert tracing.stats()["engine.live_targets"]["count"] == 4
 
 
 class TestKernelTraces:
